@@ -1,0 +1,47 @@
+"""Carrying GP weights across from the JAX package.
+
+Both packages build their GP from the same numpy arrays: the training set
+and the log hyperparameters.  ``gp_from_fixture`` reads the pinned bench
+fixture (``benchmarks/bench_fixture.npz``) the way ``bench.py`` does.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from gpmpc_tpu_torch.models.gp import GP
+from gpmpc_tpu_torch.models.gp_core import GPHypers
+
+#: the pinned bench model shared with the JAX package
+FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "benchmarks", "bench_fixture.npz")
+
+
+def gp_from_numpy(X, Y, log_ell, log_sf2, log_sn2, mean_w=None, *,
+                  device=None, dtype=None, **gp_kwargs) -> GP:
+    """A :class:`GP` from numpy arrays: X (N, D), Y (N, Ny), log_ell
+    (Ny, D), log_sf2 (Ny,), log_sn2 (Ny,), mean_w (Ny, F) (zeros (Ny, 0)
+    when None, i.e. the zero mean)."""
+    ny = np.shape(log_sf2)[0]
+    if mean_w is None:
+        mean_w = np.zeros((ny, 0))
+    hyper = GPHypers(log_ell=np.asarray(log_ell), log_sf2=np.asarray(log_sf2),
+                     log_sn2=np.asarray(log_sn2), mean_w=np.asarray(mean_w))
+    if dtype is not None:
+        gp_kwargs["dtype"] = dtype
+    return GP(np.asarray(X), np.asarray(Y), hyper=hyper, device=device,
+              **gp_kwargs)
+
+
+def gp_from_fixture(path: str = FIXTURE, prefix: str = "tank", n=None, *,
+                    device=None, dtype=None, **gp_kwargs) -> GP:
+    """The pinned fixture GP ``{prefix}_*`` (zero mean), optionally cut to
+    its first ``n`` training points."""
+    f = np.load(path)
+    sl = slice(None) if n is None else slice(0, int(n))
+    return gp_from_numpy(f[f"{prefix}_X"][sl], f[f"{prefix}_Y"][sl],
+                         f[f"{prefix}_log_ell"], f[f"{prefix}_log_sf2"],
+                         f[f"{prefix}_log_sn2"], mean_func="zero",
+                         device=device, dtype=dtype, **gp_kwargs)

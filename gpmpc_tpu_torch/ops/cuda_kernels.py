@@ -1,0 +1,346 @@
+"""Hand-written CUDA kernels of the main path, their plain PyTorch versions,
+and the wrappers that choose between them by the device of the tensors.
+
+Counterpart of ``gpmpc_tpu/ops/pallas_kernels.py``.  Two kernels, both
+CUDA C++ for ``sm_90a`` in ``gpmpc_tpu_torch/csrc/``:
+
+* K1 ``riccati_sweep`` replaces ``pallas_kernels.py:riccati_sweep_pallas``:
+  the whole backward Riccati factorization of the stage-QP KKT system plus
+  the forward rollout, in one launch.
+* K2 ``rk4_substeps`` replaces ``pallas_kernels.py:rk4_substeps_pallas``:
+  ``n_sub`` RK4 substeps of the plant ODE in one launch.
+
+Both are latency-bound on an H100: the main path's sweep is ~20 dependent
+stages of 4x4 products and the plant step 40 evaluations of a 4-state ODE,
+far below any roofline, so what costs is the number of launches and of
+device-memory round trips between dependent steps.  Each kernel therefore
+runs its whole chain in one launch, one thread per problem, with the
+carried state in registers (the source files say more).
+
+The wrappers: on a CPU tensor they run the plain version; on a CUDA tensor
+they launch the kernel or raise.  There is no fallback.  The shared library
+is built with ``nvcc`` from ``csrc/*.cu`` at first use into the package's
+own ``build/`` directory (rebuilt when a source changes) and bound with
+``ctypes``.  ``LAUNCHES`` counts kernel launches, one per wrapper call that
+launched.  ``check_riccati_sweep`` and ``check_rk4_substeps`` hold a
+kernel against its plain version on the card, for the tests and the smoke
+script alike.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from gpmpc_tpu_torch.ops.chol import chol_small, tri_solve_small
+
+#: kernel launches by kernel name; a wrapper adds one where it launches
+LAUNCHES = {"riccati_sweep": 0, "rk4_substeps": 0}
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: (nx, nu) pairs the Riccati kernel is instantiated for
+RICCATI_SHAPES = ((4, 2), (5, 3), (2, 1))
+
+#: ODE functors compiled into the RK4 kernel: id name -> (ode_id, nx, nu)
+CUDA_ODES = {"four_tank": (0, 4, 2)}
+
+_lib = None
+#: what the last build did: seconds, library path, compiler output
+BUILD_INFO = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin or "
+                       "/usr/local/cuda/bin): cannot build the CUDA kernels")
+
+
+def build_library() -> ctypes.CDLL:
+    """Build (if its sources changed) and load the kernels' shared library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    so = BUILD_DIR / f"libgpmpc_cuda_{digest.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not so.exists():
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+        os.replace(tmp, so)
+        for stale in BUILD_DIR.glob("libgpmpc_cuda_*.so"):
+            if stale != so:
+                stale.unlink(missing_ok=True)
+    lib = ctypes.CDLL(str(so))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gpmpc_riccati_sweep_f32.argtypes = [ptr] * 17 + [i32] * 4 + [ptr]
+    lib.gpmpc_riccati_sweep_f32.restype = i32
+    lib.gpmpc_rk4_substeps_f32.argtypes = [i32, ptr, ptr, ptr, i32, i32,
+                                           ctypes.c_double, ptr]
+    lib.gpmpc_rk4_substeps_f32.restype = i32
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(so), log=log)
+    _lib = lib
+    return lib
+
+
+def _check_cuda(name, tensors, shapes):
+    """Raise unless every tensor is contiguous float32 of its expected shape
+    on the first one's device (``shapes`` lists the arguments in order)."""
+    dev = tensors[0].device
+    for key, t in zip(shapes, tensors):
+        if not torch.is_tensor(t) or t.device != dev:
+            raise ValueError(f"{name}: {key} must be a tensor on {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shapes[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {shapes[key]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def _raise_on_error(name, code):
+    if code != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{code}")
+
+
+# ------------------------------------------------------------- K1: Riccati
+
+def riccati_sweep_reference(a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx,
+                            qf_x, dx0, reg):
+    """Plain PyTorch version of the Riccati sweep kernel: same math and
+    outputs.  Stage arrays as in ``riccati.StageQP`` with an optional
+    leading batch dim; ``reg`` a scalar or (B,).  Returns ``(dx (...,Nt+1,nx),
+    du (...,Nt,nu), gains (...,Nt,nu,nx), ffs (...,Nt,nu), exp_dec (...))``."""
+    nt, nx, nu = b.shape[-3:]
+    reg = torch.as_tensor(reg, dtype=b.dtype, device=b.device)
+    eye_u = torch.eye(nu, dtype=b.dtype, device=b.device)
+    reg_eye = reg.reshape(reg.shape + (1, 1)) * eye_u
+
+    def mv(m, v):
+        return (m @ v[..., None])[..., 0]
+
+    v_xx, v_x = qf_xx, qf_x
+    gains, ffs = [None] * nt, [None] * nt
+    dec = torch.zeros(b.shape[:-3], dtype=b.dtype, device=b.device)
+    for t in range(nt - 1, -1, -1):
+        at, bt, ct = a[..., t, :, :], b[..., t, :, :], c[..., t, :]
+        av = at.mT @ v_xx
+        bv = bt.mT @ v_xx
+        h_xx = q_xx[..., t, :, :] + av @ at
+        h_uu = q_uu[..., t, :, :] + bv @ bt + reg_eye
+        h_xu = q_xu[..., t, :, :] + av @ bt
+        vc = v_x + mv(v_xx, ct)
+        h_x = q_x[..., t, :] + mv(at.mT, vc)
+        h_u = q_u[..., t, :] + mv(bt.mT, vc)
+        l = chol_small(h_uu, clamp=False)
+        rhs = torch.cat([h_xu.mT, h_u[..., None]], dim=-1)   # (nu, nx+1)
+        sol = tri_solve_small(l, tri_solve_small(l, rhs), trans=True)
+        k_gain, k_ff = -sol[..., :nx], -sol[..., nx]
+        gains[t], ffs[t] = k_gain, k_ff
+        v_xx = h_xx + h_xu @ k_gain
+        v_xx = 0.5 * (v_xx + v_xx.mT)
+        v_x = h_x + mv(h_xu, k_ff)
+        dec = dec - torch.sum(k_ff * (h_u + 0.5 * mv(h_uu, k_ff)), dim=-1)
+
+    dx = dx0
+    dxs, dus = [], []
+    for t in range(nt):
+        du = ffs[t] + mv(gains[t], dx)
+        dxs.append(dx)
+        dus.append(du)
+        dx = mv(a[..., t, :, :], dx) + mv(b[..., t, :, :], du) + c[..., t, :]
+    dxs.append(dx)
+    return (torch.stack(dxs, dim=-2), torch.stack(dus, dim=-2),
+            torch.stack(gains, dim=-3), torch.stack(ffs, dim=-2), dec)
+
+
+def riccati_sweep(a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x, dx0,
+                  reg):
+    """K1 wrapper: the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors.  Same signature and outputs as
+    :func:`riccati_sweep_reference`; on CUDA every argument, ``reg`` and
+    ``dx0`` included, must be a contiguous float32 tensor on the card."""
+    if a.device.type == "cpu":
+        return riccati_sweep_reference(a, b, c, q_xx, q_uu, q_xu, q_x, q_u,
+                                       qf_xx, qf_x, dx0, reg)
+    if a.device.type != "cuda":
+        raise ValueError(f"riccati_sweep: no kernel for device {a.device}")
+    batched = a.ndim == 4
+    nt, nx, nu = b.shape[-3:]
+    bsz = a.shape[0] if batched else 1
+    if (nx, nu) not in RICCATI_SHAPES:
+        raise ValueError(f"riccati_sweep: no kernel instantiated for "
+                         f"(nx, nu)=({nx}, {nu}); have {RICCATI_SHAPES}")
+    lead = (bsz,) if batched else ()
+    shapes = dict(a=lead + (nt, nx, nx), b=lead + (nt, nx, nu),
+                  c=lead + (nt, nx), q_xx=lead + (nt, nx, nx),
+                  q_uu=lead + (nt, nu, nu), q_xu=lead + (nt, nx, nu),
+                  q_x=lead + (nt, nx), q_u=lead + (nt, nu),
+                  qf_xx=lead + (nx, nx), qf_x=lead + (nx,), dx0=lead + (nx,),
+                  reg=lead)
+    args = (a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x, dx0, reg)
+    _check_cuda("riccati_sweep", args, shapes)
+    lib = build_library()
+    kw = dict(dtype=torch.float32, device=a.device)
+    dx = torch.empty(lead + (nt + 1, nx), **kw)
+    du = torch.empty(lead + (nt, nu), **kw)
+    gains = torch.empty(lead + (nt, nu, nx), **kw)
+    ffs = torch.empty(lead + (nt, nu), **kw)
+    dec = torch.empty(lead, **kw)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        code = lib.gpmpc_riccati_sweep_f32(
+            *(t.data_ptr() for t in args),
+            *(t.data_ptr() for t in (dx, du, gains, ffs, dec)),
+            bsz, nt, nx, nu, stream)
+    _raise_on_error("riccati_sweep", code)
+    LAUNCHES["riccati_sweep"] += 1
+    return dx, du, gains, ffs, dec
+
+
+# ----------------------------------------------------------------- K2: RK4
+
+def kernel_ode_id(ode):
+    """``(ode_id, nx, nu)`` of the functor compiled for ``ode``, or None
+    when the RK4 kernel has no functor for it."""
+    return CUDA_ODES.get(getattr(ode, "cuda_ode", None))
+
+
+def rk4_substeps_reference(ode, x, u, h: float, n_sub: int):
+    """Plain PyTorch version of the RK4 substep kernel: ``n_sub`` RK4 steps
+    of size ``h`` of ``ode(x, u)``; x (..., nx), u (..., nu)."""
+    for _ in range(n_sub):
+        k1 = ode(x, u)
+        k2 = ode(x + 0.5 * h * k1, u)
+        k3 = ode(x + 0.5 * h * k2, u)
+        k4 = ode(x + h * k3, u)
+        x = x + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+    return x
+
+
+def rk4_substeps(ode, x, u, h: float, n_sub: int):
+    """K2 wrapper: the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors.  x (nx,) or (B, nx), u (nu,) or (B, nu); on CUDA both
+    contiguous float32 on the card and ``ode`` one with a compiled functor
+    (:data:`CUDA_ODES`)."""
+    if x.device.type == "cpu":
+        return rk4_substeps_reference(ode, x, u, h, n_sub)
+    if x.device.type != "cuda":
+        raise ValueError(f"rk4_substeps: no kernel for device {x.device}")
+    spec = kernel_ode_id(ode)
+    if spec is None:
+        raise ValueError(
+            f"rk4_substeps: no CUDA functor for ODE {ode!r}; the kernel "
+            f"compiles its ODEs in (have {sorted(CUDA_ODES)}; the car and "
+            "quadrotor ODEs are ROADMAP work)")
+    ode_id, nx, nu = spec
+    batched = x.ndim == 2
+    bsz = x.shape[0] if batched else 1
+    lead = (bsz,) if batched else ()
+    _check_cuda("rk4_substeps", (x, u), dict(x=lead + (nx,), u=lead + (nu,)))
+    lib = build_library()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.gpmpc_rk4_substeps_f32(ode_id, x.data_ptr(), u.data_ptr(),
+                                          out.data_ptr(), bsz, int(n_sub),
+                                          float(h), stream)
+    _raise_on_error("rk4_substeps", code)
+    LAUNCHES["rk4_substeps"] += 1
+    return out
+
+
+# ------------------------------------------ kernels against plain versions
+
+def stage_qp_inputs(nt, nx, nu, seed, batch=None, device=None):
+    """Random well-posed stage QPs, those of the JAX package's kernel test:
+    the eleven f32 array arguments of :func:`riccati_sweep` before ``reg``,
+    with a leading batch dim when ``batch`` is given."""
+    rng = np.random.default_rng(seed)
+    lead = () if batch is None else (batch,)
+    a = 0.9 * np.eye(nx) + 0.05 * rng.standard_normal(lead + (nt, nx, nx))
+    m = rng.standard_normal(lead + (nt, nx, nx))
+    arrays = (a, 0.3 * rng.standard_normal(lead + (nt, nx, nu)),
+              0.02 * rng.standard_normal(lead + (nt, nx)),
+              0.5 * (m @ np.swapaxes(m, -1, -2)) + 2.0 * np.eye(nx),
+              0.5 * np.broadcast_to(np.eye(nu), lead + (nt, nu, nu)),
+              0.1 * rng.standard_normal(lead + (nt, nx, nu)),
+              0.1 * rng.standard_normal(lead + (nt, nx)),
+              0.1 * rng.standard_normal(lead + (nt, nu)),
+              5.0 * np.broadcast_to(np.eye(nx), lead + (nx, nx)),
+              0.1 * rng.standard_normal(lead + (nx,)),
+              0.3 * rng.standard_normal(lead + (nx,)))
+    return [torch.tensor(np.ascontiguousarray(x), dtype=torch.float32,
+                         device=device) for x in arrays]
+
+
+def check_riccati_sweep(args, reg) -> float:
+    """Launch K1 on CUDA tensors and its plain version on the same tensors;
+    raise unless dx and du agree within 1e-5 x (1 + max|dx|), the gains and
+    feedforwards within 2e-5 and the predicted decrease within rtol 1e-4
+    (atol 1e-6): the JAX package's kernel-test tolerances.  Returns the
+    largest absolute difference."""
+    got = riccati_sweep(*args, reg)
+    ref = riccati_sweep_reference(*args, reg)
+    scale = float(ref[0].abs().max()) + 1.0
+    errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+    tols = [1e-5 * scale, 1e-5 * scale, 2e-5, 2e-5,
+            1e-6 + 1e-4 * float(ref[4].abs().max())]
+    if not all(g.shape == r.shape for g, r in zip(got, ref)) or not all(
+            e <= t for e, t in zip(errs, tols)):
+        raise AssertionError(
+            f"riccati_sweep disagrees with its plain version at (Nt, nx, "
+            f"nu)={tuple(args[1].shape[-3:])}: max|err| of dx, du, gains, "
+            f"ffs, exp_dec {errs} > {tols}")
+    return max(errs)
+
+
+def check_rk4_substeps(ode, x, u, h: float, n_sub: int) -> float:
+    """Launch K2 on CUDA tensors and its plain version on the same tensors;
+    raise unless they agree within rtol 1e-5, atol 1e-6 (looser than on the
+    CPU: nvcc contracts a*b+c into FMA, which rounds differently from the
+    separate ops).  Returns the largest absolute difference."""
+    got = rk4_substeps(ode, x, u, h, n_sub)
+    ref = rk4_substeps_reference(ode, x, u, h, n_sub)
+    err = float((got - ref).abs().max())
+    if got.shape != ref.shape or not bool(
+            torch.all((got - ref).abs() <= 1e-6 + 1e-5 * ref.abs())):
+        raise AssertionError(f"rk4_substeps disagrees with its plain version:"
+                             f" max|err| {err} (rtol 1e-5, atol 1e-6)")
+    return err
