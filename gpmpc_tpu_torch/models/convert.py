@@ -1,8 +1,13 @@
-"""Carrying GP weights across from the JAX package.
+"""Carrying GP weights between the JAX package and the port.
 
 Both packages build their GP from the same numpy arrays: the training set
-and the log hyperparameters.  ``gp_from_fixture`` reads the pinned bench
-fixture (``benchmarks/bench_fixture.npz``) the way ``bench.py`` does.
+and the log hyperparameters.  ``gp_from_numpy`` builds the port's GP from
+them, ``hypers_to_numpy`` gives them back from a port-trained GP (the JAX
+``GPHypers(**{k: jnp.asarray(v) ...})`` takes them), and
+``gp_from_fixture`` reads the pinned bench fixture
+(``benchmarks/bench_fixture.npz``) the way ``bench.py`` does.  Like the
+``GP`` they make, both functions place it on the card unless ``device``
+says otherwise.
 """
 
 from __future__ import annotations
@@ -33,6 +38,13 @@ def gp_from_numpy(X, Y, log_ell, log_sf2, log_sn2, mean_w=None, *,
         gp_kwargs["dtype"] = dtype
     return GP(np.asarray(X), np.asarray(Y), hyper=hyper, device=device,
               **gp_kwargs)
+
+
+def hypers_to_numpy(hyper: GPHypers) -> dict:
+    """The log hyperparameters as numpy arrays keyed by ``GPHypers``'
+    field names: log_ell (Ny, D), log_sf2 (Ny,), log_sn2 (Ny,), mean_w
+    (Ny, F)."""
+    return {k: v.detach().cpu().numpy() for k, v in hyper._asdict().items()}
 
 
 def gp_from_fixture(path: str = FIXTURE, prefix: str = "tank", n=None, *,

@@ -2,7 +2,9 @@
 
 Counterpart of ``gpmpc_tpu/models/dynamics.py::Model``: wraps a
 continuous-time ODE ``ode(x, u) -> dx/dt`` (any function of torch tensors)
-into fixed-step RK4 maps and their Jacobians.  The adaptive DOPRI5
+into fixed-step RK4 maps, their Jacobians, rollouts and training data.
+Random draws come from a ``torch.Generator`` where the JAX package takes a
+``jax.random`` key (other numbers from the same seed).  The adaptive DOPRI5
 integrator and DAE (``alg``) elimination are ROADMAP slice F item 5.
 """
 
@@ -15,11 +17,14 @@ import torch
 from torch.func import jacfwd
 
 from gpmpc_tpu_torch.ops import cuda_kernels
+from gpmpc_tpu_torch.utils.device import resolve_device
 
 
 class Model:
     """Continuous-time plant wrapped into discrete-time maps:
-    ``rk4``, ``integrate``, ``linearize``, ``discrete_linearize``."""
+    ``rk4``, ``integrate``, ``linearize``, ``discrete_linearize``, ``sim``,
+    ``generate_training_data``.  Every tensor lives on ``device`` (default:
+    the CUDA card; ``device="cpu"`` for the CPU) in ``dtype``."""
 
     def __init__(self,
                  Nx: int,
@@ -37,8 +42,7 @@ class Model:
         self.Nx = int(Nx)
         self.Nu = int(Nu)
         self.dt = float(dt)
-        self.device = torch.device(device) if device is not None else \
-            torch.device("cpu")
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.clip_negative = bool(clip_negative)
         self.integrator_substeps = int(integrator_substeps)
@@ -122,3 +126,65 @@ class Model:
         a = jacfwd(lambda xx: self.rk4(xx, u))(x)
         b = jacfwd(lambda uu: self.rk4(x, uu))(u)
         return a, b
+
+    # ------------------------------------------------------------ simulate
+
+    def _chol_r(self) -> torch.Tensor:
+        eye = torch.eye(self.Nx, dtype=self.dtype, device=self.device)
+        return torch.linalg.cholesky(self.R + 1e-32 * eye)
+
+    def sim(self, x0, u_seq, noise: bool = False,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Multi-step rollout under a control sequence u_seq (T, Nu); with
+        ``noise`` additive process noise ~ N(0, R) per step, drawn from
+        ``generator``.  Returns the trajectory (T+1, Nx) including x0."""
+        kw = dict(dtype=self.dtype, device=self.device)
+        x = torch.as_tensor(np.asarray(x0), **kw)
+        u_seq = torch.as_tensor(np.asarray(u_seq), **kw)
+        t = u_seq.shape[0]
+        if noise:
+            if generator is None:
+                raise ValueError("sim(noise=True) requires a generator")
+            w = torch.randn((t, self.Nx), generator=generator, **kw) \
+                @ self._chol_r().T
+        else:
+            w = torch.zeros((t, self.Nx), **kw)
+        xs = [x]
+        for k in range(t):
+            x = self.integrate(x, u_seq[k]) + w[k]
+            if self.clip_negative:
+                x = torch.clamp(x, min=0.0)
+            xs.append(x)
+        return torch.stack(xs)
+
+    def generate_training_data(self, N: int, uub, ulb, xub, xlb,
+                               noise: bool = True,
+                               generator: Optional[torch.Generator] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sample (x, u) uniformly in box bounds, integrate one step (all N
+        samples in one call: one K2 launch with ``fused_integrator`` on the
+        card), add measurement noise ~ N(0, R).  The draws come from
+        ``generator`` (default: one on the model's device seeded with 0, as
+        the JAX package's default key is PRNGKey(0)).  Returns X (N, Nx+Nu),
+        Y (N, Nx)."""
+        g = generator if generator is not None else \
+            torch.Generator(device=self.device).manual_seed(0)
+        kw = dict(dtype=self.dtype, device=self.device)
+        xlb, xub, ulb, uub = (torch.as_tensor(np.asarray(v), **kw)
+                              for v in (xlb, xub, ulb, uub))
+        x0 = xlb + (xub - xlb) * torch.rand((N, self.Nx), generator=g, **kw)
+        u0 = ulb + (uub - ulb) * torch.rand((N, self.Nu), generator=g, **kw)
+        xn = self.integrate(x0, u0)
+        if noise:
+            xn = xn + torch.randn((N, self.Nx), generator=g, **kw) \
+                @ self._chol_r().T
+        if self.clip_negative:
+            # keep sampled states physical (tank levels)
+            xn = torch.clamp(xn, min=0.0)
+        return torch.cat([x0, u0], dim=1), xn
+
+    # ------------------------------------------------------------ misc
+
+    def get_size(self) -> Tuple[int, int]:
+        """(Nx, Nu)."""
+        return self.Nx, self.Nu

@@ -1,15 +1,18 @@
 """Stateful GP model wrapper.
 
-Counterpart of ``gpmpc_tpu/models/gp.py::GP`` for a GP whose
-hyperparameters are given (``hyper=`` or :meth:`GP.load_model`): stores the
-training data, z-score normalizes inputs/outputs, precomputes per-dim
-factorizations, selects the propagation scheme and predicts.  Training,
-validation and saving are ROADMAP slice C; sparse GPs slice F.
+Counterpart of ``gpmpc_tpu/models/gp.py::GP``: stores the training data,
+z-score normalizes inputs/outputs, trains the hyperparameters (multistart
+batched L-BFGS on the Cholesky NLL, :func:`gp_core.fit`) unless they are
+given (``hyper=`` or :meth:`GP.load_model`), precomputes the per-dim
+factorizations, selects the propagation scheme, predicts, validates on
+held-out data and saves to the JAX package's ``.npz`` format.  Sparse
+(inducing-point) GPs are ROADMAP slice F item 8.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +22,7 @@ from gpmpc_tpu_torch.models import gp_core
 from gpmpc_tpu_torch.models.propagate import Normalization, get_propagator
 from gpmpc_tpu_torch.ops.kernels import KERNELS
 from gpmpc_tpu_torch.utils.config import GPConfig
+from gpmpc_tpu_torch.utils.device import resolve_device
 
 
 def mean_fn_functional(post: gp_core.GPPosterior, norm: Normalization,
@@ -31,8 +35,13 @@ def mean_fn_functional(post: gp_core.GPPosterior, norm: Normalization,
 class GP:
     """Multi-output GP regressor: one independent SE-ARD GP per output dim.
 
-    ``device`` and ``dtype`` place every tensor the GP holds; the training
-    data and hyperparameters may come in as numpy arrays or tensors."""
+    ``device`` (default: the CUDA card; pass ``device="cpu"`` for the CPU)
+    and ``dtype`` place every tensor the GP holds; the training data and
+    hyperparameters may come in as numpy arrays or tensors.  Without
+    ``hyper`` the GP trains at construction (``train=True``): ``multistart``
+    starts per output dim, at most ``max_iters`` L-BFGS iterations each,
+    the perturbed starts drawn from ``generator`` (default: a
+    ``torch.Generator`` on the GP's device seeded with ``seed``)."""
 
     def __init__(self,
                  X,
@@ -41,12 +50,18 @@ class GP:
                  gp_method: str = "TA",
                  hyper: Optional[gp_core.GPHypers] = None,
                  normalize: bool = True,
+                 multistart: int = 2,
+                 max_iters: int = 250,
                  optimizer_opts: Optional[dict] = None,
+                 train: bool = True,
+                 seed: int = 0,
+                 generator: Optional[torch.Generator] = None,
+                 inducing: Optional[int] = None,
+                 mesh=None,
                  kernel: str = "se",
                  device=None,
                  dtype=torch.float32):
-        self.device = torch.device(device) if device is not None else \
-            torch.device("cpu")
+        self.device = resolve_device(device)
         self.dtype = dtype
         X = self._t(X)
         Y = self._t(Y)
@@ -56,16 +71,23 @@ class GP:
             raise NotImplementedError(
                 f"kernel {kernel!r} is not ported yet (ROADMAP slice F item "
                 f"2); supported: {KERNELS}")
-        if hyper is None:
+        if inducing is not None:
             raise NotImplementedError(
-                "GP training is not ported yet (ROADMAP slice C): pass "
-                "hyper= or use GP.load_model / models.convert.gp_from_numpy")
+                "sparse (inducing-point) GPs are not ported yet (ROADMAP "
+                "slice F item 8)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "GP(mesh=): sharding the training grid over devices is not "
+                "ported yet (ROADMAP slice F item 10, torch.distributed)")
         self.X_raw = X
         self.Y_raw = Y
         self.N, self.D = X.shape
         self.Ny = Y.shape[1]
-        self.cfg = GPConfig(mean_func=mean_func, normalize=normalize,
+        self.cfg = GPConfig(mean_func=mean_func, multistart=multistart,
+                            max_iters=max_iters, normalize=normalize,
                             kernel=kernel, **dict(optimizer_opts or {}))
+        self._generator = generator if generator is not None else \
+            torch.Generator(device=self.device).manual_seed(seed)
 
         if normalize:
             z_std = torch.std(X, dim=0, correction=0)
@@ -81,9 +103,31 @@ class GP:
         self.Xn = (X - self.norm.z_mean) / self.norm.z_std
         self.Yn = (Y - self.norm.y_mean) / self.norm.y_std
 
-        self.hyper = gp_core.GPHypers(*(self._t(h) for h in hyper))
-        self.post = gp_core.posterior(self.Xn, self.Yn, self.hyper, self.cfg)
+        self.hyper: Optional[gp_core.GPHypers] = None
+        self.nll: Optional[torch.Tensor] = None
+        #: batched NLL evaluations of the last training
+        self.n_evals = 0
+        self.post: Optional[gp_core.GPPosterior] = None
+        if hyper is not None:
+            self.hyper = gp_core.GPHypers(*(self._t(h) for h in hyper))
+            self._build_posterior()
+        elif train:
+            self.train()
         self.set_method(gp_method)
+
+    # ------------------------------------------------------------ training
+
+    def train(self, generator: Optional[torch.Generator] = None) -> None:
+        """Multistart L-BFGS hyperparameter training of every output dim at
+        once (:func:`gp_core.fit`), then the posterior.  The perturbed
+        starts come from ``generator`` (default: the GP's own)."""
+        self.hyper, self.nll, self.n_evals = gp_core.fit(
+            self.Xn, self.Yn, self.cfg,
+            generator if generator is not None else self._generator)
+        self._build_posterior()
+
+    def _build_posterior(self) -> None:
+        self.post = gp_core.posterior(self.Xn, self.Yn, self.hyper, self.cfg)
 
     def _t(self, a) -> torch.Tensor:
         if torch.is_tensor(a):
@@ -140,13 +184,51 @@ class GP:
         sn2 = torch.exp(self.hyper.log_sn2) + self.cfg.min_noise
         return torch.diag(sn2 * self.norm.y_std ** 2)
 
+    # ------------------------------------------------------------ validate
+
+    def validate(self, X_test, Y_test, verbose: bool = True
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Held-out metrics per output dim: SMSE, MNLP and RMSE (numpy), as
+        the JAX package's ``validate``; the predictions are one batched
+        :func:`gp_core.predict_batch` (one K3 launch on the card)."""
+        z = self._t(X_test)
+        y = np.asarray(Y_test.cpu() if torch.is_tensor(Y_test) else Y_test,
+                       dtype=np.float64)
+        cfg = dataclasses.replace(self.cfg, predict_includes_noise=True)
+        norm = self.norm
+        mu_n, var_n = gp_core.predict_batch(
+            self.post, (z - norm.z_mean) / norm.z_std, cfg)
+        mu = (norm.y_mean + norm.y_std * mu_n).cpu().double().numpy()
+        var = torch.clamp(norm.y_std ** 2 * var_n, min=1e-12)
+        var = var.cpu().double().numpy()
+        err2 = (mu - y) ** 2
+        rmse = np.sqrt(err2.mean(axis=0))
+        smse = err2.mean(axis=0) / y.var(axis=0)
+        mnlp = 0.5 * (err2 / var + np.log(2 * np.pi * var)).mean(axis=0)
+        if verbose:
+            for d in range(self.Ny):
+                print(f"dim {d}: RMSE={rmse[d]:.4g}  SMSE={smse[d]:.4g}  "
+                      f"MNLP={mnlp[d]:.4g}")
+        return smse, mnlp, rmse
+
     # ------------------------------------------------------------ persist
+
+    def save_model(self, path: str) -> None:
+        """Persist X, Y and the hypers to ``.npz`` in the JAX package's
+        format, so either package can load the model."""
+        np.savez(path, X=self.X_raw.cpu().numpy(), Y=self.Y_raw.cpu().numpy(),
+                 **{k: v.detach().cpu().numpy()
+                    for k, v in self.hyper._asdict().items()},
+                 mean_func=self.cfg.mean_func, gp_method=self.gp_method,
+                 normalize=self.cfg.normalize, kernel=self.cfg.kernel,
+                 inducing=0, Zn=np.zeros((0, 0)))
 
     @classmethod
     def load_model(cls, path: str, device=None,
                    dtype=torch.float32, **gp_kwargs) -> "GP":
-        """Rebuild a trained GP from the ``.npz`` that the JAX package's
-        ``GP.save_model`` writes."""
+        """Rebuild a trained GP from the ``.npz`` that either package's
+        ``GP.save_model`` writes (on the card unless ``device`` says
+        otherwise)."""
         z = np.load(path)
         if "inducing" in z and int(z["inducing"]):
             raise NotImplementedError(
@@ -159,3 +241,21 @@ class GP:
                    normalize=bool(z["normalize"]),
                    kernel=str(z["kernel"]) if "kernel" in z else "se",
                    device=device, dtype=dtype, **gp_kwargs)
+
+    # ------------------------------------------------------------ misc
+
+    def get_size(self) -> Tuple[int, int, int]:
+        """(N, D, Ny) — training-set size, input dim, output dim."""
+        return self.N, self.D, self.Ny
+
+    def print_hyper_parameters(self) -> None:
+        """Pretty-print the hypers (and the trained NLL per dim)."""
+        h = self.hyper
+        for d in range(self.Ny):
+            ell = ", ".join(f"{v:.4g}"
+                            for v in torch.exp(h.log_ell[d]).tolist())
+            print(f"GP dim {d}: ell=[{ell}]  "
+                  f"sf2={float(torch.exp(h.log_sf2[d])):.4g}  "
+                  f"sn2={float(torch.exp(h.log_sn2[d])):.4g}"
+                  + (f"  NLL={float(self.nll[d]):.4g}"
+                     if self.nll is not None else ""))

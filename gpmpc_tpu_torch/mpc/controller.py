@@ -35,6 +35,7 @@ from gpmpc_tpu_torch.mpc import costs as cost_lib
 from gpmpc_tpu_torch.solvers import al_sqp, riccati
 from gpmpc_tpu_torch.utils.config import (MPCOptions, SQPConfig,
                                           resolve_solver_opts)
+from gpmpc_tpu_torch.utils.device import resolve_device
 
 _BIG = 1e10
 
@@ -93,8 +94,9 @@ class MPC:
 
     Same constructor surface as the JAX ``MPC`` plus ``device``; the
     options listed in the module docstring raise ``NotImplementedError``.
-    Every tensor lives on ``device`` (default: the model's) in ``dtype``
-    (default: the model's)."""
+    Every tensor lives on ``device`` (default: the CUDA card;
+    ``device="cpu"`` for the CPU), which must be the model's and the GP's,
+    in ``dtype`` (default: the model's)."""
 
     def __init__(self,
                  horizon: float,
@@ -155,8 +157,10 @@ class MPC:
         self.Nt = int(round(horizon / model.dt))
         self.Nx, self.Nu = model.Nx, model.Nu
         self.dtype = dtype = dtype or model.dtype
-        self.device = device = (torch.device(device) if device is not None
-                                else model.device)
+        self.device = device = resolve_device(device)
+        if model.device != device:
+            raise ValueError(f"the model lives on {model.device}, the "
+                             f"controller on {device}")
         if gp is not None and (gp.device != device or gp.dtype != dtype):
             raise ValueError(f"the GP lives on {gp.device}/{gp.dtype}, the "
                              f"controller on {device}/{dtype}")

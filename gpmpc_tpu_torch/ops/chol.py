@@ -1,9 +1,10 @@
 """Cholesky factorization helpers.
 
-Counterpart of ``gpmpc_tpu/ops/chol.py`` for the factorizations the main
-path needs: the Gram factor of the GP posterior (LAPACK/cuSOLVER through
-``torch.linalg``) and the unrolled small-matrix forms the Riccati sweep
-uses.  The unrolled forms build their result from Python lists (no
+Counterpart of ``gpmpc_tpu/ops/chol.py``: the plain Gram factor
+(LAPACK/cuSOLVER through ``torch.linalg``; the plain version of K5, which
+GP training and the posterior reach through ``gp_cuda.cholesky_auto``),
+triangular solves, and the unrolled small-matrix forms the Riccati
+sweeps use.  The unrolled forms build their result from Python lists (no
 in-place writes), so ``torch.func`` transforms pass through them.
 """
 
@@ -13,9 +14,10 @@ import torch
 
 
 def cholesky_psd(a: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of an SPD matrix.  Like ``jnp.linalg.cholesky``
-    a failed factorization gives NaN (in the lower triangle) instead of
-    raising, so the posterior's retry logic sees it without a host sync."""
+    """Lower Cholesky factors of SPD matrices (..., N, N).  Like
+    ``jnp.linalg.cholesky`` a failed factorization gives NaN (in the whole
+    lower triangle) instead of raising, so the posterior's retry logic sees
+    it without a host sync."""
     l, info = torch.linalg.cholesky_ex(a)
     ok = (info == 0)[..., None, None]
     return torch.where(ok, l, torch.full_like(l, float("nan")).tril())
@@ -82,3 +84,34 @@ def tri_solve_small(l: torch.Tensor, b: torch.Tensor,
         x[i] = acc / l[..., i, i, None]
     out = torch.stack(x, dim=-2)
     return out[..., 0] if vec else out
+
+
+def ge_solve_small(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Unrolled general linear solve A X = B for small static n by
+    Gauss-Jordan elimination with partial pivoting, for the nonsymmetric
+    (I + C J) systems of the parallel Riccati combine.  A (..., n, n), B
+    (..., n) or (..., n, k).  A pivot below the dtype's smallest normal is
+    replaced by it, as in the JAX version."""
+    n = a.shape[-1]
+    vec = b.ndim == a.ndim - 1
+    if vec:
+        b = b[..., None]
+    m = torch.cat([a, b.expand(a.shape[:-2] + b.shape[-2:])], dim=-1)
+    rows = torch.arange(n, device=a.device)
+    tiny = torch.finfo(m.dtype).tiny
+    for j in range(n):
+        col = torch.where(rows >= j, torch.abs(m[..., :, j]), -torch.inf)
+        p = torch.argmax(col, dim=-1)                   # partial pivot
+        row_p = torch.take_along_dim(m, p[..., None, None], dim=-2)[..., 0, :]
+        row_j = m[..., j, :]
+        swap = (rows == j).to(m.dtype) - (rows == p[..., None]).to(m.dtype)
+        m = m + swap[..., :, None] * (row_p - row_j)[..., None, :]
+        pivot_row = m[..., j, :]
+        piv = pivot_row[..., j:j + 1]
+        piv = torch.where(torch.abs(piv) > tiny, piv, tiny)
+        pivot_row = pivot_row / piv
+        factors = torch.where(rows == j, 0.0, m[..., :, j])
+        m = m - factors[..., :, None] * pivot_row[..., None, :]
+        m = torch.where((rows == j)[:, None], pivot_row[..., None, :], m)
+    x = m[..., n:]
+    return x[..., 0] if vec else x

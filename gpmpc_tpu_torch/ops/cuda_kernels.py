@@ -1,7 +1,8 @@
-"""Hand-written CUDA kernels of the main path, their plain PyTorch versions,
-and the wrappers that choose between them by the device of the tensors.
+"""Hand-written CUDA kernels of the control path, their plain PyTorch
+versions, the wrappers that choose between them by the device of the
+tensors, and the build of the one library that holds every kernel.
 
-Counterpart of ``gpmpc_tpu/ops/pallas_kernels.py``.  Two kernels, both
+Counterpart of ``gpmpc_tpu/ops/pallas_kernels.py``.  Two kernels here, both
 CUDA C++ for ``sm_90a`` in ``gpmpc_tpu_torch/csrc/``:
 
 * K1 ``riccati_sweep`` replaces ``pallas_kernels.py:riccati_sweep_pallas``:
@@ -9,6 +10,9 @@ CUDA C++ for ``sm_90a`` in ``gpmpc_tpu_torch/csrc/``:
   the forward rollout, in one launch.
 * K2 ``rk4_substeps`` replaces ``pallas_kernels.py:rk4_substeps_pallas``:
   ``n_sub`` RK4 substeps of the plant ODE in one launch.
+
+The GP path's kernels (K3, K4, K5) are in :mod:`gpmpc_tpu_torch.ops.gp_cuda`
+and build into the same library.
 
 Both are latency-bound on an H100: the main path's sweep is ~20 dependent
 stages of 4x4 products and the plant step 40 evaluations of a 4-state ODE,
@@ -20,11 +24,11 @@ carried state in registers (the source files say more).
 The wrappers: on a CPU tensor they run the plain version; on a CUDA tensor
 they launch the kernel or raise.  There is no fallback.  The shared library
 is built with ``nvcc`` from ``csrc/*.cu`` at first use into the package's
-own ``build/`` directory (rebuilt when a source changes) and bound with
-``ctypes``.  ``LAUNCHES`` counts kernel launches, one per wrapper call that
-launched.  ``check_riccati_sweep`` and ``check_rk4_substeps`` hold a
-kernel against its plain version on the card, for the tests and the smoke
-script alike.
+own ``build/`` directory (one compiler process per source, all at once,
+then one link; rebuilt when a source changes) and bound with ``ctypes``.
+``LAUNCHES`` counts kernel launches, one per wrapper call that launched.
+``check_riccati_sweep`` and ``check_rk4_substeps`` hold a kernel against
+its plain version on the card, for the tests and the smoke script alike.
 """
 
 from __future__ import annotations
@@ -43,12 +47,13 @@ import torch
 from gpmpc_tpu_torch.ops.chol import chol_small, tri_solve_small
 
 #: kernel launches by kernel name; a wrapper adds one where it launches
-LAUNCHES = {"riccati_sweep": 0, "rk4_substeps": 0}
+LAUNCHES = {"riccati_sweep": 0, "rk4_substeps": 0, "se_ard_gram": 0,
+            "cholesky": 0, "gp_predict_batch": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: (nx, nu) pairs the Riccati kernel is instantiated for
 RICCATI_SHAPES = ((4, 2), (5, 3), (2, 1))
@@ -78,8 +83,23 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
+def _run_at_once(cmds) -> str:
+    """Run the commands as concurrent processes; their joined output, or
+    raise with the first failing command's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for p, c, out in zip(procs, cmds, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(c)}\n{out}")
+    return "".join(outs)
+
+
 def build_library() -> ctypes.CDLL:
-    """Build (if its sources changed) and load the kernels' shared library."""
+    """Build (if its sources changed) and load the kernels' shared library:
+    one ``nvcc`` per source, all at once, then one link."""
     global _lib
     if _lib is not None:
         return _lib
@@ -95,12 +115,15 @@ def build_library() -> ctypes.CDLL:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
+        objs = [tmp.with_suffix(f".{src.stem}.o") for src in sources]
+        try:
+            log = _run_at_once([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                 str(src)] for src, o in zip(sources, objs)])
+            log += _run_at_once([[nvcc, "-shared", "-o", str(tmp),
+                                  *map(str, objs)]])
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
         os.replace(tmp, so)
         for stale in BUILD_DIR.glob("libgpmpc_cuda_*.so"):
             if stale != so:
@@ -112,6 +135,13 @@ def build_library() -> ctypes.CDLL:
     lib.gpmpc_rk4_substeps_f32.argtypes = [i32, ptr, ptr, ptr, i32, i32,
                                            ctypes.c_double, ptr]
     lib.gpmpc_rk4_substeps_f32.restype = i32
+    lib.gpmpc_se_ard_gram_f32.argtypes = [ptr] * 4 + [ctypes.c_float, ptr] \
+        + [i32] * 3 + [ptr]
+    lib.gpmpc_se_ard_gram_f32.restype = i32
+    lib.gpmpc_cholesky_f32.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.gpmpc_cholesky_f32.restype = i32
+    lib.gpmpc_gp_predict_batch_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+    lib.gpmpc_gp_predict_batch_f32.restype = i32
     BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(so), log=log)
     _lib = lib
     return lib

@@ -1,0 +1,307 @@
+"""The GP path's hand-written CUDA kernels, their plain PyTorch versions,
+the device-switching wrappers and the autograd functions around them.
+
+Counterpart of the GP half of ``gpmpc_tpu/ops/pallas_kernels.py`` (and of
+the routes ``gpmpc_tpu/ops/dispatch.py`` chooses).  Three kernels, CUDA C++
+for ``sm_90a`` in ``gpmpc_tpu_torch/csrc/``, built into the one library of
+:func:`gpmpc_tpu_torch.ops.cuda_kernels.build_library`:
+
+* K4 ``se_ard_gram`` replaces ``se_ard_gram_pallas``: the SE-ARD Gram
+  matrices of P problems over one point set, diagonal written exactly.
+* K5 ``cholesky`` replaces ``cholesky_pallas``: lower Cholesky factors of P
+  SPD matrices; a non-PD pivot gives NaN.
+* K3 ``gp_predict_batch`` replaces ``gp_predict_batch_pallas``: k*(z, X)
+  and the mean k* alpha for B queries and all Ny output dims.
+
+Each takes a leading problem dim, so a GP fit evaluates every (start x
+output dim) problem with one K4 and one K5 launch.  The wrappers run the
+plain version on CPU tensors and launch the kernel on CUDA tensors, or
+raise; they count launches in ``cuda_kernels.LAUNCHES``.  ``SEARDGram`` and
+``Cholesky`` are ``torch.autograd.Function``s whose forward is the wrapper
+and whose backward is plain PyTorch (the JAX package differentiates its
+XLA forms; no TPU kernel has a backward), so the CPU tests exercise the
+same backward the card runs.  ``check_*`` hold a kernel against its plain
+version on the card, for the tests and the smoke script alike.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gpmpc_tpu_torch.ops import cuda_kernels as ck
+from gpmpc_tpu_torch.ops.chol import cholesky_psd
+
+#: tolerances of the JAX package's kernel tests (tests/test_pallas.py)
+GRAM_TOL = 2e-5
+CHOL_TOL = 2e-4          # x max|L|, against the plain version in f64
+KS_TOL, MU_TOL = 2e-5, 2e-4
+
+#: largest matrix K5 takes (the in-place path's int indexing allows more;
+#: the Pallas kernel stops near 1024)
+CHOL_MAX_N = 4096
+
+
+# ------------------------------------------------------------- K4: Gram
+
+def se_ard_gram_reference(x, ell, sf2, sn2, jitter: float = 0.0):
+    """Plain version of K4: ``ops/kernels.py::se_ard_gram`` with a leading
+    problem dim.  x (N, D) shared, ell (P, D), sf2 and sn2 (P,) ->
+    (P, N, N) = sf2 exp(-0.5 d2) off the diagonal, sf2 + sn2 + jitter sf2
+    on it (d2 by the norm expansion, as ``sq_maha``)."""
+    xs = x / ell[:, None, :]                                   # (P, N, D)
+    sq = torch.sum(xs * xs, dim=-1)
+    d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * (xs @ xs.mT)
+    k = sf2[:, None, None] * torch.exp(-0.5 * torch.clamp(d2, min=0.0))
+    eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
+    diag = sf2 + sn2 + jitter * sf2
+    return k * (1.0 - eye) + diag[:, None, None] * eye
+
+
+def se_ard_gram(x, ell, sf2, sn2, jitter: float = 0.0):
+    """K4 wrapper: the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors.  Arguments as :func:`se_ard_gram_reference`; on CUDA all
+    contiguous float32 on the card."""
+    if x.device.type == "cpu":
+        return se_ard_gram_reference(x, ell, sf2, sn2, jitter)
+    if x.device.type != "cuda":
+        raise ValueError(f"se_ard_gram: no kernel for device {x.device}")
+    (n, d), p = x.shape, ell.shape[0]
+    ck._check_cuda("se_ard_gram", (x, ell, sf2, sn2),
+                   dict(x=(n, d), ell=(p, d), sf2=(p,), sn2=(p,)))
+    if d > 256:
+        raise ValueError(f"se_ard_gram: D={d} > 256 points' features")
+    lib = ck.build_library()
+    out = torch.empty((p, n, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.gpmpc_se_ard_gram_f32(
+            x.data_ptr(), ell.data_ptr(), sf2.data_ptr(), sn2.data_ptr(),
+            float(jitter), out.data_ptr(), p, n, d, stream)
+    ck._raise_on_error("se_ard_gram", code)
+    ck.LAUNCHES["se_ard_gram"] += 1
+    return out
+
+
+class SEARDGram(torch.autograd.Function):
+    """K4 with its derivatives: forward :func:`se_ard_gram`; backward the
+    analytic derivatives of K with respect to ell, sf2 and sn2 in plain
+    PyTorch (the diagonal sf2 + sn2 + jitter sf2 exactly).  x is data and
+    gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, ell, sf2, sn2, jitter):
+        k = se_ard_gram(x, ell, sf2, sn2, jitter)
+        ctx.save_for_backward(x, ell, sf2, k)
+        ctx.jitter = jitter
+        return k
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ell, sf2, k = ctx.saved_tensors
+        eye = torch.eye(x.shape[0], dtype=k.dtype, device=k.device)
+        w = g * k * (1.0 - eye)                  # off-diagonal g_ij K_ij
+        g_diag = torch.diagonal(g, dim1=-2, dim2=-1).sum(-1)
+        g_sf2 = w.sum((-2, -1)) / sf2 + (1.0 + ctx.jitter) * g_diag
+        # dK_ij/dell_k = K_ij (x_ik - x_jk)^2 / ell_k^3, one input dim at a
+        # time so no (P, N, N, D) tensor is formed
+        g_ell = torch.stack(
+            [(w * (x[:, None, j] - x[None, :, j]) ** 2).sum((-2, -1))
+             for j in range(x.shape[1])], dim=-1) / ell ** 3
+        return None, g_ell, g_sf2, g_diag, None
+
+
+# --------------------------------------------------------- K5: Cholesky
+
+#: plain version of K5: the LAPACK/cuSOLVER factor through
+#: ``torch.linalg.cholesky_ex``; a failed factorization gives NaN in the
+#: whole lower triangle, like ``jnp.linalg.cholesky``.  a (..., N, N).
+cholesky_reference = cholesky_psd
+
+
+def cholesky(a):
+    """K5 wrapper: the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors.  a (..., N, N); on CUDA contiguous float32 on the card,
+    N <= :data:`CHOL_MAX_N`.  Reads the lower triangle."""
+    if a.device.type == "cpu":
+        return cholesky_reference(a)
+    if a.device.type != "cuda":
+        raise ValueError(f"cholesky: no kernel for device {a.device}")
+    if a.ndim < 2 or a.shape[-2] != a.shape[-1] or a.numel() == 0 or \
+            a.shape[-1] > CHOL_MAX_N:
+        raise ValueError(f"cholesky: needs non-empty (..., N, N) with N <= "
+                         f"{CHOL_MAX_N}, got {tuple(a.shape)}")
+    ck._check_cuda("cholesky", (a,), dict(a=tuple(a.shape)))
+    n, p = a.shape[-1], a.numel() // (a.shape[-1] * a.shape[-1])
+    lib = ck.build_library()
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        code = lib.gpmpc_cholesky_f32(a.data_ptr(), out.data_ptr(), p, n,
+                                      stream)
+    ck._raise_on_error("cholesky", code)
+    ck.LAUNCHES["cholesky"] += 1
+    return out
+
+
+class Cholesky(torch.autograd.Function):
+    """K5 with its derivative: forward :func:`cholesky`; backward the
+    standard adjoint in plain PyTorch: with P = Phi(L^T Lbar) (the lower
+    triangle, diagonal halved), Abar = sym(L^-T P L^-1), by two triangular
+    solves.  A NaN factor gives a NaN gradient."""
+
+    @staticmethod
+    def forward(ctx, a):
+        l = cholesky(a)
+        ctx.save_for_backward(l)
+        return l
+
+    @staticmethod
+    def backward(ctx, g):
+        (l,) = ctx.saved_tensors
+        phi = (l.mT @ g.tril()).tril()
+        phi = phi - 0.5 * torch.diag_embed(torch.diagonal(phi, dim1=-2,
+                                                          dim2=-1))
+        s = torch.linalg.solve_triangular(l.mT, phi, upper=True)
+        s = torch.linalg.solve_triangular(l, s, upper=False, left=False)
+        return 0.5 * (s + s.mT)
+
+
+def cholesky_auto(a):
+    """Differentiable lower Cholesky factors of SPD matrices (..., N, N),
+    all of them in one K5 launch on the card: the counterpart of
+    ``gpmpc_tpu/ops/dispatch.py::cholesky_auto``, by device instead of a
+    TPU policy."""
+    return Cholesky.apply(a.contiguous())
+
+
+# ------------------------------------------------------ K3: batched predict
+
+def gp_predict_batch_reference(z, x, ell, sf2, alpha):
+    """Plain version of K3: z (B, D) queries, x (N, D) points, ell (Ny, D),
+    sf2 (Ny,), alpha (Ny, N) -> (mu (Ny, B), ks (Ny, B, N)) with
+    ks = se_ard_cross(z, x, ell_d, sf2_d) per dim and mu = ks alpha."""
+    zs = z / ell[:, None, :]                                   # (Ny, B, D)
+    xs = x / ell[:, None, :]                                   # (Ny, N, D)
+    d2 = (torch.sum(zs * zs, dim=-1)[:, :, None]
+          + torch.sum(xs * xs, dim=-1)[:, None, :] - 2.0 * (zs @ xs.mT))
+    ks = sf2[:, None, None] * torch.exp(-0.5 * torch.clamp(d2, min=0.0))
+    return (ks @ alpha[:, :, None])[..., 0], ks
+
+
+def gp_predict_batch(z, x, ell, sf2, alpha):
+    """K3 wrapper: the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors.  Arguments as :func:`gp_predict_batch_reference`; on
+    CUDA all contiguous float32 on the card, D <= 64."""
+    if z.device.type == "cpu":
+        return gp_predict_batch_reference(z, x, ell, sf2, alpha)
+    if z.device.type != "cuda":
+        raise ValueError(f"gp_predict_batch: no kernel for device {z.device}")
+    (b, d), n, ny = z.shape, x.shape[0], ell.shape[0]
+    ck._check_cuda("gp_predict_batch", (z, x, ell, sf2, alpha),
+                   dict(z=(b, d), x=(n, d), ell=(ny, d), sf2=(ny,),
+                        alpha=(ny, n)))
+    if d > 64:
+        raise ValueError(f"gp_predict_batch: D={d} > 64")
+    lib = ck.build_library()
+    kw = dict(dtype=torch.float32, device=z.device)
+    mu = torch.empty((ny, b), **kw)
+    ks = torch.empty((ny, b, n), **kw)
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        code = lib.gpmpc_gp_predict_batch_f32(
+            z.data_ptr(), x.data_ptr(), ell.data_ptr(), sf2.data_ptr(),
+            alpha.data_ptr(), mu.data_ptr(), ks.data_ptr(), ny, b, n, d,
+            stream)
+    ck._raise_on_error("gp_predict_batch", code)
+    ck.LAUNCHES["gp_predict_batch"] += 1
+    return mu, ks
+
+
+# ------------------------------------------ kernels against plain versions
+
+def gram_inputs(n, d, p, seed, device=None):
+    """Inputs of the JAX package's Gram test, for ``p`` problems: x (n, d)
+    uniform in [-2, 2], ell ~ exp(0.3 N(0,1)), sf2 1.7, sn2 0.03, f32."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2, 2, (n, d))
+    ell = np.exp(0.3 * rng.standard_normal((p, d)))
+    kw = dict(dtype=torch.float32, device=device)
+    return (torch.tensor(x, **kw), torch.tensor(ell, **kw),
+            torch.full((p,), 1.7, **kw), torch.full((p,), 0.03, **kw))
+
+
+def spd_inputs(n, p, seed, device=None):
+    """``p`` SPD matrices a a^T + n I of the JAX package's Cholesky test,
+    f32 (p, n, n)."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((p, n, n))
+    spd = a @ np.swapaxes(a, -1, -2) + n * np.eye(n)
+    return torch.tensor(spd, dtype=torch.float32, device=device)
+
+
+def predict_inputs(n, d, b, ny, seed, device=None):
+    """Inputs of the JAX package's batched-predict test for ``ny`` dims:
+    z (b, d), x (n, d) uniform in [-2, 2], ell ~ exp(0.2 N(0,1)), sf2 1.3,
+    alpha ~ N(0,1), f32."""
+    rng = np.random.default_rng(seed)
+    kw = dict(dtype=torch.float32, device=device)
+    return (torch.tensor(rng.uniform(-2, 2, (b, d)), **kw),
+            torch.tensor(rng.uniform(-2, 2, (n, d)), **kw),
+            torch.tensor(np.exp(0.2 * rng.standard_normal((ny, d))), **kw),
+            torch.full((ny,), 1.3, **kw),
+            torch.tensor(rng.standard_normal((ny, n)), **kw))
+
+
+def check_se_ard_gram(x, ell, sf2, sn2, jitter: float = 1e-6) -> float:
+    """Launch K4 on CUDA tensors and its plain version on the same tensors;
+    raise unless they agree within rtol and atol 2e-5.  Returns the largest
+    absolute difference."""
+    got = se_ard_gram(x, ell, sf2, sn2, jitter)
+    ref = se_ard_gram_reference(x, ell, sf2, sn2, jitter)
+    err = float((got - ref).abs().max())
+    if got.shape != ref.shape or not bool(torch.all(
+            (got - ref).abs() <= GRAM_TOL + GRAM_TOL * ref.abs())):
+        raise AssertionError(f"se_ard_gram disagrees with its plain version "
+                             f"at {tuple(got.shape)}: max|err| {err}")
+    return err
+
+
+def check_cholesky(a) -> float:
+    """Launch K5 on CUDA tensors and hold it against its plain version in
+    f64 on the same inputs: atol 2e-4 x max|L|.  Returns the largest
+    absolute difference."""
+    got = cholesky(a)
+    ref = cholesky_reference(a.double())
+    err = float((got.double() - ref).abs().max())
+    if got.shape != ref.shape or not err <= CHOL_TOL * float(ref.abs().max()):
+        raise AssertionError(f"cholesky disagrees with its plain version at "
+                             f"{tuple(a.shape)}: max|err| {err}")
+    return err
+
+
+def check_cholesky_not_pd(a) -> None:
+    """Raise unless K5 and its plain version both give NaN in the whole
+    lower triangle of every matrix of ``a`` (each with a negative pivot)."""
+    for l in (cholesky(a), cholesky_reference(a)):
+        low = torch.tril(torch.ones_like(l, dtype=torch.bool))
+        if not bool(torch.all(torch.isnan(l[low]))):
+            raise AssertionError("cholesky gave finite values for a matrix "
+                                 "that is not positive definite")
+
+
+def check_gp_predict_batch(z, x, ell, sf2, alpha) -> float:
+    """Launch K3 on CUDA tensors and its plain version on the same tensors;
+    raise unless k* agrees within rtol and atol 2e-5 and mu within 2e-4.
+    Returns the largest absolute difference of k*."""
+    mu, ks = gp_predict_batch(z, x, ell, sf2, alpha)
+    mu_r, ks_r = gp_predict_batch_reference(z, x, ell, sf2, alpha)
+    err_k = float((ks - ks_r).abs().max())
+    err_m = float((mu - mu_r).abs().max())
+    if ks.shape != ks_r.shape or mu.shape != mu_r.shape or not (
+            bool(torch.all((ks - ks_r).abs() <= KS_TOL + KS_TOL * ks_r.abs()))
+            and bool(torch.all((mu - mu_r).abs()
+                               <= MU_TOL + MU_TOL * mu_r.abs()))):
+        raise AssertionError(f"gp_predict_batch disagrees with its plain "
+                             f"version: max|err| k* {err_k}, mu {err_m}")
+    return err_k

@@ -5,12 +5,16 @@ Counterpart of ``gpmpc_tpu/ops/kernels.py``:
     k(x, z) = sf2 * exp(-0.5 * sum_i (x_i - z_i)^2 / ell_i^2)
 
 Shapes: N, M = numbers of points, D = input dim.  Only the SE family is
-ported; the Matérn families are ROADMAP slice F.
+ported; the Matérn families are ROADMAP slice F.  The Gram goes through
+K4 (``ops/gp_cuda.py``): the CUDA kernel for CUDA tensors, its plain
+version for CPU tensors, with the same plain-PyTorch derivatives on both.
 """
 
 from __future__ import annotations
 
 import torch
+
+from gpmpc_tpu_torch.ops import gp_cuda
 
 #: supported kernel families (GPConfig.kernel) in this package
 KERNELS = ("se",)
@@ -47,13 +51,21 @@ def se_ard_cross(x: torch.Tensor, z: torch.Tensor, ell: torch.Tensor,
     return sf2 * torch.exp(-0.5 * sq_maha(x / ell, z / ell))
 
 
-def se_ard_gram(x: torch.Tensor, ell: torch.Tensor, sf2: torch.Tensor,
-                sn2=0.0, jitter: float = 0.0) -> torch.Tensor:
-    """Gram matrix K(X, X) + (sn2 + jitter * sf2) * I; (N, D) -> (N, N).
-    The diagonal is written exactly (sf2 + sn2 + jitter * sf2)."""
-    k = se_ard_cross(x, x, ell, sf2)
-    eye = torch.eye(x.shape[0], dtype=k.dtype, device=k.device)
-    return k * (1.0 - eye) + (sf2 + sn2 + jitter * sf2) * eye
+def se_ard_gram(x: torch.Tensor, ell: torch.Tensor, sf2, sn2=0.0,
+                jitter: float = 0.0) -> torch.Tensor:
+    """Gram matrix K(X, X) + (sn2 + jitter * sf2) * I with the diagonal
+    written exactly (sf2 + sn2 + jitter * sf2): x (N, D), ell (D,) ->
+    (N, N); with a leading problem dim, ell (P, D) and sf2, sn2 (P,) (or
+    numbers) -> (P, N, N), all P problems in one K4 launch on the card.
+    Differentiable in ell, sf2 and sn2 (``gp_cuda.SEARDGram``)."""
+    single = ell.ndim == 1
+    ells = ell[None] if single else ell
+    kw = dict(dtype=x.dtype, device=x.device)
+    sf2, sn2 = (torch.as_tensor(v, **kw).expand(ells.shape[0]).contiguous()
+                for v in (sf2, sn2))
+    k = gp_cuda.SEARDGram.apply(x.contiguous(), ells.contiguous(), sf2, sn2,
+                                float(jitter))
+    return k[0] if single else k
 
 
 def kernel_cross(name: str, x: torch.Tensor, z: torch.Tensor,
@@ -69,7 +81,8 @@ def kernel_cross(name: str, x: torch.Tensor, z: torch.Tensor,
 def kernel_gram(name: str, x: torch.Tensor, ell: torch.Tensor,
                 sf2: torch.Tensor, sn2=0.0, jitter: float = 0.0
                 ) -> torch.Tensor:
-    """Gram for the named kernel family, diagonal written exactly."""
+    """Gram for the named kernel family, diagonal written exactly; shapes
+    as :func:`se_ard_gram`."""
     if name == "se":
         return se_ard_gram(x, ell, sf2, sn2, jitter)
     raise NotImplementedError(

@@ -52,7 +52,7 @@ class SQPConfig:
     ls_c1: float = 1e-4
     merit_viol: float = 0.0         # L1 exact-penalty weight on inequality
     #                                 violations in the line-search merit
-    parallel_kkt: bool = False      # associative-scan Riccati (not ported)
+    parallel_kkt: bool = False      # associative-scan Riccati
     fused_kkt: bool = False         # single-launch Riccati sweep kernel
     #                                 (CUDA on a CUDA tensor, its plain torch
     #                                 version on a CPU tensor); f32 only

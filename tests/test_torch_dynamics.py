@@ -16,6 +16,7 @@ from gpmpc_tpu_torch.ops.cuda_kernels import (LAUNCHES, rk4_substeps,
 from gpmpc_tpu_torch.systems import four_tank_ode
 
 KW = dict(Nx=4, Nu=2, dt=3.0, integrator_substeps=10)
+TKW = dict(KW, device="cpu")
 
 
 def _states(n, seed):
@@ -27,7 +28,7 @@ def _states(n, seed):
 
 def test_ode_and_maps_match_jax_f64():
     jm = JModel(ode=lambda x, u: jode(x, u), dtype=jnp.float64, **KW)
-    tm = Model(ode=four_tank_ode, dtype=torch.float64, **KW)
+    tm = Model(ode=four_tank_ode, dtype=torch.float64, **TKW)
     xs, us = _states(6, 0)
     for x, u in zip(xs, us):
         jx, ju = jnp.asarray(x), jnp.asarray(u)
@@ -80,8 +81,8 @@ def test_fused_integrator_on_cpu_is_the_plain_loop():
     """On the CPU, Model(fused_integrator=True) runs the kernel's plain
     version — the same substep loop as the default integrator — and
     launches nothing."""
-    m0 = Model(ode=four_tank_ode, **KW)
-    m1 = Model(ode=four_tank_ode, fused_integrator=True, **KW)
+    m0 = Model(ode=four_tank_ode, **TKW)
+    m1 = Model(ode=four_tank_ode, fused_integrator=True, **TKW)
     x = torch.tensor([8.0, 10.0, 1.0, 1.5])
     u = torch.tensor([3.0, 3.0])
     before = dict(LAUNCHES)
@@ -94,18 +95,18 @@ def test_fused_integrator_on_cpu_is_the_plain_loop():
 def test_fused_integrator_guards():
     with pytest.raises(ValueError, match="f32"):
         Model(ode=four_tank_ode, fused_integrator=True, dtype=torch.float64,
-              **KW)
+              **TKW)
     with pytest.raises(ValueError, match="DAE"):
         Model(ode=four_tank_ode, fused_integrator=True, alg=lambda *a: 0,
-              **KW)
+              **TKW)
     with pytest.raises(ValueError, match="adaptive"):
         Model(ode=four_tank_ode, fused_integrator=True, integrator="adaptive",
-              **KW)
+              **TKW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(ode=four_tank_ode, integrator="adaptive", **KW)
+        Model(ode=four_tank_ode, integrator="adaptive", **TKW)
     with pytest.raises(ValueError, match="unknown integrator"):
-        Model(ode=four_tank_ode, integrator="euler", **KW)
+        Model(ode=four_tank_ode, integrator="euler", **TKW)
     # exact-mode MPC embeds integrate in the NLP: refused with the kernel
-    fused = Model(ode=four_tank_ode, fused_integrator=True, **KW)
+    fused = Model(ode=four_tank_ode, fused_integrator=True, **TKW)
     with pytest.raises(ValueError, match="exact"):
-        MPC(horizon=9.0, model=fused, discrete_method="exact")
+        MPC(horizon=9.0, model=fused, discrete_method="exact", device="cpu")

@@ -37,7 +37,7 @@ def pair():
               mean_func="zero", hyper=hyper, gp_method="TA",
               optimizer_opts=OPTS)
     tgp = gp_from_fixture(dtype=torch.float64, gp_method="TA",
-                          optimizer_opts=OPTS)
+                          optimizer_opts=OPTS, device="cpu")
     return jgp, tgp
 
 
@@ -121,7 +121,7 @@ def test_load_model_reads_jax_npz(tmp_path):
               hyper=hyper, gp_method="ME")
     path = str(tmp_path / "gp.npz")
     jgp.save_model(path)
-    tgp = GP.load_model(path, dtype=torch.float64)
+    tgp = GP.load_model(path, dtype=torch.float64, device="cpu")
     assert tgp.gp_method == "ME" and tgp.cfg.mean_func == "linear"
     for z in rng.uniform(-1, 1, (4, 3)):
         mu_t, var_t = tgp.predict(z)
@@ -134,10 +134,12 @@ def test_gp_from_numpy_f32_and_guards():
     f = np.load(FIXTURE)
     gp = gp_from_numpy(f["tank_X"][:20], f["tank_Y"][:20], f["tank_log_ell"],
                        f["tank_log_sf2"], f["tank_log_sn2"],
-                       optimizer_opts=OPTS)
+                       optimizer_opts=OPTS, device="cpu")
     assert gp.post.chol.dtype == torch.float32
     assert bool(torch.all(torch.isfinite(gp.post.chol)))
-    with pytest.raises(NotImplementedError, match="ROADMAP slice C"):
-        GP(f["tank_X"], f["tank_Y"])
+    with pytest.raises(NotImplementedError, match="ROADMAP slice F"):
+        GP(f["tank_X"], f["tank_Y"], inducing=10, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice F item 10"):
+        GP(f["tank_X"], f["tank_Y"], mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gp.set_method("EM")

@@ -43,11 +43,11 @@ def _port_side(dtype, gp_method, discrete_method, fused, nt=NT,
                n_train=N_TRAIN, **kw):
     m = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT, R=MODEL_R,
               clip_negative=True, dtype=dtype, integrator_substeps=10,
-              fused_integrator=fused)
+              fused_integrator=fused, device="cpu")
     g = gp_from_fixture(n=n_train, dtype=dtype, gp_method=gp_method,
-                        optimizer_opts=GP_OPTS)
+                        optimizer_opts=GP_OPTS, device="cpu")
     return MPC(horizon=nt * DT, model=m, gp=g, gp_method=gp_method,
-               discrete_method=discrete_method, **MPC_KW, **kw)
+               discrete_method=discrete_method, device="cpu", **MPC_KW, **kw)
 
 
 def closed_loop_parity(gp_method, discrete_method):
@@ -95,16 +95,16 @@ def test_closed_loop_explicit_noise_matches_jax_x64():
 
 
 def test_unported_options_raise():
-    m = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT)
-    g = gp_from_fixture(n=10)
+    m = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT, device="cpu")
+    g = gp_from_fixture(n=10, device="cpu")
     for kw in (dict(S=np.eye(2)), dict(lam=1.0), dict(lam_state=1.0),
                dict(terminal_constraint=1.0), dict(online_capacity=5),
                dict(discrete_method="hybrid"),
                dict(inequality_constraints=lambda *a: 0, num_con_par=1),
                dict(gp_method="EM")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MPC(horizon=3 * DT, model=m, gp=g, **kw)
-    mpc = MPC(horizon=3 * DT, model=m, gp=g, feedback=False)
+            MPC(horizon=3 * DT, model=m, gp=g, device="cpu", **kw)
+    mpc = MPC(horizon=3 * DT, model=m, gp=g, feedback=False, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mpc.solve_mc(X0, DT, XSP, 2)
     for call in (lambda r: mpc.solve(X0, 3 * DT, r, noise=False),
@@ -113,6 +113,6 @@ def test_unported_options_raise():
             call(np.tile(XSP, (4, 1)))
     with pytest.raises(ValueError, match="fused_kkt"):
         MPC(horizon=3 * DT, model=Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT,
-                                        dtype=torch.float64),
-            gp=gp_from_fixture(n=10, dtype=torch.float64),
-            solver_opts=dict(fused_kkt=True))
+                                        dtype=torch.float64, device="cpu"),
+            gp=gp_from_fixture(n=10, dtype=torch.float64, device="cpu"),
+            solver_opts=dict(fused_kkt=True), device="cpu")

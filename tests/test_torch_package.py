@@ -47,7 +47,7 @@ def test_fused_integrator_without_kernel_ode_raises_on_cuda():
     assert ck.kernel_ode_id(lambda x, u: x) is None
     # on the CPU any ODE is fine: the wrapper runs the plain loop there
     Model(ode=lambda x, u: four_tank_ode(x, u), Nx=4, Nu=2, dt=3.0,
-          fused_integrator=True)
+          fused_integrator=True, device="cpu")
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -95,4 +95,6 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 def test_reset_launches():
     ck.LAUNCHES["rk4_substeps"] += 3
     ck.reset_launches()
-    assert ck.LAUNCHES == {"riccati_sweep": 0, "rk4_substeps": 0}
+    assert ck.LAUNCHES == {"riccati_sweep": 0, "rk4_substeps": 0,
+                           "se_ard_gram": 0, "cholesky": 0,
+                           "gp_predict_batch": 0}

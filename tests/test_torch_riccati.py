@@ -121,16 +121,69 @@ def test_select_backend():
         tric.solve_fused
     assert tric.select_backend(500, torch.float32, fused=True) is \
         tric.solve_fused             # no horizon cap: the kernel loops
-    assert tric.select_backend(20, torch.float32) is tric.solve
+    assert tric.select_backend(20, torch.float32) is tric.solve_parallel
+    assert tric.select_backend(19, torch.float32) is tric.solve
     assert tric.select_backend(20, torch.float64) is tric.solve
+    assert tric.select_backend(20, torch.float32, parallel=True) is \
+        tric.solve_parallel
     with pytest.raises(ValueError, match="f32"):
         tric.select_backend(20, torch.float64, fused=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tric.select_backend(20, torch.float32, parallel=True)
     qp, dx0 = random_qp(4, 2, 1, 0)
     with pytest.raises(ValueError, match="f32"):
         tric.solve_fused(tric.StageQP(*map(torch.as_tensor, qp)),
                          torch.as_tensor(dx0), 1e-6)
+
+
+@pytest.mark.parametrize("nt", [3, 5, 8, 19, 20, 60, 256])
+@pytest.mark.parametrize("f64", [False, True])
+@pytest.mark.parametrize("fused,parallel", [(False, False), (False, True),
+                                            (True, False), (True, True)])
+def test_select_backend_matches_jax(nt, f64, fused, parallel):
+    """The port picks the KKT solve the JAX package picks, by name, over
+    horizons on both sides of PARALLEL_MIN_NT and up to JAX's fused_max_nt
+    (beyond it JAX degrades fused to the associative scan; the port's sweep
+    kernel loops at run time and keeps it, tested in
+    test_select_backend)."""
+    tdt, jdt = ((torch.float64, jnp.float64) if f64
+                else (torch.float32, jnp.float32))
+    if fused and f64:
+        with pytest.raises(ValueError):
+            jric.select_backend(nt, jdt, fused=fused, parallel=parallel)
+        with pytest.raises(ValueError):
+            tric.select_backend(nt, tdt, fused=fused, parallel=parallel)
+        return
+    assert tric.select_backend(nt, tdt, fused=fused, parallel=parallel
+                               ).__name__ == jric.select_backend(
+        nt, jdt, fused=fused, parallel=parallel).__name__
+
+
+@pytest.mark.parametrize("nt,nx,nu,seed", [(20, 4, 2, 0), (13, 5, 3, 1),
+                                           (8, 2, 1, 2), (1, 3, 2, 3)])
+def test_solve_parallel_matches_jax_f64(nt, nx, nu, seed):
+    """The associative-scan Riccati solve against JAX x64 solve_parallel on
+    the stage QPs of tests/test_pallas.py: rtol 1e-8 (scale-relative)."""
+    qp, dx0 = random_qp(nt, nx, nu, seed)
+    ref = jric.solve_parallel(jric.StageQP(*map(jnp.asarray, qp)),
+                              jnp.asarray(dx0), 1e-6)
+    got = tric.solve_parallel(tric.StageQP(*map(torch.as_tensor, qp)),
+                              torch.as_tensor(dx0), 1e-6)
+    for name in ("dx", "du", "gain_k", "ff_k", "exp_dec"):
+        r = np.asarray(getattr(ref, name))
+        np.testing.assert_allclose(getattr(got, name).numpy(), r, rtol=1e-8,
+                                   atol=1e-8 * (1.0 + np.abs(r).max()))
+    assert bool(got.ok) and bool(ref.ok)
+    seq = tric.solve(tric.StageQP(*map(torch.as_tensor, qp)),
+                     torch.as_tensor(dx0), 1e-6)
+    np.testing.assert_allclose(got.dx.numpy(), seq.dx.numpy(), atol=1e-9)
+
+
+def test_solve_parallel_indefinite_gives_not_ok():
+    qp, dx0 = random_qp(8, 2, 1, 2)
+    qp = list(qp)
+    qp[4] = -qp[4]
+    got = tric.solve_parallel(tric.StageQP(*map(torch.as_tensor, qp)),
+                              torch.as_tensor(dx0), 0.0)
+    assert not bool(got.ok)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

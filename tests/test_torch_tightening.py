@@ -32,7 +32,8 @@ def test_f32_variance_matches_jax_x64():
     rtol 2e-2.  Measured on a CPU: at most 9.3e-7 off, median 6e-3
     relative; the explicit-inverse f32 form is off by a median factor of
     4.8 here and misses the bound at every point."""
-    tgp = gp_from_fixture(dtype=torch.float32, optimizer_opts=OPTS)
+    tgp = gp_from_fixture(dtype=torch.float32, optimizer_opts=OPTS,
+                          device="cpu")
     f = np.load(FIXTURE)
     jgp = JGP(jnp.asarray(f["tank_X"], jnp.float64),
               jnp.asarray(f["tank_Y"], jnp.float64), mean_func="zero",
