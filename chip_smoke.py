@@ -20,7 +20,8 @@ script exits non-zero before its last line):
      kernels and device time per step, the device's busy share);
   7. K4 (SE-ARD Gram), K5 (Cholesky) and K3 (batched GP predict) against
      their plain versions on the card at the JAX package's kernel-test
-     shapes, plus K5's NaN on a matrix that is not positive definite;
+     shapes, K5 also at N = 330 to 2048 (both of its paths), plus K5's NaN
+     on a matrix that is not positive definite, on each path;
   8. the training path at full width: GP(tank_X, tank_Y) trained on the
      card with the fixture's recipe (multistart=1, max_iters=100) and the
      example's (multistart=2, max_iters=200, seed=1), launch counts exact
@@ -33,9 +34,10 @@ script exits non-zero before its last line):
      1.5x the fixture GP's on every dim;
  10. the card-trained GP in the 30-step RTI loop from X0: finite, at the
      setpoint, realized cost within 10% of phase 5's;
- 11. kernel, plain-version and library-call times of all five kernels at
-     their paths' shapes beside each one's bound, with the card's name and
-     power limit.
+ 11. kernel, device (torch.profiler), plain-version and library-call
+     times of all five kernels at their paths' shapes beside each one's
+     bound, K5 also at N = 500 to 2048, with the card's name and power
+     limit.
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with the kernels' rows, and {"ok": true, "device": {...}}.
 
@@ -45,6 +47,8 @@ state of ``benchmarks.bench_spec.X0_PANEL`` (one process per state, all on
 the one card), and its median, which must be <= 1.01.
 ``python3 chip_smoke.py --large-fit`` times the fixture's fit recipe at
 N = 500 and 1000 training points through K5 and through cuSOLVER;
+``python3 chip_smoke.py --k5-paths`` measures K5's two paths against
+each other (the crossover ``gp_cuda`` sets);
 ``python3 chip_smoke.py --build-times`` times the kernels' build, one
 ``nvcc`` over all sources against one per source at once.
 The script imports no JAX.
@@ -96,6 +100,30 @@ def cuda_time_ms(fn, reps, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_time_ms(fn, reps=200, warmup=3):
+    """Device time per call of ``fn`` and device kernels per call, from
+    torch.profiler's CUDA self time over ``reps`` calls after ``warmup``;
+    (None, 0) when the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    us = sum(e.self_device_time_total for e in ev)
+    if us <= 0:
+        return None, 0
+    return us / reps / 1e3, sum(e.count for e in ev) / reps
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def check_kernels(ck, four_tank_ode, dev):
@@ -321,13 +349,13 @@ def panel(n_steps):
 
 
 def large_fit(ns=(500, 1000)):
-    """The fixture's recipe at larger training sets, where K5 leaves shared
-    memory and factors in place: for each N, four-tank training data from
-    the fused plant (TRAIN_* bounds, noise, generator seed 2), then
-    ``GP(X, Y)`` on the card twice, once through K5 and once with K5's
-    plain version (cuSOLVER through ``cholesky_ex``) in its place, plus
-    both factors' times at P=4 (one evaluation's Cholesky).  Prints wall
-    seconds, batched evaluations and ms per evaluation of each fit."""
+    """The fixture's recipe at larger training sets, where K5 takes its
+    blocked path: for each N, four-tank training data from the fused plant
+    (TRAIN_* bounds, noise, generator seed 2), then ``GP(X, Y)`` on the
+    card twice, once through K5 and once with K5's plain version (cuSOLVER
+    through ``cholesky_ex``) in its place, plus both factors' times at P=4
+    (one evaluation's Cholesky) and K5's device kernels per call.  Prints
+    wall seconds, batched evaluations and ms per evaluation of each fit."""
     from benchmarks.bench_spec import TRAIN_ULB, TRAIN_UUB, TRAIN_XLB, \
         TRAIN_XUB
     from gpmpc_tpu_torch import GP
@@ -342,10 +370,12 @@ def large_fit(ns=(500, 1000)):
             n, uub=TRAIN_UUB, ulb=TRAIN_ULB, xub=TRAIN_XUB, xlb=TRAIN_XLB,
             generator=torch.Generator(device=dev).manual_seed(2))
         a = gc.spd_inputs(n, 4, n, device=dev)
-        log(f"[large] N={n}, P=4: K5 {cuda_time_ms(lambda: k5(a), 5):.3f} "
-            f"ms, cholesky_ex "
-            f"{cuda_time_ms(lambda: torch.linalg.cholesky_ex(a), 5):.3f} ms "
-            f"on {card}")
+        dev_ms, kern = device_time_ms(lambda: k5(a))
+        lib = cuda_time_ms(lambda: torch.linalg.cholesky_ex(a), 5)
+        log(f"[large] N={n}, P=4: K5 ({k5_path(gc, n)}) "
+            f"{cuda_time_ms(lambda: k5(a), 5):.3f} ms, device "
+            f"{fmt_ms(dev_ms)} in {kern:.0f} device kernels per K5 call; "
+            f"cholesky_ex {lib:.3f} ms on {card}")
         for route in ("K5", "cholesky_ex"):
             gc.cholesky = k5 if route == "K5" else gc.cholesky_reference
             try:
@@ -363,6 +393,41 @@ def large_fit(ns=(500, 1000)):
                 f"{gp.n_evals} batched evaluations, "
                 f"{1e3 * wall / gp.n_evals:.3f} ms per evaluation; K5 "
                 f"launches {ck.LAUNCHES['cholesky']} on {card}")
+    return 0
+
+
+#: (N, P) at which --k5-paths compares K5's paths
+K5_PATH_SHAPES = ((100, 4), (100, 8), (128, 4), (128, 8), (160, 4), (160, 8),
+                  (200, 4), (200, 8), (256, 4), (256, 8), (330, 4), (330, 8),
+                  (500, 4), (500, 8), (1000, 4), (1024, 1), (2048, 1))
+
+
+def k5_paths():
+    """Device time per call (torch.profiler) of K5's one-block path (where
+    the matrix fits in shared memory) and of its blocked path, beside
+    cholesky_ex's, at K5_PATH_SHAPES: the measurements that set
+    gp_cuda.CHOL_ONE_BLOCK_MAX_N."""
+    from gpmpc_tpu_torch.ops import gp_cuda as gc
+
+    card = card_line()
+    dev = torch.device("cuda")
+    keep = gc.CHOL_ONE_BLOCK_MAX_N
+    try:
+        for n, p in K5_PATH_SHAPES:
+            a = gc.spd_inputs(n, p, n, device=dev)
+            routes = [("one-block", n)] if n <= 330 else []
+            routes += [("blocked", 0)]
+            cells = []
+            for name, max_n in routes:
+                gc.CHOL_ONE_BLOCK_MAX_N = max_n
+                gc.check_cholesky(a)
+                ms = device_time_ms(lambda: gc.cholesky(a))[0]
+                cells.append(f"{name} {fmt_ms(ms)}")
+            lib = device_time_ms(lambda: torch.linalg.cholesky_ex(a))[0]
+            log(f"[k5] P={p} N={n} device time per call: {', '.join(cells)}, "
+                f"cholesky_ex {fmt_ms(lib)} on {card}")
+    finally:
+        gc.CHOL_ONE_BLOCK_MAX_N = keep
     return 0
 
 
@@ -408,16 +473,30 @@ def check_gp_kernels(gc, dev):
         log(f"[K4] (P,N,D)=(8,{n},{d}) max|err| {err:.3e} (rtol, atol 2e-5)")
         if (n, d) == (100, 6):
             errs["se_ard_gram"] = err
-    for n, p in [(16, 8), (100, 8), (128, 8), (200, 8), (1024, 1)]:
+    for n, p in [(16, 8), (100, 8), (128, 8), (200, 8), (330, 4), (331, 4),
+                 (500, 4), (1000, 4), (1024, 1), (2048, 1)]:
         err = gc.check_cholesky(gc.spd_inputs(n, p, n, device=dev))
-        log(f"[K5] (P,N)=({p},{n}) max|err| against the plain version in "
-            f"f64 {err:.3e} (atol 2e-4 max|L|)")
+        log(f"[K5] (P,N)=({p},{n}) {k5_path(gc, n)} path: max|err| against "
+            f"the plain version in f64 {err:.3e} (atol 2e-4 max|L|)")
         if n == 100:
             errs["cholesky"] = err
     a = gc.spd_inputs(100, 2, 1, device=dev)
     a[1, 40, 40] = -1e4
     gc.check_cholesky_not_pd(a[1:])
-    log("[K5] not positive definite -> NaN lower triangle: ok")
+    log(f"[K5] {k5_path(gc, 100)} path, not positive definite -> NaN lower "
+        f"triangle: ok")
+    # the blocked path: a bad pivot in the last panel of the middle matrix
+    a = gc.spd_inputs(1000, 3, 3, device=dev)
+    a[1, 999, 999] = -1e4
+    l = gc.cholesky(a)
+    gc.check_cholesky_not_pd(a[1:2])
+    for m in (0, 2):
+        if not bool(torch.all(torch.isfinite(l[m]))):
+            raise AssertionError("K5 gave NaN in a matrix beside a bad one")
+        gc.check_cholesky(a[m:m + 1].contiguous())
+    log(f"[K5] {k5_path(gc, 1000)} path, (P,N)=(3,1000), bad pivot in the "
+        f"last panel of the middle matrix -> NaN in its lower triangle only:"
+        f" ok")
     for n, d, b in [(90, 6, 33), (100, 6, 100)]:
         err = gc.check_gp_predict_batch(*gc.predict_inputs(n, d, b, 4, b,
                                                            device=dev))
@@ -427,6 +506,11 @@ def check_gp_kernels(gc, dev):
             errs["gp_predict_batch"] = err
     torch.cuda.synchronize()
     return errs
+
+
+def k5_path(gc, n):
+    """Which of K5's paths factors a matrix of order ``n``."""
+    return "one-block" if n <= gc.CHOL_ONE_BLOCK_MAX_N else "blocked"
 
 
 def fixture_nll_f64(hyper):
@@ -554,15 +638,16 @@ def riccati_flops(nt, nx, nu):
 
 def kernel_times(ck, gc, four_tank_ode, dev, card):
     """Phase 11: each kernel's time beside its plain version's, the library
-    call's (K5) and its bound, at the paths' shapes.  Returns rows keyed by
-    kernel name."""
+    call's (K5), its device time per launch (torch.profiler) and its
+    bound, at the paths' shapes; K5 also at larger N.  Returns rows keyed
+    by kernel name."""
     from benchmarks.bench_spec import DT
     t = {}
     q1 = ck.stage_qp_inputs(20, 4, 2, 0, device=dev)
     reg = torch.tensor(1e-6, device=dev)
     out = ck.riccati_sweep(*q1, reg)
     t["riccati_sweep"] = dict(
-        ms=cuda_time_ms(lambda: ck.riccati_sweep(*q1, reg), reps=200),
+        fn=lambda: ck.riccati_sweep(*q1, reg),
         plain_ms=cuda_time_ms(lambda: ck.riccati_sweep_reference(*q1, reg),
                               reps=20),
         library_ms=None, shape="Nt=20, nx=4, nu=2",
@@ -572,8 +657,7 @@ def kernel_times(ck, gc, four_tank_ode, dev, card):
     # per substep 4 ODE evaluations (~22 operations each) and ~52 for the
     # stage combinations
     t["rk4_substeps"] = dict(
-        ms=cuda_time_ms(lambda: ck.rk4_substeps(four_tank_ode, x1, u1,
-                                                DT / 10, 10), reps=200),
+        fn=lambda: ck.rk4_substeps(four_tank_ode, x1, u1, DT / 10, 10),
         plain_ms=cuda_time_ms(lambda: ck.rk4_substeps_reference(
             four_tank_ode, x1, u1, DT / 10, 10), reps=20),
         library_ms=None, shape="nx=4, nu=2, n_sub=10",
@@ -581,39 +665,52 @@ def kernel_times(ck, gc, four_tank_ode, dev, card):
     g = gc.gram_inputs(100, 6, 8, 106, device=dev)
     k = gc.se_ard_gram(*g, 1e-5)
     t["se_ard_gram"] = dict(
-        ms=cuda_time_ms(lambda: gc.se_ard_gram(*g, 1e-5), reps=200),
+        fn=lambda: gc.se_ard_gram(*g, 1e-5),
         plain_ms=cuda_time_ms(lambda: gc.se_ard_gram_reference(*g, 1e-5),
                               reps=50),
         library_ms=None, shape="P=8, N=100, D=6",
         bound=bound(nbytes(*g, k), 8 * 100 * 100 * (3 * 6 + 3)))
     t["cholesky"] = dict(
-        ms=cuda_time_ms(lambda: gc.cholesky(k), reps=200),
+        fn=lambda: gc.cholesky(k),
         plain_ms=cuda_time_ms(lambda: gc.cholesky_reference(k), reps=50),
         library_ms=cuda_time_ms(lambda: torch.linalg.cholesky_ex(k),
                                 reps=50),
+        library_device_ms=device_time_ms(
+            lambda: torch.linalg.cholesky_ex(k))[0],
         shape="P=8, N=100", bound=cholesky_bound(8, 100))
-    big = gc.spd_inputs(1024, 1, 7, device=dev)
-    big_ms = cuda_time_ms(lambda: gc.cholesky(big), reps=10)
-    big_plain = cuda_time_ms(lambda: gc.cholesky_reference(big), reps=10)
-    big_lib = cuda_time_ms(lambda: torch.linalg.cholesky_ex(big), reps=10)
-    big_bound = cholesky_bound(1, 1024)
     p3 = gc.predict_inputs(100, 6, 100, 4, 100, device=dev)
     mu, ks = gc.gp_predict_batch(*p3)
     t["gp_predict_batch"] = dict(
-        ms=cuda_time_ms(lambda: gc.gp_predict_batch(*p3), reps=200),
+        fn=lambda: gc.gp_predict_batch(*p3),
         plain_ms=cuda_time_ms(lambda: gc.gp_predict_batch_reference(*p3),
                               reps=50),
         library_ms=None, shape="Ny=4, B=100, N=100, D=6",
         bound=bound(nbytes(*p3, mu, ks), 4 * 100 * 100 * (3 * 6 + 5)))
     for name, r in t.items():
+        r["ms"] = cuda_time_ms(r["fn"], reps=200)
+        r["device_ms"], r["device_kernels"] = device_time_ms(r["fn"])
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
-        log(f"[time] {name} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
-            f"torch on the card {r['plain_ms']:.4f} ms, library call {lib}, "
-            f"bound {r['bound'][0]:.3e} ms ({r['bound'][1]}) on {card}")
-    log(f"[time] cholesky (P=1, N=1024): kernel {big_ms:.4f} ms, plain "
-        f"{big_plain:.4f} ms, library call {big_lib:.4f} ms, bound "
-        f"{big_bound[0]:.3e} ms ({big_bound[1]}) on {card}")
+        log(f"[time] {name} ({r['shape']}): kernel {r['ms']:.4f} ms, device "
+            f"{fmt_ms(r['device_ms'])} per launch "
+            f"({r['device_kernels']:.0f} device kernels), plain torch on the "
+            f"card {r['plain_ms']:.4f} ms, library call {lib}, bound "
+            f"{r['bound'][0]:.3e} ms ({r['bound'][1]}) on {card}")
+    log(f"[time] cholesky_ex (P=8, N=100) device "
+        f"{fmt_ms(t['cholesky']['library_device_ms'])} on {card}")
+    for p, n in [(1, 1024), (4, 500), (4, 1000), (1, 2048)]:
+        a = gc.spd_inputs(n, p, 7, device=dev)
+        ms = cuda_time_ms(lambda: gc.cholesky(a), reps=20)
+        dev_ms, kern = device_time_ms(lambda: gc.cholesky(a))
+        plain = cuda_time_ms(lambda: gc.cholesky_reference(a), reps=20)
+        lib = cuda_time_ms(lambda: torch.linalg.cholesky_ex(a), reps=20)
+        lib_dev = device_time_ms(lambda: torch.linalg.cholesky_ex(a))[0]
+        b = cholesky_bound(p, n)
+        log(f"[time] cholesky (P={p}, N={n}, {k5_path(gc, n)}): kernel "
+            f"{ms:.4f} ms, device {fmt_ms(dev_ms)} ({kern:.0f} device "
+            f"kernels), plain {plain:.4f} ms, library call {lib:.4f} ms "
+            f"(device {fmt_ms(lib_dev)}), bound {b[0]:.3e} ms ({b[1]}) on "
+            f"{card}")
     return t
 
 
@@ -633,6 +730,8 @@ def main(argv):
         return large_fit()
     if "--build-times" in argv:
         return build_times()
+    if "--k5-paths" in argv:
+        return k5_paths()
     from benchmarks.bench_spec import DT, X0, XSP, closed_loop_cost
     from gpmpc_tpu_torch.ops import cuda_kernels as ck
     from gpmpc_tpu_torch.ops import gp_cuda as gc
@@ -761,6 +860,7 @@ def main(argv):
              "replaces": f"gpmpc_tpu/ops/pallas_kernels.py:{line}",
              "launches": path_launches[name], "max_abs_err": errs[name],
              "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+             "device_ms": times[name]["device_ms"],
              "bound_ms": times[name]["bound"][0],
              "bound_by": times[name]["bound"][1],
              "library_ms": times[name]["library_ms"]}

@@ -138,7 +138,7 @@ def build_library() -> ctypes.CDLL:
     lib.gpmpc_se_ard_gram_f32.argtypes = [ptr] * 4 + [ctypes.c_float, ptr] \
         + [i32] * 3 + [ptr]
     lib.gpmpc_se_ard_gram_f32.restype = i32
-    lib.gpmpc_cholesky_f32.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.gpmpc_cholesky_f32.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
     lib.gpmpc_cholesky_f32.restype = i32
     lib.gpmpc_gp_predict_batch_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
     lib.gpmpc_gp_predict_batch_f32.restype = i32

@@ -37,9 +37,15 @@ GRAM_TOL = 2e-5
 CHOL_TOL = 2e-4          # x max|L|, against the plain version in f64
 KS_TOL, MU_TOL = 2e-5, 2e-4
 
-#: largest matrix K5 takes (the in-place path's int indexing allows more;
-#: the Pallas kernel stops near 1024)
+#: largest matrix K5 takes (the Pallas kernel stops near 1024)
 CHOL_MAX_N = 4096
+#: K5 factors a matrix of order N <= this on one block, in shared memory,
+#: and a larger one by the blocked multi-block path over 32-column panels
+#: (csrc/cholesky.cu).  Device ms per call, one-block vs blocked at P=4:
+#: N=128 0.0338 vs 0.0401, N=160 0.0496 vs 0.0513, N=200 0.0793 vs 0.0704,
+#: N=330 0.2469 vs 0.1156 (P=8 alike; ``chip_smoke.py --k5-paths``, H100
+#: 80GB HBM3, 700 W)
+CHOL_ONE_BLOCK_MAX_N = 160
 
 
 # ------------------------------------------------------------- K4: Gram
@@ -119,10 +125,43 @@ class SEARDGram(torch.autograd.Function):
 cholesky_reference = cholesky_psd
 
 
+def cholesky_blocked_reference(a, nb: int = 32):
+    """K5's blocked schedule in plain PyTorch, for the tests only (no path
+    of the port calls it): per panel of ``nb`` columns (a) the unblocked
+    factor of the diagonal tile, (b) the panel solve P L_kk^T = A below it,
+    (c) the trailing update A -= P P^T, then (d) the upper triangle to 0
+    and NaN over the whole lower triangle of each matrix that met a
+    non-positive or NaN pivot.  a (..., N, N), lower triangle read."""
+    n = a.shape[-1]
+    l = a.tril().clone()
+    bad = torch.zeros(a.shape[:-2], dtype=torch.bool, device=a.device)
+    for off in range(0, n, nb):
+        end = min(off + nb, n)
+        d = l[..., off:end, off:end]                 # (a) diagonal tile
+        for j in range(end - off):
+            pivot = d[..., j, j].clone()
+            bad |= ~(pivot > 0)
+            d[..., j, j] = torch.sqrt(pivot)
+            d[..., j + 1:, j] /= d[..., j, j, None]
+            col = d[..., j + 1:, j]
+            d[..., j + 1:, j + 1:] -= col[..., :, None] * col[..., None, :]
+        if end == n:
+            break
+        p = l[..., end:, off:end]                    # (b) panel solve
+        for j in range(end - off):
+            p[..., :, j] /= d[..., j, j, None]
+            p[..., :, j + 1:] -= p[..., :, j, None] * d[..., None, j + 1:, j]
+        l[..., end:, end:] -= p @ p.mT               # (c) trailing update
+    l = l.tril()                                     # (d) finish
+    return torch.where(bad[..., None, None],
+                       torch.full_like(l, float("nan")).tril(), l)
+
+
 def cholesky(a):
     """K5 wrapper: the plain version for CPU tensors, the CUDA kernel for
     CUDA tensors.  a (..., N, N); on CUDA contiguous float32 on the card,
-    N <= :data:`CHOL_MAX_N`.  Reads the lower triangle."""
+    N <= :data:`CHOL_MAX_N`.  Reads the lower triangle.  One call counts
+    one launch, however many device kernels the blocked path enqueues."""
     if a.device.type == "cpu":
         return cholesky_reference(a)
     if a.device.type != "cuda":
@@ -134,11 +173,20 @@ def cholesky(a):
     ck._check_cuda("cholesky", (a,), dict(a=tuple(a.shape)))
     n, p = a.shape[-1], a.numel() // (a.shape[-1] * a.shape[-1])
     lib = ck.build_library()
+    blocked = n > CHOL_ONE_BLOCK_MAX_N
     out = torch.empty_like(a)
+    # the blocked path's per-matrix failure flags and 32 x 32 diagonal-tile
+    # scratch (cholesky.cu's panel width)
+    flags = torch.zeros(p, dtype=torch.int32,
+                        device=a.device) if blocked else None
+    work = torch.empty((p, 32, 32), dtype=torch.float32,
+                       device=a.device) if blocked else None
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        code = lib.gpmpc_cholesky_f32(a.data_ptr(), out.data_ptr(), p, n,
-                                      stream)
+        code = lib.gpmpc_cholesky_f32(
+            a.data_ptr(), out.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (flags, work)),
+            p, n, int(blocked), stream)
     ck._raise_on_error("cholesky", code)
     ck.LAUNCHES["cholesky"] += 1
     return out

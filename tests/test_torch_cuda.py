@@ -89,8 +89,9 @@ def test_gram_kernel_matches_plain_version(dev, n, d):
     assert ck.LAUNCHES["se_ard_gram"] == before + 1
 
 
-@pytest.mark.parametrize("n,p", [(16, 3), (100, 8), (128, 2), (200, 2),
-                                 (1024, 1)])
+@pytest.mark.parametrize("n,p", [(16, 3), (100, 8), (128, 2), (160, 4),
+                                 (161, 4), (200, 2), (330, 4), (331, 4),
+                                 (500, 4), (1000, 4), (1024, 1), (2048, 1)])
 def test_cholesky_kernel_matches_plain_version(dev, n, p):
     before = ck.LAUNCHES["cholesky"]
     gp_cuda.check_cholesky(gp_cuda.spd_inputs(n, p, seed=n, device=dev))
@@ -104,6 +105,48 @@ def test_cholesky_kernel_not_pd_gives_nan(dev):
     l = gp_cuda.cholesky(a)
     assert bool(torch.all(torch.isfinite(l[0])))
     gp_cuda.check_cholesky_not_pd(a[1:])
+
+
+def test_cholesky_blocked_not_pd_in_last_panel_gives_nan(dev):
+    """The blocked path at N=1000, P=3, a negative pivot in the last panel
+    of the middle matrix: NaN over its whole lower triangle, the other two
+    finite and within the plain version's tolerance."""
+    a = gp_cuda.spd_inputs(1000, 3, seed=3, device=dev)
+    a[1, 999, 999] = -1e4
+    l = gp_cuda.cholesky(a)
+    gp_cuda.check_cholesky_not_pd(a[1:2])
+    assert bool(torch.all(l[1].triu(1) == 0.0))
+    for m in (0, 2):
+        assert bool(torch.all(torch.isfinite(l[m])))
+        gp_cuda.check_cholesky(a[m:m + 1].contiguous())
+
+
+@pytest.mark.parametrize("n", [500, 1000])
+def test_posterior_on_the_card_matches_the_cpu(dev, n):
+    """gp_core.posterior at N training points (the blocked K5 path, three
+    launches) in f32 on the card against the plain versions in f64 on the
+    CPU: the factor within 2e-4 x max|L|."""
+    from gpmpc_tpu_torch.models import gp_core
+    from gpmpc_tpu_torch.utils.config import GPConfig
+
+    rng = np.random.default_rng(n)
+    x, y = rng.uniform(-2, 2, (n, 6)), rng.standard_normal((n, 2))
+    h = (0.3 * rng.standard_normal((2, 6)), np.zeros(2),
+         np.log([0.1, 0.05]), np.zeros((2, 0)))
+    cfg = GPConfig(jitter=1e-5, min_noise=1e-4)
+    out = []
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        kw = dict(device=device, dtype=dtype)
+        ck.reset_launches()
+        post = gp_core.posterior(torch.tensor(x, **kw), torch.tensor(y, **kw),
+                                 gp_core.GPHypers(*(torch.tensor(v, **kw)
+                                                    for v in h)), cfg)
+        out.append((post.chol.cpu().double(), ck.LAUNCHES["cholesky"]))
+    (card, k5_card), (cpu, k5_cpu) = out
+    assert (k5_card, k5_cpu) == (3, 0)
+    assert bool(torch.all(torch.isfinite(card)))
+    err = float((card - cpu).abs().max())
+    assert err <= gp_cuda.CHOL_TOL * float(cpu.abs().max()), err
 
 
 @pytest.mark.parametrize("n,d,b", [(90, 6, 33), (100, 6, 100)])

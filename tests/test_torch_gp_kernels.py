@@ -119,6 +119,41 @@ def test_cholesky_not_pd_gives_nan_in_the_lower_triangle():
     assert bool(torch.all(l[1].triu(1) == 0.0))
 
 
+@pytest.mark.parametrize("p", [1, 3])
+@pytest.mark.parametrize("nb", [32, 64])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 65, 130, 257])
+def test_cholesky_blocked_schedule_matches_jax_f64(n, nb, p):
+    """K5's blocked schedule (its torch mirror) in f64, ragged last panels
+    included, against JAX x64 jnp.linalg.cholesky and the plain version:
+    1e-10."""
+    a = gp_cuda.spd_inputs(n, p, seed=n + nb).double()
+    got = gp_cuda.cholesky_blocked_reference(a, nb)
+    ref = np.asarray(jnp.linalg.cholesky(jnp.asarray(a.numpy())))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got.numpy(),
+                               gp_cuda.cholesky_reference(a).numpy(),
+                               rtol=0, atol=1e-10)
+    assert bool(torch.all(got.triu(1) == 0.0))
+
+
+@pytest.mark.parametrize("nb", [32, 64])
+def test_cholesky_blocked_schedule_nan_in_last_panel(nb):
+    """A negative pivot in the last panel of the middle matrix: NaN over its
+    whole lower triangle (the panels before it included), the other two
+    finite and equal to the plain version."""
+    a = gp_cuda.spd_inputs(130, 3, seed=9).double()
+    a[1, 129, 129] = -1e4
+    got = gp_cuda.cholesky_blocked_reference(a, nb)
+    low = torch.tril(torch.ones(130, 130, dtype=torch.bool))
+    assert bool(torch.all(torch.isnan(got[1][low])))
+    assert bool(torch.all(got[1][~low] == 0.0))
+    ref = gp_cuda.cholesky_reference(a)
+    for m in (0, 2):
+        assert bool(torch.all(torch.isfinite(got[m])))
+        np.testing.assert_allclose(got[m].numpy(), ref[m].numpy(), rtol=0,
+                                   atol=1e-10)
+
+
 def test_kernel_gram_single_and_batched_agree():
     rng = np.random.default_rng(6)
     x = torch.as_tensor(rng.uniform(-1, 1, (15, 3)))
