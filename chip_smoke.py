@@ -7,7 +7,9 @@ script exits non-zero before its last line):
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build the CUDA kernels from gpmpc_tpu_torch/csrc/ (nvcc, sm_90a);
   3. K1 (Riccati sweep) against its plain PyTorch version on the card, at
-     the three shapes of the JAX package's kernel test, plus the NaN case;
+     the three shapes of the JAX package's kernel test, at Nt=300 (across
+     the kernel's shared-memory chunks) and at B=1024, plus an indefinite
+     and a zero H_uu pivot (non-finite gains);
   4. K2 (RK4 substeps) against its plain version, one rollout and eight;
   5. the main path at full width: the pinned four-tank GP (N=100, D=6,
      Ny=4), TA propagation with chance tightening, Nt=20, the RTI budget,
@@ -37,7 +39,9 @@ script exits non-zero before its last line):
  11. kernel, device (torch.profiler), plain-version and library-call
      times of all five kernels at their paths' shapes beside each one's
      bound, K5 also at N = 500 to 2048, with the card's name and power
-     limit.
+     limit; K1 also at B = 64 and 1024 and at Nt = 300, its device time
+     over 20 and over 200 calls, beside the launch floor (a one-element
+     add_) and nvidia-smi's SM clock and power draw over that window.
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with the kernels' rows, and {"ok": true, "device": {...}}.
 
@@ -49,6 +53,9 @@ the one card), and its median, which must be <= 1.01.
 N = 500 and 1000 training points through K5 and through cuSOLVER;
 ``python3 chip_smoke.py --k5-paths`` measures K5's two paths against
 each other (the crossover ``gp_cuda`` sets);
+``python3 chip_smoke.py --k1 [OTHER_SRC]`` runs phase 3's K1 and K2 checks
+and phase 11's K1 lines alone, and with OTHER_SRC times that K1 source in
+turns with the repository's (``k1_alone``);
 ``python3 chip_smoke.py --build-times`` times the kernels' build, one
 ``nvcc`` over all sources against one per source at once.
 The script imports no JAX.
@@ -102,10 +109,9 @@ def cuda_time_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def device_time_ms(fn, reps=200, warmup=3):
-    """Device time per call of ``fn`` and device kernels per call, from
-    torch.profiler's CUDA self time over ``reps`` calls after ``warmup``;
-    (None, 0) when the profiler shows no device time."""
+def device_launches_us(fn, reps, warmup=3):
+    """Durations in µs of the device kernels that ``reps`` calls of ``fn``
+    launch after ``warmup`` calls, from torch.profiler's kernel events."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -115,11 +121,62 @@ def device_time_ms(fn, reps=200, warmup=3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    us = sum(e.self_device_time_total for e in ev)
-    if us <= 0:
+    return [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type.name == "CUDA"]
+
+
+def device_time_ms(fn, reps=200, warmup=3):
+    """Device time per call of ``fn`` and device kernels per call over
+    ``reps`` calls; (None, 0) when the profiler shows no device time."""
+    us = device_launches_us(fn, reps, warmup)
+    if not us:
         return None, 0
-    return us / reps / 1e3, sum(e.count for e in ev) / reps
+    return sum(us) / reps / 1e3, len(us) / reps
+
+
+def launch_ms(fn, reps):
+    """Mean and median device ms of the one kernel that ``fn`` launches,
+    over ``reps`` calls; (None, None) when the profiler shows none."""
+    us = device_launches_us(fn, reps)
+    if not us:
+        return None, None
+    return float(np.mean(us)) / 1e3, float(np.median(us)) / 1e3
+
+
+class SmiSampler:
+    """nvidia-smi's SM clock (MHz) and power draw (W), sampled every 50 ms
+    by a child process while the ``with`` block runs."""
+
+    def __enter__(self):
+        self.rows = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        for line in out.splitlines():
+            try:
+                self.rows.append([float(v) for v in line.split(",")])
+            except ValueError:
+                pass
+        return False
+
+    def summary(self):
+        if not self.rows:
+            return "no nvidia-smi samples"
+        a = np.array(self.rows)
+        return (f"SM clock {a[:, 0].min():.0f} / {np.median(a[:, 0]):.0f} / "
+                f"{a[:, 0].max():.0f} MHz, power draw {a[:, 1].min():.1f} / "
+                f"{np.median(a[:, 1]):.1f} / {a[:, 1].max():.1f} W (min / "
+                f"median / max of {len(a)} samples)")
 
 
 def fmt_ms(ms):
@@ -131,20 +188,23 @@ def check_kernels(ck, four_tank_ode, dev):
     ``cuda_kernels.check_*``); returns their max abs errors at the main
     path's shapes."""
     k1_err = None
-    for nt, nx, nu, seed in [(20, 4, 2, 0), (13, 5, 3, 1), (8, 2, 1, 2)]:
+    # the JAX package's kernel-test shapes, a horizon that crosses K1's
+    # shared-memory chunks nine times, and the batched study's width
+    for nt, nx, nu, seed, batch in [(20, 4, 2, 0, None), (13, 5, 3, 1, None),
+                                    (8, 2, 1, 2, None), (300, 4, 2, 3, None),
+                                    (20, 4, 2, 4, 1024)]:
         err = ck.check_riccati_sweep(
-            ck.stage_qp_inputs(nt, nx, nu, seed, device=dev),
-            torch.tensor(1e-6, device=dev))
-        log(f"[K1] (Nt,nx,nu)=({nt},{nx},{nu}) max|err| {err:.3e}")
+            ck.stage_qp_inputs(nt, nx, nu, seed, batch, device=dev),
+            torch.full(() if batch is None else (batch,), 1e-6, device=dev))
+        log(f"[K1] B={batch or 1}, (Nt,nx,nu)=({nt},{nx},{nu}) max|err| "
+            f"{err:.3e}")
         k1_err = err if k1_err is None else k1_err
-    # indefinite H_uu, no regularization: NaN, so ok=False upstream
-    args = ck.stage_qp_inputs(8, 2, 1, 2, device=dev)
-    args[4] = -args[4]
-    got = ck.riccati_sweep(*args, torch.zeros((), device=dev))
-    torch.cuda.synchronize()
-    if bool(torch.all(torch.isfinite(got[2]))):
-        raise AssertionError("K1 gave finite gains for an indefinite H_uu")
-    log("[K1] indefinite H_uu -> NaN gains: ok")
+    # bad pivots without regularization: non-finite gains, so ok=False
+    # upstream
+    for kind in ("indefinite", "zero"):
+        ck.check_riccati_sweep_bad_pivot(kind, device=dev)
+        torch.cuda.synchronize()
+        log(f"[K1] {kind} H_uu pivot -> non-finite gains: ok")
     rng = np.random.default_rng(0)
     k2_err = None
     for lead in [(), (8,)]:
@@ -714,6 +774,109 @@ def kernel_times(ck, gc, four_tank_ode, dev, card):
     return t
 
 
+#: (B, Nt) at which phase 11 times K1 at (nx, nu) = (4, 2): the main path,
+#: two batches on the way to the batched study's B=1024, a long horizon
+K1_TIME_SHAPES = ((1, 20), (64, 20), (1024, 20), (1, 300))
+
+
+def fmt_pair(pair):
+    return "not measured" if pair[0] is None else \
+        f"{pair[0]:.4f}/{pair[1]:.4f} ms"
+
+
+def k1_times(ck, dev, card, sweep=None):
+    """Phase 11's K1 lines at K1_TIME_SHAPES: event ms over 200 calls,
+    device ms per launch (torch.profiler; mean/median) over 20 calls, over
+    200 and over 20 again after those, the plain version's event ms and
+    the bound; the launch floor (device ms of a one-element ``add_``) over
+    the same windows; nvidia-smi's SM clock and power draw over the whole.
+    ``sweep`` stands in for the wrapper (another build of K1, to compare
+    two in one run)."""
+    sweep = sweep or ck.riccati_sweep
+    with SmiSampler() as smi:
+        for bsz, nt in K1_TIME_SHAPES:
+            q = ck.stage_qp_inputs(nt, 4, 2, nt + bsz,
+                                   None if bsz == 1 else bsz, device=dev)
+            reg = torch.full(() if bsz == 1 else (bsz,), 1e-6, device=dev)
+            out = sweep(*q, reg)
+
+            def call():
+                sweep(*q, reg)
+
+            r = dict(ms=cuda_time_ms(call, reps=200),
+                     dev20=launch_ms(call, 20), dev200=launch_ms(call, 200),
+                     dev20_after=launch_ms(call, 20),
+                     bound=bound(nbytes(*q, reg, *out),
+                                 bsz * riccati_flops(nt, 4, 2)))
+            r["plain_ms"] = cuda_time_ms(
+                lambda: ck.riccati_sweep_reference(*q, reg),
+                reps=3 if nt > 100 else 20)
+            log(f"[K1 time] B={bsz}, Nt={nt}, (nx,nu)=(4,2): event "
+                f"{r['ms']:.4f} ms (200 calls); device per launch mean/median"
+                f" {fmt_pair(r['dev20'])} over 20 calls, "
+                f"{fmt_pair(r['dev200'])} over 200, "
+                f"{fmt_pair(r['dev20_after'])} over 20 after those; plain "
+                f"{r['plain_ms']:.4f} ms; bound {r['bound'][0]:.3e} ms "
+                f"({r['bound'][1]}) on {card}")
+        z = torch.zeros(1, device=dev)
+        floor = [launch_ms(lambda: z.add_(1.0), reps)
+                 for reps in (20, 200, 20)]
+        log(f"[K1 time] launch floor (one-element add_): device per launch "
+            f"mean/median {fmt_pair(floor[0])} over 20 calls, "
+            f"{fmt_pair(floor[1])} over 200, {fmt_pair(floor[2])} over 20 "
+            f"after those on {card}")
+    log(f"[K1 time] nvidia-smi over the K1 window: {smi.summary()}")
+
+
+def k1_alone(other_src=None):
+    """Phase 3's K1 and K2 checks and phase 11's K1 lines alone.  With
+    ``other_src`` (a K1 source with the same C interface, e.g. an earlier
+    commit's ``csrc/riccati_sweep.cu`` written out with ``git show``), that
+    source is built into its own library, checked against the plain
+    version, and timed in turns with the repository's K1: other, repo,
+    repo, other."""
+    import ctypes
+    from types import SimpleNamespace
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    from gpmpc_tpu_torch.systems import four_tank_ode
+
+    card = card_line()
+    dev = torch.device("cuda")
+    log(f"[card] nvidia-smi: {card}")
+    check_kernels(ck, four_tank_ode, dev)
+    if other_src is None:
+        k1_times(ck, dev, card)
+        return 0
+    so = ck.BUILD_DIR / "k1_other" / "libk1_other.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([ck._nvcc(), *ck.NVCC_FLAGS, "-shared", "-o", str(so),
+                    other_src], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).gpmpc_riccati_sweep_f32
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    libs = {"other": SimpleNamespace(gpmpc_riccati_sweep_f32=fn),
+            "repo": ck.build_library()}
+
+    def through(name, call, *args):
+        keep, ck._lib = ck._lib, libs[name]
+        try:
+            return call(*args)
+        finally:
+            ck._lib = keep
+
+    err = through("other", ck.check_riccati_sweep,
+                  ck.stage_qp_inputs(20, 4, 2, 0, device=dev),
+                  torch.tensor(1e-6, device=dev))
+    log(f"[K1 other] {other_src}: max|err| {err:.3e} at (Nt,nx,nu)="
+        f"(20,4,2)")
+    for name in ("other", "repo", "repo", "other"):
+        log(f"[K1 other] timing {name}")
+        k1_times(ck, dev, card, sweep=lambda *a, n=name: through(
+            n, ck.riccati_sweep, *a))
+    return 0
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -732,6 +895,9 @@ def main(argv):
         return build_times()
     if "--k5-paths" in argv:
         return k5_paths()
+    if "--k1" in argv:
+        i = argv.index("--k1") + 1
+        return k1_alone(argv[i] if i < len(argv) else None)
     from benchmarks.bench_spec import DT, X0, XSP, closed_loop_cost
     from gpmpc_tpu_torch.ops import cuda_kernels as ck
     from gpmpc_tpu_torch.ops import gp_cuda as gc
@@ -848,6 +1014,7 @@ def main(argv):
 
     # 11. kernel times beside their bounds
     times = kernel_times(ck, gc, four_tank_ode, dev, card)
+    k1_times(ck, dev, card)
     path_launches = {"riccati_sweep": launches["riccati_sweep"],
                      "rk4_substeps": launches["rk4_substeps"],
                      "se_ard_gram": train_launches["se_ard_gram"],

@@ -18,8 +18,12 @@ Both are latency-bound on an H100: the main path's sweep is ~20 dependent
 stages of 4x4 products and the plant step 40 evaluations of a 4-state ODE,
 far below any roofline, so what costs is the number of launches and of
 device-memory round trips between dependent steps.  Each kernel therefore
-runs its whole chain in one launch, one thread per problem, with the
-carried state in registers (the source files say more).
+runs its whole chain in one launch.  K1 gives each problem one warp: the
+lanes share each stage's products, and the stage arrays reach shared
+memory in chunks of :data:`RICCATI_CHUNK` stages by ``cp.async``, the next
+chunk's copy in flight while one is solved, so Nt <= RICCATI_CHUNK pays
+one memory round trip in all.  K2 runs one thread per rollout with the
+state in registers.  The source files say more.
 
 The wrappers: on a CPU tensor they run the plain version; on a CUDA tensor
 they launch the kernel or raise.  There is no fallback.  The shared library
@@ -57,6 +61,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: (nx, nu) pairs the Riccati kernel is instantiated for
 RICCATI_SHAPES = ((4, 2), (5, 3), (2, 1))
+
+#: stages per shared-memory chunk of the Riccati kernel: the constant
+#: ``CHUNK`` of ``csrc/riccati_sweep.cu``, mirrored for tests that cross
+#: its chunk boundaries
+RICCATI_CHUNK = 32
 
 #: ODE functors compiled into the RK4 kernel: id name -> (ode_id, nx, nu)
 CUDA_ODES = {"four_tank": (0, 4, 2)}
@@ -359,6 +368,26 @@ def check_riccati_sweep(args, reg) -> float:
             f"nu)={tuple(args[1].shape[-3:])}: max|err| of dx, du, gains, "
             f"ffs, exp_dec {errs} > {tols}")
     return max(errs)
+
+
+def check_riccati_sweep_bad_pivot(kind: str, device=None) -> None:
+    """Launch K1 at reg = 0 on stage QPs whose H_uu has a bad pivot, and
+    raise unless the gains come out non-finite: ``kind="indefinite"``
+    negates q_uu (Nt=8, nx=2, nu=1); ``kind="zero"`` sets B and q_uu to 0,
+    so H_uu = 0 (Nt=20, nx=4, nu=2)."""
+    if kind == "indefinite":
+        args = stage_qp_inputs(8, 2, 1, 2, device=device)
+        args[4] = -args[4]
+    elif kind == "zero":
+        args = stage_qp_inputs(20, 4, 2, 5, device=device)
+        args[1] = torch.zeros_like(args[1])
+        args[4] = torch.zeros_like(args[4])
+    else:
+        raise ValueError(f"unknown bad-pivot case {kind!r}")
+    gains = riccati_sweep(*args, torch.zeros((), device=device))[2]
+    if bool(torch.all(torch.isfinite(gains))):
+        raise AssertionError(f"riccati_sweep gave finite gains for a {kind} "
+                             f"H_uu pivot")
 
 
 def check_rk4_substeps(ode, x, u, h: float, n_sub: int) -> float:

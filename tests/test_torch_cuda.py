@@ -24,8 +24,18 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("nt,nx,nu,batch", [(20, 4, 2, None), (13, 5, 3, None),
-                                            (8, 2, 1, None), (20, 4, 2, 8)])
+CH = ck.RICCATI_CHUNK
+
+
+@pytest.mark.parametrize("nt,nx,nu,batch", [
+    (20, 4, 2, None), (13, 5, 3, None), (8, 2, 1, None), (20, 4, 2, 8),
+    # around the kernel's shared-memory chunk, and past two chunks (where
+    # the forward pass re-stages the gains it stored)
+    (CH - 1, 4, 2, None), (CH, 4, 2, None), (CH + 1, 4, 2, None),
+    (2 * CH + 1, 4, 2, None), (300, 4, 2, None),
+    # a warp per problem: many blocks, and last blocks with idle warps
+    (20, 4, 2, 1024), (13, 5, 3, 8), (8, 2, 1, 8), (40, 5, 3, 5),
+    (70, 2, 1, 6)])
 def test_riccati_kernel_matches_plain_version(dev, nt, nx, nu, batch):
     args = ck.stage_qp_inputs(nt, nx, nu, nt + nx, batch, device=dev)
     reg = torch.full(() if batch is None else (batch,), 1e-6, device=dev)
@@ -36,10 +46,11 @@ def test_riccati_kernel_matches_plain_version(dev, nt, nx, nu, batch):
 
 
 def test_riccati_kernel_indefinite_gives_nan(dev):
-    args = ck.stage_qp_inputs(8, 2, 1, 2, device=dev)
-    args[4] = -args[4]
-    got = ck.riccati_sweep(*args, torch.zeros((), device=dev))
-    assert not bool(torch.all(torch.isfinite(got[2])))
+    ck.check_riccati_sweep_bad_pivot("indefinite", device=dev)
+
+
+def test_riccati_kernel_zero_pivot_gives_non_finite_gains(dev):
+    ck.check_riccati_sweep_bad_pivot("zero", device=dev)
 
 
 @pytest.mark.parametrize("batch", [None, 8])
@@ -78,6 +89,36 @@ def test_closed_loop_on_cuda_goes_through_both_kernels(dev):
                            "se_ard_gram": 0, "cholesky": 0,
                            "gp_predict_batch": 0}
     assert xs.device.type == "cuda" and bool(torch.all(torch.isfinite(xs)))
+
+
+def test_main_path_launches_k1_four_times_a_step(dev):
+    """The main path at full width (fixture GP, Nt=20, the RTI budget,
+    f32): K1 launches al_iters x max_iters = 4 times a control step and K2
+    once, after the cold start."""
+    from benchmarks.bench_spec import (DT, MODEL_R, NT, Q_W, R_W, ULB, UUB,
+                                       X0, XLB, XSP, XUB)
+    from gpmpc_tpu_torch import MPC, Model
+    from gpmpc_tpu_torch.models.convert import gp_from_fixture
+
+    opts = dict(jitter=1e-5, min_noise=1e-4)
+    m = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT, R=MODEL_R,
+              clip_negative=True, integrator_substeps=10,
+              fused_integrator=True, device=dev)
+    g = gp_from_fixture(device=dev, gp_method="TA", optimizer_opts=opts)
+    mpc = MPC(horizon=NT * DT, model=m, gp=g, gp_method="TA",
+              discrete_method="gp", Q=Q_W, R=R_W,
+              ulb=ULB, uub=UUB, xlb=XLB, xub=XUB, percentile=0.95,
+              feedback=True, cov_updates=1, op_x=XSP,
+              op_u=np.array([3.0, 3.0]),
+              solver_opts=dict(al_iters=2, max_iters=2, ls_steps=8,
+                               penalty_init=1e3, fused_kkt=True))
+    ck.reset_launches()
+    xs, us = mpc.solve(X0, 2 * DT, XSP, noise=False)
+    assert ck.LAUNCHES == {"riccati_sweep": 2 * 4, "rk4_substeps": 2,
+                           "se_ard_gram": 0, "cholesky": 0,
+                           "gp_predict_batch": 0}
+    assert bool(torch.all(torch.isfinite(xs))) and \
+        bool(torch.all(torch.isfinite(us)))
 
 
 @pytest.mark.parametrize("n,d", [(40, 6), (100, 6), (200, 12), (130, 3)])

@@ -1,6 +1,8 @@
 """Port parity: the Riccati KKT sweep, its kernel's plain version, and the
 LQR gain of gpmpc_tpu_torch against gpmpc_tpu on the same numpy inputs."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -8,8 +10,9 @@ import jax.numpy as jnp
 
 from gpmpc_tpu.ops.pallas_kernels import riccati_sweep_pallas
 from gpmpc_tpu.solvers import riccati as jric
-from gpmpc_tpu_torch.ops.cuda_kernels import (LAUNCHES, riccati_sweep,
-                                              riccati_sweep_reference)
+from gpmpc_tpu_torch.ops.cuda_kernels import (
+    CSRC, LAUNCHES, RICCATI_CHUNK, check_riccati_sweep_bad_pivot,
+    riccati_sweep, riccati_sweep_reference)
 from gpmpc_tpu_torch.solvers import riccati as tric
 
 
@@ -45,6 +48,39 @@ def test_solve_matches_jax_f64(nt, nx, nu, seed):
                                    np.asarray(getattr(ref, name)),
                                    rtol=0, atol=1e-10, err_msg=name)
     assert bool(got.ok) and bool(ref.ok)
+
+
+@pytest.mark.parametrize("nx,nu", [(4, 2), (5, 3), (2, 1)])
+def test_sweep_reference_long_horizon_matches_jax_f64(nx, nu):
+    """The kernel's plain version in f64 against JAX x64 riccati.solve at
+    Nt=300, the long horizon that the kernel streams through its
+    shared-memory chunks on the card: within 1e-8."""
+    qp, dx0 = random_qp(300, nx, nu, 7)
+    ref = jric.solve(jric.StageQP(*map(jnp.asarray, qp)), jnp.asarray(dx0),
+                     1e-6)
+    got = riccati_sweep_reference(*map(torch.as_tensor, qp),
+                                  torch.as_tensor(dx0), torch.tensor(1e-6))
+    for g, name in zip(got, ("dx", "du", "gain_k", "ff_k", "exp_dec")):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), np.asarray(getattr(ref, name)),
+                                   rtol=0, atol=1e-8, err_msg=name)
+
+
+def test_riccati_chunk_mirrors_the_kernel_source():
+    """RICCATI_CHUNK, which the card tests use to cross the kernel's chunk
+    boundaries, is the CHUNK constant of csrc/riccati_sweep.cu."""
+    src = (CSRC / "riccati_sweep.cu").read_text()
+    found = re.findall(r"constexpr int CHUNK = (\d+);", src)
+    assert found == [str(RICCATI_CHUNK)]
+
+
+@pytest.mark.parametrize("kind", ["indefinite", "zero"])
+def test_bad_pivot_cases_give_non_finite_gains_on_cpu(kind):
+    """The bad-pivot cases the card checks K1 with: its plain version gives
+    non-finite gains for an indefinite and for a zero H_uu pivot too."""
+    check_riccati_sweep_bad_pivot(kind, device="cpu")
+    with pytest.raises(ValueError, match="unknown"):
+        check_riccati_sweep_bad_pivot("other", device="cpu")
 
 
 def test_sweep_reference_matches_pallas_interpret_f32():
