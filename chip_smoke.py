@@ -10,7 +10,9 @@ script exits non-zero before its last line):
      the three shapes of the JAX package's kernel test, at Nt=300 (across
      the kernel's shared-memory chunks) and at B=1024, plus an indefinite
      and a zero H_uu pivot (non-finite gains);
-  4. K2 (RK4 substeps) against its plain version, one rollout and eight;
+  4. K2 (RK4 substeps) against its plain version: one rollout, eight (one
+     of them also at n_sub=7, the run-time loop, with a drained tank on
+     the 1e-6 clamp) and 1024;
   5. the main path at full width: the pinned four-tank GP (N=100, D=6,
      Ny=4), TA propagation with chance tightening, Nt=20, the RTI budget,
      the fused plant integrator, f32 on the card, a 30-step closed loop
@@ -22,8 +24,10 @@ script exits non-zero before its last line):
      kernels and device time per step, the device's busy share);
   7. K4 (SE-ARD Gram), K5 (Cholesky) and K3 (batched GP predict) against
      their plain versions on the card at the JAX package's kernel-test
-     shapes, K5 also at N = 330 to 2048 (both of its paths), plus K5's NaN
-     on a matrix that is not positive definite, on each path;
+     shapes, K4 also at N = 101, 1000 and 2048 (exactly symmetric, its
+     diagonal bitwise), K5 also at N = 330 to 2048 (both of its paths),
+     plus K5's NaN on a matrix that is not positive definite, on each
+     path;
   8. the training path at full width: GP(tank_X, tank_Y) trained on the
      card with the fixture's recipe (multistart=1, max_iters=100) and the
      example's (multistart=2, max_iters=200, seed=1), launch counts exact
@@ -40,8 +44,12 @@ script exits non-zero before its last line):
      times of all five kernels at their paths' shapes beside each one's
      bound, K5 also at N = 500 to 2048, with the card's name and power
      limit; K1 also at B = 64 and 1024 and at Nt = 300, its device time
-     over 20 and over 200 calls, beside the launch floor (a one-element
-     add_) and nvidia-smi's SM clock and power draw over that window.
+     over 20 and over 200 calls; K4 at (P, N) = (8, 100), (4, 500),
+     (4, 1000) and (1, 2048) beside a fill_ of the same output (the
+     practical write floor); K2 at B = 1, 64 and 1024, and the SM cycles
+     of its dependent chain (one thread between two clock64() reads);
+     each beside the launch floor (a one-element add_) and nvidia-smi's
+     SM clock and power draw over its window.
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with the kernels' rows, and {"ok": true, "device": {...}}.
 
@@ -53,9 +61,16 @@ the one card), and its median, which must be <= 1.01.
 N = 500 and 1000 training points through K5 and through cuSOLVER;
 ``python3 chip_smoke.py --k5-paths`` measures K5's two paths against
 each other (the crossover ``gp_cuda`` sets);
+``python3 chip_smoke.py --compare {k1,k2,k4} OTHER_SRC`` builds OTHER_SRC
+(another version of that kernel's source with the same C interface, e.g.
+the parent commit's, written out with ``git show``) into its own library,
+checks it against the plain version, and times it in turns with the
+repository's kernel (other, repo, repo, other) at phase 11's shapes; for
+k2 it also writes both builds' SASS (cuobjdump) under the build
+directory, counts the K2 kernels' instructions by opcode and reads the
+repository K2's chain in SM cycles;
 ``python3 chip_smoke.py --k1 [OTHER_SRC]`` runs phase 3's K1 and K2 checks
-and phase 11's K1 lines alone, and with OTHER_SRC times that K1 source in
-turns with the repository's (``k1_alone``);
+and phase 11's K1 lines alone, and with OTHER_SRC is ``--compare k1``;
 ``python3 chip_smoke.py --build-times`` times the kernels' build, one
 ``nvcc`` over all sources against one per source at once.
 The script imports no JAX.
@@ -205,19 +220,18 @@ def check_kernels(ck, four_tank_ode, dev):
         ck.check_riccati_sweep_bad_pivot(kind, device=dev)
         torch.cuda.synchronize()
         log(f"[K1] {kind} H_uu pivot -> non-finite gains: ok")
-    rng = np.random.default_rng(0)
     k2_err = None
-    for lead in [(), (8,)]:
-        x = torch.tensor(np.abs(rng.standard_normal(lead + (4,))) * 4 + 0.5,
-                         dtype=torch.float32, device=dev)
-        u = torch.tensor(np.abs(rng.standard_normal(lead + (2,))) * 3,
-                         dtype=torch.float32, device=dev)
-        err = ck.check_rk4_substeps(four_tank_ode, x, u, 0.3, 10)
-        log(f"[K2] batch={lead or 1} max|err| {err:.3e} (rtol 1e-5, atol "
-            f"1e-6: nvcc contracts to FMA)")
+    # the main path's rollout, a batch (also through the run-time loop, a
+    # drained tank on the clamp), the batched study's width
+    for batch, n_sub in [(None, 10), (8, 10), (8, 7), (1024, 10)]:
+        x, u = ck.rk4_inputs(batch, batch or 1, dev)
+        err = ck.check_rk4_substeps(four_tank_ode, x, u, 0.3, n_sub)
+        log(f"[K2] batch={batch or 1}, n_sub={n_sub} max|err| {err:.3e} "
+            f"(rtol 1e-5, atol 1e-6: rsqrt form, FMA contraction)")
         k2_err = err if k2_err is None else k2_err
     torch.cuda.synchronize()
     return k1_err, k2_err
+
 
 
 def build_plant(dev):
@@ -451,8 +465,9 @@ def large_fit(ns=(500, 1000)):
                 gc.cholesky = k5
             log(f"[large] N={n} fit through {route}: {wall:.3f} s wall, "
                 f"{gp.n_evals} batched evaluations, "
-                f"{1e3 * wall / gp.n_evals:.3f} ms per evaluation; K5 "
-                f"launches {ck.LAUNCHES['cholesky']} on {card}")
+                f"{1e3 * wall / gp.n_evals:.3f} ms per evaluation; K4 "
+                f"launches {ck.LAUNCHES['se_ard_gram']}, K5 launches "
+                f"{ck.LAUNCHES['cholesky']} on {card}")
     return 0
 
 
@@ -527,11 +542,13 @@ def check_gp_kernels(gc, dev):
     K5's NaN for a matrix that is not positive definite; returns the max
     abs errors at the training and validation paths' shapes."""
     errs = {}
-    for n, d in [(40, 6), (100, 6), (200, 12), (130, 3)]:
-        err = gc.check_se_ard_gram(*gc.gram_inputs(n, d, 8, n + d,
+    for p, n, d in [(8, 40, 6), (8, 100, 6), (8, 200, 12), (8, 130, 3),
+                    (1, 101, 6), (4, 1000, 6), (1, 2048, 6)]:
+        err = gc.check_se_ard_gram(*gc.gram_inputs(n, d, p, n + d,
                                                    device=dev), 1e-6)
-        log(f"[K4] (P,N,D)=(8,{n},{d}) max|err| {err:.3e} (rtol, atol 2e-5)")
-        if (n, d) == (100, 6):
+        log(f"[K4] (P,N,D)=({p},{n},{d}) max|err| {err:.3e} (rtol, atol "
+            f"2e-5; exactly symmetric, diagonal bitwise)")
+        if (p, n, d) == (8, 100, 6):
             errs["se_ard_gram"] = err
     for n, p in [(16, 8), (100, 8), (128, 8), (200, 8), (330, 4), (331, 4),
                  (500, 4), (1000, 4), (1024, 1), (2048, 1)]:
@@ -828,35 +845,177 @@ def k1_times(ck, dev, card, sweep=None):
     log(f"[K1 time] nvidia-smi over the K1 window: {smi.summary()}")
 
 
-def k1_alone(other_src=None):
-    """Phase 3's K1 and K2 checks and phase 11's K1 lines alone.  With
-    ``other_src`` (a K1 source with the same C interface, e.g. an earlier
-    commit's ``csrc/riccati_sweep.cu`` written out with ``git show``), that
-    source is built into its own library, checked against the plain
-    version, and timed in turns with the repository's K1: other, repo,
-    repo, other."""
+#: (P, N, D) at which phase 11 times K4: the training path's (the example
+#: recipe's P), the --large-fit path's two N at P=4, one matrix at 2048
+K4_TIME_SHAPES = ((8, 100, 6), (4, 500, 6), (4, 1000, 6), (1, 2048, 6))
+#: rollouts at which phase 11 times K2 (n_sub=10): the main path's one, a
+#: batch, the batched study's width
+K2_TIME_BATCHES = (1, 64, 1024)
+
+
+def floor_ms(dev):
+    """The launch floor: mean/median device ms of a one-element add_ over
+    200 calls."""
+    z = torch.zeros(1, device=dev)
+    return launch_ms(lambda: z.add_(1.0), 200)
+
+
+def k4_times(gc, dev, card, gram=None):
+    """Phase 11's K4 lines at K4_TIME_SHAPES: event ms over 200 calls,
+    device ms per launch (torch.profiler, mean/median over 200 calls), a
+    fill_ of the same (P, N, N) output (the practical write floor) and the
+    bound, beside the launch floor and nvidia-smi's clocks over the window.
+    ``gram`` stands in for the wrapper (another build of K4)."""
+    gram = gram or gc.se_ard_gram
+    with SmiSampler() as smi:
+        for p, n, d in K4_TIME_SHAPES:
+            x, ell, sf2, sn2 = gc.gram_inputs(n, d, p, n + d, device=dev)
+            k = gram(x, ell, sf2, sn2, 1e-5)
+
+            def call():
+                gram(x, ell, sf2, sn2, 1e-5)
+
+            out = torch.empty_like(k)
+            b = bound(nbytes(x, ell, sf2, sn2, k), p * n * n * (3 * d + 3))
+            log(f"[K4 time] (P,N,D)=({p},{n},{d}): event "
+                f"{cuda_time_ms(call, reps=200):.4f} ms (200 calls); device "
+                f"per launch mean/median {fmt_pair(launch_ms(call, 200))}; "
+                f"fill_ of the output {fmt_pair(launch_ms(lambda: out.fill_(1.0), 200))}; "
+                f"bound {b[0]:.3e} ms ({b[1]}) on {card}")
+        log(f"[K4 time] launch floor (one-element add_): device per launch "
+            f"mean/median {fmt_pair(floor_ms(dev))} on {card}")
+    log(f"[K4 time] nvidia-smi over the K4 window: {smi.summary()}")
+
+
+def k2_times(ck, four_tank_ode, dev, card, integrate=None):
+    """Phase 11's K2 lines at K2_TIME_BATCHES (n_sub=10, h = DT/10): event
+    ms over 200 calls, device ms per launch (torch.profiler, mean/median
+    over 200 calls), the plain version's event ms and the bound, beside the
+    launch floor and nvidia-smi's clocks over the window.  ``integrate``
+    stands in for the wrapper (another build of K2)."""
+    from benchmarks.bench_spec import DT
+    integrate = integrate or ck.rk4_substeps
+    with SmiSampler() as smi:
+        for bsz in K2_TIME_BATCHES:
+            x, u = ck.rk4_inputs(None if bsz == 1 else bsz, bsz, dev)
+            out = integrate(four_tank_ode, x, u, DT / 10, 10)
+
+            def call():
+                integrate(four_tank_ode, x, u, DT / 10, 10)
+
+            # per substep 4 ODE evaluations (~22 operations each) and ~52
+            # for the stage combinations
+            b = bound(nbytes(x, u, out), bsz * 10 * (4 * 22 + 52))
+            plain = cuda_time_ms(lambda: ck.rk4_substeps_reference(
+                four_tank_ode, x, u, DT / 10, 10), reps=20)
+            log(f"[K2 time] B={bsz}, n_sub=10: event "
+                f"{cuda_time_ms(call, reps=200):.4f} ms (200 calls); device "
+                f"per launch mean/median {fmt_pair(launch_ms(call, 200))}; "
+                f"plain {plain:.4f} ms; bound {b[0]:.3e} ms ({b[1]}) on "
+                f"{card}")
+        log(f"[K2 time] launch floor (one-element add_): device per launch "
+            f"mean/median {fmt_pair(floor_ms(dev))} on {card}")
+    log(f"[K2 time] nvidia-smi over the K2 window: {smi.summary()}")
+
+
+def k2_chain_cycles(ck, dev, card):
+    """K2's dependent chain in SM cycles: gpmpc_rk4_chain_cycles_f32 runs
+    one rollout's substeps in one thread between two clock64() reads (from
+    before its loads to after its stores), min over 20 calls, at n_sub = 0
+    (loads and stores alone), 10 (the compiled-in count), 20 and 40 (the
+    run-time loop).  (c10 - c0) / 40 is one evaluation's cycles on the main
+    path, (c40 - c20) / 80 in the run-time loop (each with its share of the
+    RK4 combination)."""
+    from benchmarks.bench_spec import DT
+    lib = ck.build_library()
+    x, u = ck.rk4_inputs(None, 1, dev)
+    out = torch.empty_like(x)
+    cyc = torch.zeros(1, dtype=torch.int64, device=dev)
+    c = {}
+    with SmiSampler() as smi:
+        for n_sub in (0, 10, 20, 40):
+            reads = []
+            for _ in range(20):
+                with torch.cuda.device(dev):
+                    stream = torch.cuda.current_stream(dev).cuda_stream
+                    code = lib.gpmpc_rk4_chain_cycles_f32(
+                        0, x.data_ptr(), u.data_ptr(), out.data_ptr(),
+                        cyc.data_ptr(), n_sub, float(DT / 10), stream)
+                ck._raise_on_error("rk4_chain_cycles", code)
+                reads.append(int(cyc.item()))
+            c[n_sub] = min(reads)
+    mhz = float(np.median([r[0] for r in smi.rows])) if smi.rows else None
+    at = "" if mhz is None else \
+        f" = {c[10] / mhz:.3f} us at the median SM clock {mhz:.0f} MHz"
+    log(f"[K2 chain] one thread, clock64 from before the loads to after the "
+        f"stores, min of 20: n_sub=0 {c[0]} cycles, n_sub=10 (compiled-in) "
+        f"{c[10]}{at}, so {(c[10] - c[0]) / 40:.1f} cycles per ODE "
+        f"evaluation on the main path; run-time loop n_sub=20 {c[20]}, 40 "
+        f"{c[40]}: {(c[40] - c[20]) / 80:.1f} per evaluation, on {card}")
+    log(f"[K2 chain] nvidia-smi over the window: {smi.summary()}")
+    return c
+
+
+def sass_summary(so, tag):
+    """Write the SASS of library ``so`` (cuobjdump -sass) under the build
+    directory and log, for each K2 kernel in it, its instruction count by
+    the opcodes that make the chain."""
+    import re
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    tool = os.path.join(os.path.dirname(ck._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    path = ck.BUILD_DIR / "sass" / f"{tag}.sass"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text)
+    for part in text.split("Function : ")[1:]:
+        name = part.splitlines()[0].strip()
+        if "rk4" not in name:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                         part)
+        count = {k: sum(o == k for o in ops) for k in
+                 ("MUFU", "FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "BRA",
+                  "CALL", "LDG", "STG")}
+        log(f"[sass] {tag} {name}: {len(ops)} instructions, {count} "
+            f"-> {path}")
+
+
+#: --compare's kernels: key -> the C symbol of its launch
+COMPARE = {"k1": "gpmpc_riccati_sweep_f32", "k2": "gpmpc_rk4_substeps_f32",
+           "k4": "gpmpc_se_ard_gram_f32"}
+
+
+def compare(kernel, other_src):
+    """Build ``other_src`` (a source of kernel ``kernel`` with the same C
+    interface) into its own library, check it against the plain version,
+    and time it in turns with the repository's build of that kernel:
+    other, repo, repo, other, at phase 11's shapes."""
     import ctypes
     from types import SimpleNamespace
     from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    from gpmpc_tpu_torch.ops import gp_cuda as gc
     from gpmpc_tpu_torch.systems import four_tank_ode
 
     card = card_line()
     dev = torch.device("cuda")
     log(f"[card] nvidia-smi: {card}")
-    check_kernels(ck, four_tank_ode, dev)
-    if other_src is None:
-        k1_times(ck, dev, card)
-        return 0
-    so = ck.BUILD_DIR / "k1_other" / "libk1_other.so"
+    sym = COMPARE[kernel]
+    repo = ck.build_library()
+    so = ck.BUILD_DIR / f"{kernel}_other" / f"lib{kernel}_other.so"
     so.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([ck._nvcc(), *ck.NVCC_FLAGS, "-shared", "-o", str(so),
-                    other_src], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(so)).gpmpc_riccati_sweep_f32
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    libs = {"other": SimpleNamespace(gpmpc_riccati_sweep_f32=fn),
-            "repo": ck.build_library()}
+    build = subprocess.run([ck._nvcc(), *ck.NVCC_FLAGS, "-shared", "-o",
+                            str(so), other_src], capture_output=True,
+                           text=True)
+    if build.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {other_src}:\n{build.stdout}"
+                           f"{build.stderr}")
+    for line in (build.stdout + build.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build other] {line.strip()}")
+    fn = getattr(ctypes.CDLL(str(so)), sym)
+    fn.argtypes, fn.restype = getattr(repo, sym).argtypes, ctypes.c_int
+    libs = {"other": SimpleNamespace(**{sym: fn}), "repo": repo}
 
     def through(name, call, *args):
         keep, ck._lib = ck._lib, libs[name]
@@ -865,15 +1024,56 @@ def k1_alone(other_src=None):
         finally:
             ck._lib = keep
 
-    err = through("other", ck.check_riccati_sweep,
-                  ck.stage_qp_inputs(20, 4, 2, 0, device=dev),
-                  torch.tensor(1e-6, device=dev))
-    log(f"[K1 other] {other_src}: max|err| {err:.3e} at (Nt,nx,nu)="
-        f"(20,4,2)")
+    if kernel == "k1":
+        err = through("other", ck.check_riccati_sweep,
+                      ck.stage_qp_inputs(20, 4, 2, 0, device=dev),
+                      torch.tensor(1e-6, device=dev))
+        shape = "(Nt,nx,nu)=(20,4,2)"
+
+        def times(name):
+            k1_times(ck, dev, card, sweep=lambda *a: through(
+                name, ck.riccati_sweep, *a))
+    elif kernel == "k2":
+        err = through("other", ck.check_rk4_substeps, four_tank_ode,
+                      *ck.rk4_inputs(None, 1, dev), 0.3, 10)
+        shape = "B=1, n_sub=10"
+        sass_summary(so, "k2_other")
+        sass_summary(ck.BUILD_INFO["path"], "repo")
+
+        k2_chain_cycles(ck, dev, card)
+
+        def times(name):
+            k2_times(ck, four_tank_ode, dev, card, integrate=lambda *a:
+                     through(name, ck.rk4_substeps, *a))
+    else:
+        err = through("other", gc.check_se_ard_gram,
+                      *gc.gram_inputs(100, 6, 8, 106, device=dev), 1e-6)
+        shape = "(P,N,D)=(8,100,6)"
+
+        def times(name):
+            k4_times(gc, dev, card, gram=lambda *a: through(
+                name, gc.se_ard_gram, *a))
+    log(f"[{kernel} other] {other_src}: max|err| {err:.3e} against the plain "
+        f"version at {shape}")
     for name in ("other", "repo", "repo", "other"):
-        log(f"[K1 other] timing {name}")
-        k1_times(ck, dev, card, sweep=lambda *a, n=name: through(
-            n, ck.riccati_sweep, *a))
+        log(f"[{kernel} other] timing {name}")
+        times(name)
+    return 0
+
+
+def k1_alone(other_src=None):
+    """Phase 3's K1 and K2 checks and phase 11's K1 lines alone; with
+    ``other_src``, ``compare("k1", other_src)``."""
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    from gpmpc_tpu_torch.systems import four_tank_ode
+
+    if other_src is not None:
+        return compare("k1", other_src)
+    card = card_line()
+    dev = torch.device("cuda")
+    log(f"[card] nvidia-smi: {card}")
+    check_kernels(ck, four_tank_ode, dev)
+    k1_times(ck, dev, card)
     return 0
 
 
@@ -898,6 +1098,13 @@ def main(argv):
     if "--k1" in argv:
         i = argv.index("--k1") + 1
         return k1_alone(argv[i] if i < len(argv) else None)
+    if "--compare" in argv:
+        i = argv.index("--compare")
+        if len(argv) < i + 3 or argv[i + 1] not in COMPARE:
+            print(f"chip_smoke: --compare needs one of {sorted(COMPARE)} and "
+                  f"a source path", file=sys.stderr)
+            return 2
+        return compare(argv[i + 1], argv[i + 2])
     from benchmarks.bench_spec import DT, X0, XSP, closed_loop_cost
     from gpmpc_tpu_torch.ops import cuda_kernels as ck
     from gpmpc_tpu_torch.ops import gp_cuda as gc
@@ -1015,6 +1222,9 @@ def main(argv):
     # 11. kernel times beside their bounds
     times = kernel_times(ck, gc, four_tank_ode, dev, card)
     k1_times(ck, dev, card)
+    k4_times(gc, dev, card)
+    k2_times(ck, four_tank_ode, dev, card)
+    k2_chain_cycles(ck, dev, card)
     path_launches = {"riccati_sweep": launches["riccati_sweep"],
                      "rk4_substeps": launches["rk4_substeps"],
                      "se_ard_gram": train_launches["se_ard_gram"],

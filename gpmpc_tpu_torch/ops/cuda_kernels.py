@@ -23,7 +23,8 @@ lanes share each stage's products, and the stage arrays reach shared
 memory in chunks of :data:`RICCATI_CHUNK` stages by ``cp.async``, the next
 chunk's copy in flight while one is solved, so Nt <= RICCATI_CHUNK pays
 one memory round trip in all.  K2 runs one thread per rollout with the
-state in registers.  The source files say more.
+state in registers, its square roots by one MUFU.RSQ each and the main
+path's n_sub = 10 compiled in.  The source files say more.
 
 The wrappers: on a CPU tensor they run the plain version; on a CUDA tensor
 they launch the kernel or raise.  There is no fallback.  The shared library
@@ -144,6 +145,9 @@ def build_library() -> ctypes.CDLL:
     lib.gpmpc_rk4_substeps_f32.argtypes = [i32, ptr, ptr, ptr, i32, i32,
                                            ctypes.c_double, ptr]
     lib.gpmpc_rk4_substeps_f32.restype = i32
+    lib.gpmpc_rk4_chain_cycles_f32.argtypes = [i32] + [ptr] * 4 + [
+        i32, ctypes.c_double, ptr]
+    lib.gpmpc_rk4_chain_cycles_f32.restype = i32
     lib.gpmpc_se_ard_gram_f32.argtypes = [ptr] * 4 + [ctypes.c_float, ptr] \
         + [i32] * 3 + [ptr]
     lib.gpmpc_se_ard_gram_f32.restype = i32
@@ -349,6 +353,21 @@ def stage_qp_inputs(nt, nx, nu, seed, batch=None, device=None):
                          device=device) for x in arrays]
 
 
+def rk4_inputs(batch, seed, device=None):
+    """Plant states and inputs for K2's checks: tank levels |N(0,1)| * 4 +
+    0.5, the first rollout's fourth tank drained to 0 (the 1e-6 clamp) when
+    ``batch`` is given, pump voltages |N(0,1)| * 3; f32 (4,) and (2,) for
+    one rollout when ``batch`` is None, else (batch, 4) and (batch, 2)."""
+    rng = np.random.default_rng(seed)
+    lead = () if batch is None else (batch,)
+    x = np.abs(rng.standard_normal(lead + (4,))) * 4 + 0.5
+    if batch is not None:
+        x[0, 3] = 0.0
+    kw = dict(dtype=torch.float32, device=device)
+    return (torch.tensor(x, **kw),
+            torch.tensor(np.abs(rng.standard_normal(lead + (2,))) * 3, **kw))
+
+
 def check_riccati_sweep(args, reg) -> float:
     """Launch K1 on CUDA tensors and its plain version on the same tensors;
     raise unless dx and du agree within 1e-5 x (1 + max|dx|), the gains and
@@ -393,8 +412,9 @@ def check_riccati_sweep_bad_pivot(kind: str, device=None) -> None:
 def check_rk4_substeps(ode, x, u, h: float, n_sub: int) -> float:
     """Launch K2 on CUDA tensors and its plain version on the same tensors;
     raise unless they agree within rtol 1e-5, atol 1e-6 (looser than on the
-    CPU: nvcc contracts a*b+c into FMA, which rounds differently from the
-    separate ops).  Returns the largest absolute difference."""
+    CPU: the kernel takes its square roots by MUFU.RSQ and fuses products
+    into FMAs, which round differently from the plain version's ops).
+    Returns the largest absolute difference."""
     got = rk4_substeps(ode, x, u, h, n_sub)
     ref = rk4_substeps_reference(ode, x, u, h, n_sub)
     err = float((got - ref).abs().max())

@@ -26,6 +26,8 @@ version on the card, for the tests and the smoke script alike.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -62,6 +64,41 @@ def se_ard_gram_reference(x, ell, sf2, sn2, jitter: float = 0.0):
     eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
     diag = sf2 + sn2 + jitter * sf2
     return k * (1.0 - eye) + diag[:, None, None] * eye
+
+
+#: K4's square tile: the constant ``TILE`` of ``csrc/se_ard_gram.cu`` (a
+#: CPU test holds the two equal), the default of the schedule's mirror
+GRAM_TILE = 32
+
+#: K4 scales the points by this / ell, so that exp(-d2 / 2) = exp2(-d2'):
+#: sqrt(log2(e) / 2), the constant ``SCALE`` of ``csrc/se_ard_gram.cu``
+GRAM_EXP2_SCALE = math.sqrt(0.5 * math.log2(math.e))
+
+
+def se_ard_gram_pairs_reference(x, ell, sf2, sn2, jitter: float = 0.0,
+                                tile: int = GRAM_TILE):
+    """K4's tile-pair schedule in plain PyTorch, for the tests only (no path
+    of the port calls it): the points scaled by sqrt(log2(e)/2) / ell once;
+    per tile pair I <= J of ``tile`` x ``tile`` tiles, sf2 exp2(-d2') with
+    d2' the direct difference sum over D, written to (I, J) and, off the
+    diagonal, transposed to (J, I); then the diagonal sf2 + sn2 + jitter
+    sf2 exactly.  Arguments as :func:`se_ard_gram_reference`."""
+    n = x.shape[0]
+    xs = x * (GRAM_EXP2_SCALE / ell[:, None, :])               # (P, N, D)
+    out = torch.empty((ell.shape[0], n, n), dtype=x.dtype, device=x.device)
+    for i0 in range(0, n, tile):
+        for j0 in range(i0, n, tile):
+            a, b = xs[:, i0:i0 + tile], xs[:, j0:j0 + tile]
+            d2 = 0.0
+            for dim in range(x.shape[1]):       # the kernel's sum order
+                d2 = d2 + (a[:, :, None, dim] - b[:, None, :, dim]) ** 2
+            k = sf2[:, None, None] * torch.exp2(-d2)
+            out[:, i0:i0 + tile, j0:j0 + tile] = k
+            if j0 != i0:
+                out[:, j0:j0 + tile, i0:i0 + tile] = k.mT
+    idx = torch.arange(n, device=x.device)
+    out[:, idx, idx] = (sf2 + sn2 + jitter * sf2)[:, None]
+    return out
 
 
 def se_ard_gram(x, ell, sf2, sn2, jitter: float = 0.0):
@@ -303,8 +340,9 @@ def predict_inputs(n, d, b, ny, seed, device=None):
 
 def check_se_ard_gram(x, ell, sf2, sn2, jitter: float = 1e-6) -> float:
     """Launch K4 on CUDA tensors and its plain version on the same tensors;
-    raise unless they agree within rtol and atol 2e-5.  Returns the largest
-    absolute difference."""
+    raise unless they agree within rtol and atol 2e-5, K4's output is
+    exactly symmetric and its diagonal is bitwise sf2 + sn2 + jitter sf2.
+    Returns the largest absolute difference."""
     got = se_ard_gram(x, ell, sf2, sn2, jitter)
     ref = se_ard_gram_reference(x, ell, sf2, sn2, jitter)
     err = float((got - ref).abs().max())
@@ -312,6 +350,11 @@ def check_se_ard_gram(x, ell, sf2, sn2, jitter: float = 1e-6) -> float:
             (got - ref).abs() <= GRAM_TOL + GRAM_TOL * ref.abs())):
         raise AssertionError(f"se_ard_gram disagrees with its plain version "
                              f"at {tuple(got.shape)}: max|err| {err}")
+    diag = (sf2 + sn2 + jitter * sf2)[:, None].expand(-1, x.shape[0])
+    if not torch.equal(got, got.mT) or not torch.equal(
+            torch.diagonal(got, dim1=-2, dim2=-1), diag):
+        raise AssertionError(f"se_ard_gram at {tuple(got.shape)} is not "
+                             f"exactly symmetric with the exact diagonal")
     return err
 
 

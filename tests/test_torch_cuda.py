@@ -53,16 +53,15 @@ def test_riccati_kernel_zero_pivot_gives_non_finite_gains(dev):
     ck.check_riccati_sweep_bad_pivot("zero", device=dev)
 
 
-@pytest.mark.parametrize("batch", [None, 8])
-def test_rk4_kernel_matches_plain_version(dev, batch):
-    rng = np.random.default_rng(0)
-    lead = () if batch is None else (batch,)
-    x = torch.tensor(np.abs(rng.standard_normal(lead + (4,))) * 4 + 0.5,
-                     dtype=torch.float32, device=dev)
-    u = torch.tensor(np.abs(rng.standard_normal(lead + (2,))) * 3,
-                     dtype=torch.float32, device=dev)
+@pytest.mark.parametrize("n_sub", [1, 7, 10])
+@pytest.mark.parametrize("batch", [None, 8, 1024])
+def test_rk4_kernel_matches_plain_version(dev, batch, n_sub):
+    """K2 with the main path's n_sub=10 (compiled in) and other counts (the
+    run-time loop), over one rollout, a batch and the batched study's width;
+    the batches' first rollout has a drained tank, on the 1e-6 clamp."""
+    x, u = ck.rk4_inputs(batch, n_sub + (batch or 1), dev)
     before = ck.LAUNCHES["rk4_substeps"]
-    ck.check_rk4_substeps(four_tank_ode, x, u, 0.3, 10)
+    ck.check_rk4_substeps(four_tank_ode, x, u, 0.3, n_sub)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["rk4_substeps"] == before + 1
 
@@ -121,9 +120,19 @@ def test_main_path_launches_k1_four_times_a_step(dev):
         bool(torch.all(torch.isfinite(us)))
 
 
-@pytest.mark.parametrize("n,d", [(40, 6), (100, 6), (200, 12), (130, 3)])
-def test_gram_kernel_matches_plain_version(dev, n, d):
-    args = gp_cuda.gram_inputs(n, d, 8, seed=n + d, device=dev)
+@pytest.mark.parametrize("n,d,p", [
+    # the JAX package's kernel-test shapes
+    (40, 6, 8), (100, 6, 8), (200, 12, 8), (130, 3, 8),
+    # below one tile, across a tile edge, N % 4 != 0 (rows not 16-byte
+    # aligned: the kernel's 4-byte stores)
+    *[(n, d, p) for n in (1, 5, 33, 101, 130) for d in (3, 6, 12)
+      for p in (1, 8)],
+    # where the output write bounds it
+    (1000, 6, 4), (2048, 6, 1)])
+def test_gram_kernel_matches_plain_version(dev, n, d, p):
+    """K4 within rtol and atol 2e-5 of the plain version, exactly symmetric,
+    its diagonal bitwise sf2 + sn2 + jitter sf2 (check_se_ard_gram)."""
+    args = gp_cuda.gram_inputs(n, d, p, seed=n * d + p, device=dev)
     before = ck.LAUNCHES["se_ard_gram"]
     gp_cuda.check_se_ard_gram(*args, 1e-6)
     torch.cuda.synchronize()

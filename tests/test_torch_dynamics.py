@@ -1,6 +1,8 @@
 """Port parity: the plant model and the RK4 substep kernel's plain version of
 gpmpc_tpu_torch against gpmpc_tpu, plus the fused-integrator guards."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -13,7 +15,7 @@ from gpmpc_tpu.systems import four_tank_ode as jode
 from gpmpc_tpu_torch import MPC, Model
 from gpmpc_tpu_torch.ops.cuda_kernels import (LAUNCHES, rk4_substeps,
                                               rk4_substeps_reference)
-from gpmpc_tpu_torch.systems import four_tank_ode
+from gpmpc_tpu_torch.systems import TANK_PARAMS, four_tank_ode
 
 KW = dict(Nx=4, Nu=2, dt=3.0, integrator_substeps=10)
 TKW = dict(KW, device="cpu")
@@ -55,9 +57,42 @@ def test_ode_batched_over_leading_dims():
         assert torch.equal(batched[i], four_tank_ode(tx[i], tu[i]))
 
 
+def _four_tank_kernel_form(x, u):
+    """The four-tank ODE in the form the CUDA functor ``FourTank`` of
+    csrc/rk4_substeps.cu computes it, in plain PyTorch: h = max(x, 1e-6),
+    sqrt(2 g h) as (c sqrt(2 g) h) rsqrt(h) with each coefficient c folded
+    in double and cast to f32, and the same sum order (the kernel fuses
+    each product into an FMA, which this mirror cannot)."""
+    p = TANK_PARAMS
+    s2g = math.sqrt(2.0 * p["g"])
+    h = torch.clamp(x, min=1e-6)
+    r = torch.rsqrt(h)
+
+    def c(v):
+        return torch.tensor(v, dtype=torch.float32)
+
+    def q(i, coef):
+        return (c(coef * s2g) * h[..., i]) * r[..., i]
+
+    return torch.stack([
+        q(0, -p["a1"] / p["A1"]) + (q(2, p["a3"] / p["A1"])
+                                    + c(p["gamma1"] * p["k1"] / p["A1"])
+                                    * u[..., 0]),
+        q(1, -p["a2"] / p["A2"]) + (q(3, p["a4"] / p["A2"])
+                                    + c(p["gamma2"] * p["k2"] / p["A2"])
+                                    * u[..., 1]),
+        q(2, -p["a3"] / p["A3"])
+        + c((1.0 - p["gamma2"]) * p["k2"] / p["A3"]) * u[..., 1],
+        q(3, -p["a4"] / p["A4"])
+        + c((1.0 - p["gamma1"]) * p["k1"] / p["A4"]) * u[..., 0]], dim=-1)
+
+
 def test_rk4_reference_matches_pallas_interpret_f32():
-    """The kernel's plain version against the TPU kernel (Pallas interpret),
-    one rollout and a batch, at the tolerances of tests/test_pallas.py."""
+    """The kernel's plain version, and the same substeps through a mirror
+    of the kernel's rsqrt form of the ODE, against the TPU kernel (Pallas
+    interpret), one rollout and a batch (one drained tank, on the 1e-6
+    clamp), at the tolerances of tests/test_pallas.py: rtol 1e-6, atol
+    1e-7."""
     h, n_sub = 0.3, 10
     xs, us = _states(8, 2)
     xs, us = xs.astype(np.float32), us.astype(np.float32)
@@ -71,10 +106,12 @@ def test_rk4_reference_matches_pallas_interpret_f32():
                                atol=1e-7)
     refb = jax.vmap(lambda x, u: rk4_substeps_pallas(
         ode, x, u, h, n_sub, interpret=True))(jnp.asarray(xs), jnp.asarray(us))
-    gotb = rk4_substeps_reference(four_tank_ode, torch.as_tensor(xs),
-                                  torch.as_tensor(us), h, n_sub)
-    np.testing.assert_allclose(gotb.numpy(), np.asarray(refb), rtol=1e-6,
-                               atol=1e-7)
+    for ode_form in (four_tank_ode, _four_tank_kernel_form):
+        gotb = rk4_substeps_reference(ode_form, torch.as_tensor(xs),
+                                      torch.as_tensor(us), h, n_sub)
+        assert gotb.dtype == torch.float32
+        np.testing.assert_allclose(gotb.numpy(), np.asarray(refb), rtol=1e-6,
+                                   atol=1e-7)
 
 
 def test_fused_integrator_on_cpu_is_the_plain_loop():

@@ -1,8 +1,11 @@
 """The GP path's kernels K3, K4 and K5 on the CPU: their plain versions
-against the JAX package (its jnp forms in f64, its Pallas kernels in
-interpret mode in f32 at the shapes of tests/test_pallas.py), the wrappers'
-device switch, and the autograd functions' derivatives (gradcheck in f64).
+and the torch mirrors of K4's and K5's schedules against the JAX package
+(its jnp forms in f64, its Pallas kernels in interpret mode in f32 at the
+shapes of tests/test_pallas.py), the wrappers' device switch, and the
+autograd functions' derivatives (gradcheck in f64).
 The kernels themselves run only on the card (tests/test_torch_cuda.py)."""
+
+import re
 
 import numpy as np
 import pytest
@@ -11,7 +14,8 @@ import jax.numpy as jnp
 
 from gpmpc_tpu.ops import kernels as jk
 from gpmpc_tpu.ops.pallas_kernels import (cholesky_pallas,
-                                          gp_predict_batch_pallas)
+                                          gp_predict_batch_pallas,
+                                          se_ard_gram_pallas)
 from gpmpc_tpu_torch.ops import cuda_kernels as ck
 from gpmpc_tpu_torch.ops import gp_cuda
 from gpmpc_tpu_torch.ops import kernels as tk
@@ -34,6 +38,62 @@ def test_gram_reference_matches_jax_f64():
                                    atol=1e-12 * sf2[p])
         assert np.all(np.diag(got[p].numpy())
                       == sf2[p] + sn2[p] + 1e-6 * sf2[p])
+
+
+@pytest.mark.parametrize("n,tile", [(1, 32), (5, 4), (33, 32), (101, 32),
+                                    (130, 32), (101, 8), (33, 64),
+                                    (130, 256)])
+def test_gram_pairs_schedule_matches_jax_f64(n, tile):
+    """K4's tile-pair schedule (its torch mirror) in f64 at ragged N, with
+    tiles on both sides of N, for two problems, each against JAX x64
+    se_ard_gram with that problem's hypers: 1e-12 of sf2.  The diagonal is
+    exactly sf2 + sn2 + jitter sf2, and the output symmetric to 2 ulps (on
+    the card K4 is exactly symmetric; torch's CPU exp2 may round one input
+    differently at two positions of a tensor, so the mirror's diagonal
+    tiles can part by an ulp)."""
+    rng = np.random.default_rng(n + tile)
+    x = rng.uniform(-2, 2, (n, 6))
+    ell = np.exp(0.3 * rng.standard_normal((2, 6)))
+    sf2, sn2 = np.array([1.7, 0.4]), np.array([0.03, 1e-4])
+    got = gp_cuda.se_ard_gram_pairs_reference(
+        *map(torch.as_tensor, (x, ell, sf2, sn2)), 1e-6, tile)
+    assert got.shape == (2, n, n)
+    np.testing.assert_allclose(got.numpy(), got.mT.numpy(), rtol=2.0 ** -51,
+                               atol=0)
+    for p in range(2):
+        ref = jk.se_ard_gram(jnp.asarray(x), jnp.asarray(ell[p]), sf2[p],
+                             sn2[p], jitter=1e-6)
+        np.testing.assert_allclose(got[p].numpy(), np.asarray(ref), rtol=0,
+                                   atol=1e-12 * sf2[p])
+        assert np.all(np.diag(got[p].numpy())
+                      == sf2[p] + sn2[p] + 1e-6 * sf2[p])
+
+
+@pytest.mark.parametrize("n,d", [(33, 3), (101, 6), (130, 12)])
+def test_gram_pairs_schedule_matches_pallas_interpret_f32(n, d):
+    """K4's tile-pair schedule in f32 at ragged N against the Pallas kernel
+    in interpret mode (one problem per call), at the JAX kernel test's
+    rtol and atol 2e-5 (tests/test_pallas.py)."""
+    x, ell, sf2, sn2 = gp_cuda.gram_inputs(n, d, 2, seed=n + d)
+    got = gp_cuda.se_ard_gram_pairs_reference(x, ell, sf2, sn2, 1e-6)
+    for p in range(2):
+        ref = se_ard_gram_pallas(jnp.asarray(x.numpy()),
+                                 jnp.asarray(ell[p].numpy()), float(sf2[p]),
+                                 float(sn2[p]), jitter=1e-6, interpret=True)
+        np.testing.assert_allclose(got[p].numpy(), np.asarray(ref),
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_gram_constants_mirror_the_kernel_source():
+    """GRAM_TILE, the mirror's default tile, is the TILE constant of
+    csrc/se_ard_gram.cu, and its SCALE is GRAM_EXP2_SCALE, sqrt(log2(e)/2),
+    to f32 precision."""
+    src = (ck.CSRC / "se_ard_gram.cu").read_text()
+    assert re.findall(r"constexpr int TILE = (\d+);", src) == [
+        str(gp_cuda.GRAM_TILE)]
+    (scale,) = re.findall(r"constexpr float SCALE = ([0-9.]+)f;", src)
+    assert np.float32(scale) == np.float32(gp_cuda.GRAM_EXP2_SCALE)
+    assert abs(gp_cuda.GRAM_EXP2_SCALE ** 2 - 0.5 / np.log(2)) < 1e-15
 
 
 @pytest.mark.parametrize("n", [16, 100, 128, 200])
