@@ -24,10 +24,12 @@ script exits non-zero before its last line):
      kernels and device time per step, the device's busy share);
   7. K4 (SE-ARD Gram), K5 (Cholesky) and K3 (batched GP predict) against
      their plain versions on the card at the JAX package's kernel-test
-     shapes, K4 also at N = 101, 1000 and 2048 (exactly symmetric, its
-     diagonal bitwise), K5 also at N = 330 to 2048 (both of its paths),
-     plus K5's NaN on a matrix that is not positive definite, on each
-     path;
+     shapes, K4 also at N = 101, 1000 and 2048 and at D = 257 and 300
+     (past one feature chunk; exactly symmetric, its diagonal bitwise),
+     K5 also at N = 330 to 2048 and 4097 (both of its paths), plus K5's
+     NaN on a matrix that is not positive definite, on each path; K3 also
+     at (Ny, B, N, D) = (4, 1000, 1000, 6), a ragged (3, 37, 101, 6), and
+     at D = 65 and 300;
   8. the training path at full width: GP(tank_X, tank_Y) trained on the
      card with the fixture's recipe (multistart=1, max_iters=100) and the
      example's (multistart=2, max_iters=200, seed=1), launch counts exact
@@ -46,10 +48,13 @@ script exits non-zero before its last line):
      limit; K1 also at B = 64 and 1024 and at Nt = 300, its device time
      over 20 and over 200 calls; K4 at (P, N) = (8, 100), (4, 500),
      (4, 1000) and (1, 2048) beside a fill_ of the same output (the
-     practical write floor); K2 at B = 1, 64 and 1024, and the SM cycles
+     practical write floor); K3 at (Ny, B, N, D) = (4, 100, 100, 6),
+     (4, 1000, 500, 6) and (4, 1000, 1000, 6) beside a fill_ of the same
+     k*; K2 at B = 1, 64 and 1024, and the SM cycles
      of its dependent chain (one thread between two clock64() reads);
      each beside the launch floor (a one-element add_) and nvidia-smi's
-     SM clock and power draw over its window.
+     SM clock and power draw over its window.  A profiler window that shows
+     no device event is run once more, and the line says so.
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with the kernels' rows, and {"ok": true, "device": {...}}.
 
@@ -58,10 +63,13 @@ quality gate: the realized-cost ratio RTI / converged over each initial
 state of ``benchmarks.bench_spec.X0_PANEL`` (one process per state, all on
 the one card), and its median, which must be <= 1.01.
 ``python3 chip_smoke.py --large-fit`` times the fixture's fit recipe at
-N = 500 and 1000 training points through K5 and through cuSOLVER;
+N = 500 and 1000 training points through K5 and through cuSOLVER, and
+validates each K5 fit on 1000 noise-free held-out points (one K2 launch
+for the data, one K3 launch per validate; SMSE per dim, the validate wall
+time and K3's device time at that shape);
 ``python3 chip_smoke.py --k5-paths`` measures K5's two paths against
 each other (the crossover ``gp_cuda`` sets);
-``python3 chip_smoke.py --compare {k1,k2,k4} OTHER_SRC`` builds OTHER_SRC
+``python3 chip_smoke.py --compare {k1,k2,k3,k4} OTHER_SRC`` builds OTHER_SRC
 (another version of that kernel's source with the same C interface, e.g.
 the parent commit's, written out with ``git show``) into its own library,
 checks it against the plain version, and times it in turns with the
@@ -124,38 +132,50 @@ def cuda_time_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+#: said beside a device time whose first profiler window showed no device
+#: event, so that the window was run again
+REPEATED = " (profiler window repeated: the first showed no device event)"
+
+
 def device_launches_us(fn, reps, warmup=3):
     """Durations in µs of the device kernels that ``reps`` calls of ``fn``
-    launch after ``warmup`` calls, from torch.profiler's kernel events."""
+    launch after ``warmup`` calls, from torch.profiler's kernel events, and
+    REPEATED or "": a window that shows no device event is run once more."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    for attempt in range(2):
+        for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
-    return [e.time_range.elapsed_us() for e in prof.events()
-            if e.device_type.name == "CUDA"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type.name == "CUDA"]
+        if us:
+            break
+    return us, REPEATED if attempt else ""
 
 
 def device_time_ms(fn, reps=200, warmup=3):
-    """Device time per call of ``fn`` and device kernels per call over
-    ``reps`` calls; (None, 0) when the profiler shows no device time."""
-    us = device_launches_us(fn, reps, warmup)
+    """Device time per call of ``fn``, device kernels per call over
+    ``reps`` calls and the window's note (REPEATED or ""); None for the
+    time when two windows showed no device event."""
+    us, note = device_launches_us(fn, reps, warmup)
     if not us:
-        return None, 0
-    return sum(us) / reps / 1e3, len(us) / reps
+        return None, 0, note
+    return sum(us) / reps / 1e3, len(us) / reps, note
 
 
 def launch_ms(fn, reps):
     """Mean and median device ms of the one kernel that ``fn`` launches,
-    over ``reps`` calls; (None, None) when the profiler shows none."""
-    us = device_launches_us(fn, reps)
+    over ``reps`` calls, and the window's note (REPEATED or ""); None for
+    the times when two windows showed no device event."""
+    us, note = device_launches_us(fn, reps)
     if not us:
-        return None, None
-    return float(np.mean(us)) / 1e3, float(np.median(us)) / 1e3
+        return None, None, note
+    return float(np.mean(us)) / 1e3, float(np.median(us)) / 1e3, note
 
 
 class SmiSampler:
@@ -429,7 +449,8 @@ def large_fit(ns=(500, 1000)):
     card twice, once through K5 and once with K5's plain version (cuSOLVER
     through ``cholesky_ex``) in its place, plus both factors' times at P=4
     (one evaluation's Cholesky) and K5's device kernels per call.  Prints
-    wall seconds, batched evaluations and ms per evaluation of each fit."""
+    wall seconds, batched evaluations and ms per evaluation of each fit,
+    and validates the fit through K5 (:func:`validate_large`)."""
     from benchmarks.bench_spec import TRAIN_ULB, TRAIN_UUB, TRAIN_XLB, \
         TRAIN_XUB
     from gpmpc_tpu_torch import GP
@@ -444,11 +465,12 @@ def large_fit(ns=(500, 1000)):
             n, uub=TRAIN_UUB, ulb=TRAIN_ULB, xub=TRAIN_XUB, xlb=TRAIN_XLB,
             generator=torch.Generator(device=dev).manual_seed(2))
         a = gc.spd_inputs(n, 4, n, device=dev)
-        dev_ms, kern = device_time_ms(lambda: k5(a))
+        dev_ms, kern, note = device_time_ms(lambda: k5(a))
         lib = cuda_time_ms(lambda: torch.linalg.cholesky_ex(a), 5)
         log(f"[large] N={n}, P=4: K5 ({k5_path(gc, n)}) "
             f"{cuda_time_ms(lambda: k5(a), 5):.3f} ms, device "
-            f"{fmt_ms(dev_ms)} in {kern:.0f} device kernels per K5 call; "
+            f"{fmt_ms(dev_ms)}{note} in {kern:.0f} device kernels per K5 "
+            f"call; "
             f"cholesky_ex {lib:.3f} ms on {card}")
         for route in ("K5", "cholesky_ex"):
             gc.cholesky = k5 if route == "K5" else gc.cholesky_reference
@@ -468,7 +490,49 @@ def large_fit(ns=(500, 1000)):
                 f"{1e3 * wall / gp.n_evals:.3f} ms per evaluation; K4 "
                 f"launches {ck.LAUNCHES['se_ard_gram']}, K5 launches "
                 f"{ck.LAUNCHES['cholesky']} on {card}")
+            if route == "K5":
+                validate_large(ck, gc, dev, gp, n, card)
     return 0
+
+
+def validate_large(ck, gc, dev, gp, n, card, b=1000):
+    """--large-fit's validation of the GP fitted at ``n`` points: ``b``
+    noise-free held-out points from the fused plant (TRAIN_* bounds,
+    generator seed 9; one K2 launch), ``gp.validate`` (one K3 launch at
+    (Ny, B, N, D) = (4, b, n, 6)); finite SMSE per dim, the validate wall
+    time and K3's device time at that shape on the GP's own posterior."""
+    from benchmarks.bench_spec import TRAIN_ULB, TRAIN_UUB, TRAIN_XLB, \
+        TRAIN_XUB
+
+    ck.reset_launches()
+    xt, yt = build_plant(dev).generate_training_data(
+        b, uub=TRAIN_UUB, ulb=TRAIN_ULB, xub=TRAIN_XUB, xlb=TRAIN_XLB,
+        noise=False, generator=torch.Generator(device=dev).manual_seed(9))
+    torch.cuda.synchronize()
+    data = dict(ck.LAUNCHES)
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    smse, mnlp, _ = gp.validate(xt, yt, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    post, norm = gp.post, gp.norm
+    args = [t.contiguous() for t in (
+        (xt - norm.z_mean) / norm.z_std, post.x,
+        torch.exp(post.hypers.log_ell), torch.exp(post.hypers.log_sf2),
+        post.alpha)]
+    dev_ms = launch_ms(lambda: gc.gp_predict_batch(*args), 200)
+    log(f"[large] N={n} validation on {b} held-out points: SMSE per dim "
+        f"{smse.tolist()}, MNLP {mnlp.tolist()}; validate {1e3 * wall:.3f} "
+        f"ms wall; K3 at (Ny,B,N,D)=(4,{b},{n},6) device per launch "
+        f"mean/median {fmt_pair(dev_ms)}; launches: held-out data {data}, "
+        f"validate {launches} on {card}")
+    none = dict.fromkeys(ck.LAUNCHES, 0)
+    if data != dict(none, rk4_substeps=1) or \
+            launches != dict(none, gp_predict_batch=1):
+        raise AssertionError(f"launch counts {data}, {launches}")
+    if not (np.all(np.isfinite(smse)) and np.all(np.isfinite(mnlp))):
+        raise AssertionError(f"non-finite validation at N={n}")
 
 
 #: (N, P) at which --k5-paths compares K5's paths
@@ -496,11 +560,12 @@ def k5_paths():
             for name, max_n in routes:
                 gc.CHOL_ONE_BLOCK_MAX_N = max_n
                 gc.check_cholesky(a)
-                ms = device_time_ms(lambda: gc.cholesky(a))[0]
-                cells.append(f"{name} {fmt_ms(ms)}")
-            lib = device_time_ms(lambda: torch.linalg.cholesky_ex(a))[0]
+                ms, _, note = device_time_ms(lambda: gc.cholesky(a))
+                cells.append(f"{name} {fmt_ms(ms)}{note}")
+            lib, _, note = device_time_ms(
+                lambda: torch.linalg.cholesky_ex(a))
             log(f"[k5] P={p} N={n} device time per call: {', '.join(cells)}, "
-                f"cholesky_ex {fmt_ms(lib)} on {card}")
+                f"cholesky_ex {fmt_ms(lib)}{note} on {card}")
     finally:
         gc.CHOL_ONE_BLOCK_MAX_N = keep
     return 0
@@ -542,16 +607,20 @@ def check_gp_kernels(gc, dev):
     K5's NaN for a matrix that is not positive definite; returns the max
     abs errors at the training and validation paths' shapes."""
     errs = {}
+    # the JAX package's shapes, the large-fit and one-matrix shapes, and
+    # D past one feature chunk (ell scaled by sqrt(D): K not 0)
     for p, n, d in [(8, 40, 6), (8, 100, 6), (8, 200, 12), (8, 130, 3),
-                    (1, 101, 6), (4, 1000, 6), (1, 2048, 6)]:
-        err = gc.check_se_ard_gram(*gc.gram_inputs(n, d, p, n + d,
-                                                   device=dev), 1e-6)
+                    (1, 101, 6), (4, 1000, 6), (1, 2048, 6), (2, 100, 257),
+                    (1, 300, 300)]:
+        err = gc.check_se_ard_gram(*gc.gram_inputs(
+            n, d, p, n + d, device=dev,
+            ell_scale=np.sqrt(d) if d > gc.GRAM_DCHUNK else 1.0), 1e-6)
         log(f"[K4] (P,N,D)=({p},{n},{d}) max|err| {err:.3e} (rtol, atol "
             f"2e-5; exactly symmetric, diagonal bitwise)")
         if (p, n, d) == (8, 100, 6):
             errs["se_ard_gram"] = err
     for n, p in [(16, 8), (100, 8), (128, 8), (200, 8), (330, 4), (331, 4),
-                 (500, 4), (1000, 4), (1024, 1), (2048, 1)]:
+                 (500, 4), (1000, 4), (1024, 1), (2048, 1), (4097, 1)]:
         err = gc.check_cholesky(gc.spd_inputs(n, p, n, device=dev))
         log(f"[K5] (P,N)=({p},{n}) {k5_path(gc, n)} path: max|err| against "
             f"the plain version in f64 {err:.3e} (atol 2e-4 max|L|)")
@@ -574,15 +643,23 @@ def check_gp_kernels(gc, dev):
     log(f"[K5] {k5_path(gc, 1000)} path, (P,N)=(3,1000), bad pivot in the "
         f"last panel of the middle matrix -> NaN in its lower triangle only:"
         f" ok")
-    for n, d, b in [(90, 6, 33), (100, 6, 100)]:
-        err = gc.check_gp_predict_batch(*gc.predict_inputs(n, d, b, 4, b,
-                                                           device=dev))
-        log(f"[K3] (N,D,B,Ny)=({n},{d},{b},4) max|err| k* {err:.3e} (k* 2e-5,"
-            f" mu 2e-4)")
-        if b == 100:
+    # the JAX package's shapes, the large-fit validation's, a ragged one
+    # (N % 4 != 0: 4-byte stores) and D past one and many feature chunks
+    for ny, b, n, d in K3_CHECK_SHAPES:
+        err = gc.check_gp_predict_batch(*gc.predict_inputs(
+            n, d, b, ny, b, device=dev,
+            ell_scale=np.sqrt(d) if d > 6 else 1.0))
+        log(f"[K3] (Ny,B,N,D)=({ny},{b},{n},{d}) max|err| k* {err:.3e} (k* "
+            f"2e-5, mu 2e-4)")
+        if (ny, b, n, d) == (4, 100, 100, 6):
             errs["gp_predict_batch"] = err
     torch.cuda.synchronize()
     return errs
+
+
+#: (Ny, B, N, D) at which phase 7 holds K3 against its plain version
+K3_CHECK_SHAPES = ((4, 33, 90, 6), (4, 100, 100, 6), (4, 1000, 1000, 6),
+                   (3, 37, 101, 6), (4, 19, 130, 65), (2, 33, 101, 300))
 
 
 def k5_path(gc, n):
@@ -752,8 +829,7 @@ def kernel_times(ck, gc, four_tank_ode, dev, card):
         plain_ms=cuda_time_ms(lambda: gc.cholesky_reference(k), reps=50),
         library_ms=cuda_time_ms(lambda: torch.linalg.cholesky_ex(k),
                                 reps=50),
-        library_device_ms=device_time_ms(
-            lambda: torch.linalg.cholesky_ex(k))[0],
+        library_device=device_time_ms(lambda: torch.linalg.cholesky_ex(k)),
         shape="P=8, N=100", bound=cholesky_bound(8, 100))
     p3 = gc.predict_inputs(100, 6, 100, 4, 100, device=dev)
     mu, ks = gc.gp_predict_batch(*p3)
@@ -765,29 +841,31 @@ def kernel_times(ck, gc, four_tank_ode, dev, card):
         bound=bound(nbytes(*p3, mu, ks), 4 * 100 * 100 * (3 * 6 + 5)))
     for name, r in t.items():
         r["ms"] = cuda_time_ms(r["fn"], reps=200)
-        r["device_ms"], r["device_kernels"] = device_time_ms(r["fn"])
+        r["device_ms"], r["device_kernels"], note = device_time_ms(r["fn"])
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
         log(f"[time] {name} ({r['shape']}): kernel {r['ms']:.4f} ms, device "
-            f"{fmt_ms(r['device_ms'])} per launch "
+            f"{fmt_ms(r['device_ms'])}{note} per launch "
             f"({r['device_kernels']:.0f} device kernels), plain torch on the "
             f"card {r['plain_ms']:.4f} ms, library call {lib}, bound "
             f"{r['bound'][0]:.3e} ms ({r['bound'][1]}) on {card}")
-    log(f"[time] cholesky_ex (P=8, N=100) device "
-        f"{fmt_ms(t['cholesky']['library_device_ms'])} on {card}")
+    lib_ms, _, note = t["cholesky"]["library_device"]
+    log(f"[time] cholesky_ex (P=8, N=100) device {fmt_ms(lib_ms)}{note} on "
+        f"{card}")
     for p, n in [(1, 1024), (4, 500), (4, 1000), (1, 2048)]:
         a = gc.spd_inputs(n, p, 7, device=dev)
         ms = cuda_time_ms(lambda: gc.cholesky(a), reps=20)
-        dev_ms, kern = device_time_ms(lambda: gc.cholesky(a))
+        dev_ms, kern, note = device_time_ms(lambda: gc.cholesky(a))
         plain = cuda_time_ms(lambda: gc.cholesky_reference(a), reps=20)
         lib = cuda_time_ms(lambda: torch.linalg.cholesky_ex(a), reps=20)
-        lib_dev = device_time_ms(lambda: torch.linalg.cholesky_ex(a))[0]
+        lib_dev, _, lib_note = device_time_ms(
+            lambda: torch.linalg.cholesky_ex(a))
         b = cholesky_bound(p, n)
         log(f"[time] cholesky (P={p}, N={n}, {k5_path(gc, n)}): kernel "
-            f"{ms:.4f} ms, device {fmt_ms(dev_ms)} ({kern:.0f} device "
+            f"{ms:.4f} ms, device {fmt_ms(dev_ms)}{note} ({kern:.0f} device "
             f"kernels), plain {plain:.4f} ms, library call {lib:.4f} ms "
-            f"(device {fmt_ms(lib_dev)}), bound {b[0]:.3e} ms ({b[1]}) on "
-            f"{card}")
+            f"(device {fmt_ms(lib_dev)}{lib_note}), bound {b[0]:.3e} ms "
+            f"({b[1]}) on {card}")
     return t
 
 
@@ -797,8 +875,8 @@ K1_TIME_SHAPES = ((1, 20), (64, 20), (1024, 20), (1, 300))
 
 
 def fmt_pair(pair):
-    return "not measured" if pair[0] is None else \
-        f"{pair[0]:.4f}/{pair[1]:.4f} ms"
+    return ("not measured" if pair[0] is None else
+            f"{pair[0]:.4f}/{pair[1]:.4f} ms") + pair[2]
 
 
 def k1_times(ck, dev, card, sweep=None):
@@ -863,9 +941,10 @@ def floor_ms(dev):
 def k4_times(gc, dev, card, gram=None):
     """Phase 11's K4 lines at K4_TIME_SHAPES: event ms over 200 calls,
     device ms per launch (torch.profiler, mean/median over 200 calls), a
-    fill_ of the same (P, N, N) output (the practical write floor) and the
-    bound, beside the launch floor and nvidia-smi's clocks over the window.
-    ``gram`` stands in for the wrapper (another build of K4)."""
+    fill_ of the same (P, N, N) output (the practical write floor), the
+    plain version's event ms and the bound, beside the launch floor and
+    nvidia-smi's clocks over the window.  ``gram`` stands in for the
+    wrapper (another build of K4)."""
     gram = gram or gc.se_ard_gram
     with SmiSampler() as smi:
         for p, n, d in K4_TIME_SHAPES:
@@ -876,15 +955,54 @@ def k4_times(gc, dev, card, gram=None):
                 gram(x, ell, sf2, sn2, 1e-5)
 
             out = torch.empty_like(k)
+            fill = launch_ms(lambda: out.fill_(1.0), 200)
+            plain = cuda_time_ms(lambda: gc.se_ard_gram_reference(
+                x, ell, sf2, sn2, 1e-5), reps=20)
             b = bound(nbytes(x, ell, sf2, sn2, k), p * n * n * (3 * d + 3))
             log(f"[K4 time] (P,N,D)=({p},{n},{d}): event "
                 f"{cuda_time_ms(call, reps=200):.4f} ms (200 calls); device "
                 f"per launch mean/median {fmt_pair(launch_ms(call, 200))}; "
-                f"fill_ of the output {fmt_pair(launch_ms(lambda: out.fill_(1.0), 200))}; "
-                f"bound {b[0]:.3e} ms ({b[1]}) on {card}")
+                f"fill_ of the output {fmt_pair(fill)}; plain "
+                f"{plain:.4f} ms; bound {b[0]:.3e} ms ({b[1]}) on {card}")
         log(f"[K4 time] launch floor (one-element add_): device per launch "
             f"mean/median {fmt_pair(floor_ms(dev))} on {card}")
     log(f"[K4 time] nvidia-smi over the K4 window: {smi.summary()}")
+
+
+#: (Ny, B, N, D) at which phase 11 times K3: the validation path's, and the
+#: --large-fit validations' at N = 500 and 1000
+K3_TIME_SHAPES = ((4, 100, 100, 6), (4, 1000, 500, 6), (4, 1000, 1000, 6))
+
+
+def k3_times(gc, dev, card, predict=None):
+    """Phase 11's K3 lines at K3_TIME_SHAPES: event ms over 200 calls,
+    device ms per launch (torch.profiler, mean/median over 200 calls), a
+    fill_ of the same (Ny, B, N) k* (the practical write floor), the plain
+    version's event ms and the bound, beside the launch floor and
+    nvidia-smi's clocks over the window.  ``predict`` stands in for the
+    wrapper (another build of K3)."""
+    predict = predict or gc.gp_predict_batch
+    with SmiSampler() as smi:
+        for ny, b, n, d in K3_TIME_SHAPES:
+            args = gc.predict_inputs(n, d, b, ny, b + n, device=dev)
+            mu, ks = predict(*args)
+
+            def call():
+                predict(*args)
+
+            out = torch.empty_like(ks)
+            fill = launch_ms(lambda: out.fill_(1.0), 200)
+            plain = cuda_time_ms(
+                lambda: gc.gp_predict_batch_reference(*args), reps=20)
+            bd = bound(nbytes(*args, mu, ks), ny * b * n * (3 * d + 5))
+            log(f"[K3 time] (Ny,B,N,D)=({ny},{b},{n},{d}): event "
+                f"{cuda_time_ms(call, reps=200):.4f} ms (200 calls); device "
+                f"per launch mean/median {fmt_pair(launch_ms(call, 200))}; "
+                f"fill_ of k* {fmt_pair(fill)}; plain {plain:.4f} ms; bound "
+                f"{bd[0]:.3e} ms ({bd[1]}) on {card}")
+        log(f"[K3 time] launch floor (one-element add_): device per launch "
+            f"mean/median {fmt_pair(floor_ms(dev))} on {card}")
+    log(f"[K3 time] nvidia-smi over the K3 window: {smi.summary()}")
 
 
 def k2_times(ck, four_tank_ode, dev, card, integrate=None):
@@ -983,7 +1101,7 @@ def sass_summary(so, tag):
 
 #: --compare's kernels: key -> the C symbol of its launch
 COMPARE = {"k1": "gpmpc_riccati_sweep_f32", "k2": "gpmpc_rk4_substeps_f32",
-           "k4": "gpmpc_se_ard_gram_f32"}
+           "k3": "gpmpc_gp_predict_batch_f32", "k4": "gpmpc_se_ard_gram_f32"}
 
 
 def compare(kernel, other_src):
@@ -1045,6 +1163,14 @@ def compare(kernel, other_src):
         def times(name):
             k2_times(ck, four_tank_ode, dev, card, integrate=lambda *a:
                      through(name, ck.rk4_substeps, *a))
+    elif kernel == "k3":
+        err = through("other", gc.check_gp_predict_batch,
+                      *gc.predict_inputs(100, 6, 100, 4, 100, device=dev))
+        shape = "(Ny,B,N,D)=(4,100,100,6)"
+
+        def times(name):
+            k3_times(gc, dev, card, predict=lambda *a: through(
+                name, gc.gp_predict_batch, *a))
     else:
         err = through("other", gc.check_se_ard_gram,
                       *gc.gram_inputs(100, 6, 8, 106, device=dev), 1e-6)
@@ -1223,6 +1349,7 @@ def main(argv):
     times = kernel_times(ck, gc, four_tank_ode, dev, card)
     k1_times(ck, dev, card)
     k4_times(gc, dev, card)
+    k3_times(gc, dev, card)
     k2_times(ck, four_tank_ode, dev, card)
     k2_chain_cycles(ck, dev, card)
     path_launches = {"riccati_sweep": launches["riccati_sweep"],

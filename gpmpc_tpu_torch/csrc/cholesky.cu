@@ -57,6 +57,7 @@
 // kernel's 128-wide identity padding and its one-hot matmuls exist for the
 // TPU's layout and have no counterpart here.
 
+#include <climits>
 #include <cmath>
 #include <cuda_runtime.h>
 
@@ -376,12 +377,12 @@ __global__ void chol_finish_kernel(float* __restrict__ out,
                                    const int* __restrict__ flags, int n) {
   const size_t base = static_cast<size_t>(blockIdx.y) * n * n;
   const bool failed = flags[blockIdx.y] != 0;
-  const int nn = n * n;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < nn;
-       e += gridDim.x * blockDim.x) {
-    const int i = e / n, k = e - i * n;
-    if (k > i) out[base + e] = 0.f;
-    else if (failed) out[base + e] = NAN;
+  for (int i = blockIdx.x; i < n; i += gridDim.x) {   // a block per row
+    float* row = out + base + static_cast<size_t>(i) * n;
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+      if (k > i) row[k] = 0.f;
+      else if (failed) row[k] = NAN;
+    }
   }
 }
 
@@ -403,15 +404,16 @@ cudaError_t blocked(const float* a, float* out, int* flags, float* work,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     if (below <= 0) break;
-    const int tiles = (below + NB - 1) / NB;
-    chol_trailing_update_kernel<<<dim3(tiles * (tiles + 1) / 2, batch), 256,
-                                  0, s>>>(src, out, work, n, off);
+    const long long tiles = (below + NB - 1) / NB;
+    if (tiles * (tiles + 1) / 2 > INT_MAX) return cudaErrorInvalidValue;
+    chol_trailing_update_kernel<<<
+        dim3(static_cast<unsigned>(tiles * (tiles + 1) / 2), batch), 256, 0,
+        s>>>(src, out, work, n, off);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  int blocks = (n * n + 255) / 256;
-  if (blocks > 256) blocks = 256;
-  chol_finish_kernel<<<dim3(blocks, batch), 256, 0, s>>>(out, flags, n);
+  chol_finish_kernel<<<dim3(n < 256 ? n : 256, batch), 256, 0, s>>>(
+      out, flags, n);
   return cudaGetLastError();
 }
 

@@ -29,6 +29,12 @@
 //    prologue is kept short, since at the training shape it is most of a
 //    block's time: no integer division, no IEEE division or square root
 //    (whose slow-path branches the compiler lays out around each use);
+//  * any D: the features are staged in chunks of DCHUNK = 256, d2
+//    accumulating in registers across chunks, one barrier between chunks;
+//    D <= DCHUNK (every configuration the port runs) is one chunk and its
+//    own instantiation, without the chunk loop (the loop cost the D = 6
+//    shapes up to 12% on the card), and shared memory holds at most 2 x 256 x 32
+//    points (64 KB);
 //  * each thread computes two runs of 4 consecutive columns, in rows r and
 //    r + 16 of tile (I, J), by the direct difference sum over D, which is more
 //    accurate in f32 than the norm expansion the plain version uses, then
@@ -51,6 +57,8 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
+
 namespace {
 
 constexpr int TILE = 32;
@@ -60,6 +68,7 @@ constexpr int RUNS = TILE / RUN;            // runs per tile row
 constexpr int ROW_STEP = THREADS / RUNS;    // rows between a thread's runs
 constexpr int ROWS = TILE / ROW_STEP;       // runs per thread
 constexpr int PER_PASS = 4;                 // point loads per thread per pass
+constexpr int DCHUNK = 256;                 // features staged per chunk
 static_assert(ROWS * ROW_STEP == TILE, "whole runs per thread");
 // sqrt(log2(e) / 2): points scaled by this / ell give d2' = d2 log2(e) / 2,
 // and exp(-d2 / 2) = exp2(-d2')
@@ -77,13 +86,16 @@ __device__ __forceinline__ float sqrt_approx(float v) {
   return r;
 }
 
+// CHUNKED: D > DCHUNK, the features walked in chunks; else one chunk, the
+// code of a fixed D with no chunk loop
+template <bool CHUNKED>
 __global__ void __launch_bounds__(THREADS)
 se_ard_gram_kernel(const float* __restrict__ x, const float* __restrict__ ell,
                    const float* __restrict__ sf2, const float* __restrict__ sn2,
                    float jitter, float* __restrict__ out, int n, int d) {
   extern __shared__ __align__(16) float smem[];
-  float* pts = smem;                        // (2, d, TILE): rows, then cols
-  float* tile = smem + 2 * TILE * d;        // (TILE, TILE + 1)
+  float* pts = smem;                        // (2, dc, TILE): rows, then cols
+  float* tile = smem + 2 * TILE * (CHUNKED ? DCHUNK : d);  // (TILE, TILE+1)
   const int tid = threadIdx.x;
   const int p = blockIdx.y;
   const int t = blockIdx.x;
@@ -96,55 +108,63 @@ se_ard_gram_kernel(const float* __restrict__ x, const float* __restrict__ ell,
   const int i0 = ti * TILE, j0 = tj * TILE;
   const bool diag_tile = ti == tj;
 
-  // ---- the prologue: one round trip for the points, ell, sf2 and sn2.
-  // A tile's points are one contiguous run of x; element f of a run is
-  // point f / d, dim f % d, with f / d taken in float (exact: f < 2^13 and
-  // the quotient is at least 0.5 / d from an integer).
+  // ---- the prologue: one round trip for the points, ell, sf2 and sn2,
+  // per chunk of at most DCHUNK features (one chunk for D <= DCHUNK).
+  // Element f of a side's chunk is point f / dc, feature f0 + f % dc, with
+  // f / dc taken in float (exact: f < TILE * DCHUNK = 2^13 and the quotient
+  // is at least 0.5 / dc from an integer, where the float error is below
+  // 2^13 * 2^-21 / dc).
   const float s = sf2[p];
   const float noise = sn2[p];
   const float* el = ell + p * d;
-  const int span = TILE * d;                // floats of one side's points
-  const int total = diag_tile ? span : 2 * span;
-  const int row_end = min(TILE, n - i0) * d, col_end = min(TILE, n - j0) * d;
-  const float inv_d = __fdividef(1.f, static_cast<float>(d));
-  for (int base = 0; base < total; base += PER_PASS * THREADS) {
-    float xv[PER_PASS], ev[PER_PASS];
-    int dst[PER_PASS];
-#pragma unroll
-    for (int q = 0; q < PER_PASS; ++q) {
-      const int e = base + q * THREADS + tid;
-      const int side = e >= span;           // 0 rows, 1 cols
-      const int f = e - side * span;
-      const int r = __float2int_rz((f + 0.5f) * inv_d);
-      const int k = f - r * d;
-      const bool in = e < total && f < (side ? col_end : row_end);
-      xv[q] = in ? x[(side ? j0 : i0) * d + f] : 0.f;
-      ev[q] = in ? el[k] : 1.f;
-      dst[q] = e < total ? side * span + k * TILE + r : -1;
-    }
-#pragma unroll
-    for (int q = 0; q < PER_PASS; ++q)
-      if (dst[q] >= 0) pts[dst[q]] = xv[q] * __fdividef(SCALE, ev[q]);
-  }
-  __syncthreads();
-
-  // ---- tile (I, J): rows r0 + m ROW_STEP, columns c0 .. c0 + 3
   const int r0 = tid / RUNS;
   const int c0 = (tid % RUNS) * RUN;
-  const float* rows = pts;
-  const float* cols = diag_tile ? pts : pts + span;
   float d2[ROWS][RUN] = {};
+  for (int f0 = 0; f0 < (CHUNKED ? d : 1); f0 += DCHUNK) {
+    const int dc = CHUNKED ? min(DCHUNK, d - f0) : d;
+    const int span = TILE * dc;             // floats of one side's chunk
+    const int total = diag_tile ? span : 2 * span;
+    const int row_end = min(TILE, n - i0) * dc;
+    const int col_end = min(TILE, n - j0) * dc;
+    const float inv_d = __fdividef(1.f, static_cast<float>(dc));
+    if (f0 > 0) __syncthreads();            // the last chunk read by all
+    for (int base = 0; base < total; base += PER_PASS * THREADS) {
+      float xv[PER_PASS], ev[PER_PASS];
+      int dst[PER_PASS];
+#pragma unroll
+      for (int q = 0; q < PER_PASS; ++q) {
+        const int e = base + q * THREADS + tid;
+        const int side = e >= span;         // 0 rows, 1 cols
+        const int f = e - side * span;
+        const int r = __float2int_rz((f + 0.5f) * inv_d);
+        const int k = f - r * dc;
+        const bool in = e < total && f < (side ? col_end : row_end);
+        // point (side ? j0 : i0) + r, feature f0 + k
+        xv[q] = in ? x[(side ? j0 : i0) * d + f0 + f + r * (d - dc)] : 0.f;
+        ev[q] = in ? el[f0 + k] : 1.f;
+        dst[q] = e < total ? side * span + k * TILE + r : -1;
+      }
+#pragma unroll
+      for (int q = 0; q < PER_PASS; ++q)
+        if (dst[q] >= 0) pts[dst[q]] = xv[q] * __fdividef(SCALE, ev[q]);
+    }
+    __syncthreads();
+
+    // ---- tile (I, J): rows r0 + m ROW_STEP, columns c0 .. c0 + 3
+    const float* rows = pts;
+    const float* cols = diag_tile ? pts : pts + span;
 #pragma unroll 4
-  for (int k = 0; k < d; ++k) {
-    const float4 b = *reinterpret_cast<const float4*>(cols + k * TILE + c0);
-    const float bv[RUN] = {b.x, b.y, b.z, b.w};
+    for (int k = 0; k < dc; ++k) {
+      const float4 b = *reinterpret_cast<const float4*>(cols + k * TILE + c0);
+      const float bv[RUN] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-    for (int m = 0; m < ROWS; ++m) {
-      const float a = rows[k * TILE + r0 + m * ROW_STEP];
+      for (int m = 0; m < ROWS; ++m) {
+        const float a = rows[k * TILE + r0 + m * ROW_STEP];
 #pragma unroll
-      for (int q = 0; q < RUN; ++q) {
-        const float diff = a - bv[q];
-        d2[m][q] += diff * diff;
+        for (int q = 0; q < RUN; ++q) {
+          const float diff = a - bv[q];
+          d2[m][q] += diff * diff;
+        }
       }
     }
   }
@@ -200,21 +220,25 @@ extern "C" int gpmpc_se_ard_gram_f32(const float* x, const float* ell,
                                      const float* sf2, const float* sn2,
                                      float jitter, float* out, int batch,
                                      int n, int d, void* stream) {
-  // n * n and n * d index one problem in int
-  if (batch <= 0 || n <= 0 || n > 46340 || d <= 0 || d > 256 ||
-      batch > 65535)
+  // n * n, n * d and batch * d are indexed in int
+  if (batch <= 0 || n <= 0 || n > 46340 || d <= 0 || batch > 65535 ||
+      static_cast<long long>(n) * d > INT_MAX ||
+      static_cast<long long>(batch) * d > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (n + TILE - 1) / TILE;
   const dim3 blocks(tiles * (tiles + 1) / 2, batch);
-  const size_t shared = (2 * TILE * d + TILE * (TILE + 1)) * sizeof(float);
+  const size_t shared =
+      (2 * TILE * (d < DCHUNK ? d : DCHUNK) + TILE * (TILE + 1)) *
+      sizeof(float);
+  const auto kernel = d > DCHUNK ? &se_ard_gram_kernel<true>
+                                 : &se_ard_gram_kernel<false>;
   if (shared > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        se_ard_gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(shared));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  se_ard_gram_kernel<<<blocks, THREADS, shared,
-                       static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, THREADS, shared, static_cast<cudaStream_t>(stream)>>>(
       x, ell, sf2, sn2, jitter, out, n, d);
   return static_cast<int>(cudaGetLastError());
 }

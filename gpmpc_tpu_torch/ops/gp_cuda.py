@@ -39,8 +39,6 @@ GRAM_TOL = 2e-5
 CHOL_TOL = 2e-4          # x max|L|, against the plain version in f64
 KS_TOL, MU_TOL = 2e-5, 2e-4
 
-#: largest matrix K5 takes (the Pallas kernel stops near 1024)
-CHOL_MAX_N = 4096
 #: K5 factors a matrix of order N <= this on one block, in shared memory,
 #: and a larger one by the blocked multi-block path over 32-column panels
 #: (csrc/cholesky.cu).  Device ms per call, one-block vs blocked at P=4:
@@ -71,27 +69,38 @@ def se_ard_gram_reference(x, ell, sf2, sn2, jitter: float = 0.0):
 GRAM_TILE = 32
 
 #: K4 scales the points by this / ell, so that exp(-d2 / 2) = exp2(-d2'):
-#: sqrt(log2(e) / 2), the constant ``SCALE`` of ``csrc/se_ard_gram.cu``
+#: sqrt(log2(e) / 2), the constant ``SCALE`` of ``csrc/se_ard_gram.cu`` (and
+#: of ``csrc/gp_predict_batch.cu``)
 GRAM_EXP2_SCALE = math.sqrt(0.5 * math.log2(math.e))
+
+#: K4 stages the features in chunks of this many: the constant ``DCHUNK``
+#: of ``csrc/se_ard_gram.cu``; D <= it is one chunk
+GRAM_DCHUNK = 256
+
+#: K4's largest N: its kernel indexes one (N, N) matrix in int
+GRAM_MAX_N = 46340
 
 
 def se_ard_gram_pairs_reference(x, ell, sf2, sn2, jitter: float = 0.0,
-                                tile: int = GRAM_TILE):
+                                tile: int = GRAM_TILE,
+                                chunk: int = GRAM_DCHUNK):
     """K4's tile-pair schedule in plain PyTorch, for the tests only (no path
     of the port calls it): the points scaled by sqrt(log2(e)/2) / ell once;
     per tile pair I <= J of ``tile`` x ``tile`` tiles, sf2 exp2(-d2') with
-    d2' the direct difference sum over D, written to (I, J) and, off the
-    diagonal, transposed to (J, I); then the diagonal sf2 + sn2 + jitter
-    sf2 exactly.  Arguments as :func:`se_ard_gram_reference`."""
-    n = x.shape[0]
+    d2' the direct difference sum over D, walked in feature chunks of
+    ``chunk``, written to (I, J) and, off the diagonal, transposed to
+    (J, I); then the diagonal sf2 + sn2 + jitter sf2 exactly.  Arguments
+    as :func:`se_ard_gram_reference`."""
+    n, d = x.shape
     xs = x * (GRAM_EXP2_SCALE / ell[:, None, :])               # (P, N, D)
     out = torch.empty((ell.shape[0], n, n), dtype=x.dtype, device=x.device)
     for i0 in range(0, n, tile):
         for j0 in range(i0, n, tile):
             a, b = xs[:, i0:i0 + tile], xs[:, j0:j0 + tile]
             d2 = 0.0
-            for dim in range(x.shape[1]):       # the kernel's sum order
-                d2 = d2 + (a[:, :, None, dim] - b[:, None, :, dim]) ** 2
+            for f0 in range(0, d, chunk):       # the kernel's sum order
+                for dim in range(f0, min(f0 + chunk, d)):
+                    d2 = d2 + (a[:, :, None, dim] - b[:, None, :, dim]) ** 2
             k = sf2[:, None, None] * torch.exp2(-d2)
             out[:, i0:i0 + tile, j0:j0 + tile] = k
             if j0 != i0:
@@ -112,8 +121,9 @@ def se_ard_gram(x, ell, sf2, sn2, jitter: float = 0.0):
     (n, d), p = x.shape, ell.shape[0]
     ck._check_cuda("se_ard_gram", (x, ell, sf2, sn2),
                    dict(x=(n, d), ell=(p, d), sf2=(p,), sn2=(p,)))
-    if d > 256:
-        raise ValueError(f"se_ard_gram: D={d} > 256 points' features")
+    if n > GRAM_MAX_N:
+        raise ValueError(f"se_ard_gram: N={n} > {GRAM_MAX_N}, the largest "
+                         f"N whose N x N matrix the kernel indexes in int")
     lib = ck.build_library()
     out = torch.empty((p, n, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -197,16 +207,15 @@ def cholesky_blocked_reference(a, nb: int = 32):
 def cholesky(a):
     """K5 wrapper: the plain version for CPU tensors, the CUDA kernel for
     CUDA tensors.  a (..., N, N); on CUDA contiguous float32 on the card,
-    N <= :data:`CHOL_MAX_N`.  Reads the lower triangle.  One call counts
-    one launch, however many device kernels the blocked path enqueues."""
+    any N.  Reads the lower triangle.  One call counts one launch, however
+    many device kernels the blocked path enqueues."""
     if a.device.type == "cpu":
         return cholesky_reference(a)
     if a.device.type != "cuda":
         raise ValueError(f"cholesky: no kernel for device {a.device}")
-    if a.ndim < 2 or a.shape[-2] != a.shape[-1] or a.numel() == 0 or \
-            a.shape[-1] > CHOL_MAX_N:
-        raise ValueError(f"cholesky: needs non-empty (..., N, N) with N <= "
-                         f"{CHOL_MAX_N}, got {tuple(a.shape)}")
+    if a.ndim < 2 or a.shape[-2] != a.shape[-1] or a.numel() == 0:
+        raise ValueError(f"cholesky: needs non-empty (..., N, N), got "
+                         f"{tuple(a.shape)}")
     ck._check_cuda("cholesky", (a,), dict(a=tuple(a.shape)))
     n, p = a.shape[-1], a.numel() // (a.shape[-1] * a.shape[-1])
     lib = ck.build_library()
@@ -274,10 +283,63 @@ def gp_predict_batch_reference(z, x, ell, sf2, alpha):
     return (ks @ alpha[:, :, None])[..., 0], ks
 
 
+#: K3 walks the points in tiles of this many (32 lanes x 4) and the
+#: features in chunks of ``PREDICT_FC``: the constants ``TILE_N`` and
+#: ``FC`` of ``csrc/gp_predict_batch.cu``
+PREDICT_TILE_N = 128
+PREDICT_FC = 8
+
+
+def gp_predict_batch_tiles_reference(z, x, ell, sf2, alpha,
+                                     tile_n: int = PREDICT_TILE_N,
+                                     fc: int = PREDICT_FC):
+    """K3's schedule in plain PyTorch, for the tests only (no path of the
+    port calls it): queries scaled by s = sqrt(log2(e)/2) / ell, per tile
+    of ``tile_n`` points d2' = sum_k (z'_k - x_k s_k)^2 by direct
+    differences over features walked in chunks of ``fc`` (the kernel forms
+    x_k s_k inside one FMA), k* = sf2 exp2(-d2'); mu as the kernel sums it:
+    lane l's partial over its points 4l .. 4l + 3 of every tile, in order,
+    then a shuffle butterfly over the 32 lanes.  Arguments as
+    :func:`gp_predict_batch_reference`."""
+    (b, d), n = z.shape, x.shape[0]
+    s = GRAM_EXP2_SCALE / ell                                  # (Ny, D)
+    zq = z[None] * s[:, None, :]                               # (Ny, B, D)
+    lanes = tile_n // 4
+    tiles = -(-n // tile_n)
+    xp = torch.zeros((tiles * tile_n, d), dtype=x.dtype, device=x.device)
+    xp[:n] = x
+    ap = torch.zeros((ell.shape[0], tiles * tile_n), dtype=x.dtype,
+                     device=x.device)
+    ap[:, :n] = alpha
+    ks = torch.empty((ell.shape[0], b, tiles * tile_n), dtype=x.dtype,
+                     device=x.device)
+    acc = torch.zeros((ell.shape[0], b, lanes), dtype=x.dtype,
+                      device=x.device)
+    for n0 in range(0, tiles * tile_n, tile_n):
+        xt = xp[n0:n0 + tile_n]
+        d2 = 0.0
+        for f0 in range(0, d, fc):
+            for k in range(f0, min(f0 + fc, d)):
+                diff = zq[:, :, None, k] - (xt[:, k] * s[:, k, None])[:, None]
+                d2 = d2 + diff * diff
+        kt = sf2[:, None, None] * torch.exp2(-d2)              # (Ny, B, T)
+        ks[:, :, n0:n0 + tile_n] = kt
+        prod = (kt * ap[:, None, n0:n0 + tile_n]).reshape(
+            ell.shape[0], b, lanes, 4)
+        for q in range(4):
+            acc = acc + prod[..., q]
+    lane = torch.arange(lanes, device=x.device)
+    off = lanes // 2
+    while off:
+        acc = acc + acc[..., lane ^ off]
+        off //= 2
+    return acc[..., 0], ks[..., :n]
+
+
 def gp_predict_batch(z, x, ell, sf2, alpha):
     """K3 wrapper: the plain version for CPU tensors, the CUDA kernel for
     CUDA tensors.  Arguments as :func:`gp_predict_batch_reference`; on
-    CUDA all contiguous float32 on the card, D <= 64."""
+    CUDA all contiguous float32 on the card, any D."""
     if z.device.type == "cpu":
         return gp_predict_batch_reference(z, x, ell, sf2, alpha)
     if z.device.type != "cuda":
@@ -286,8 +348,6 @@ def gp_predict_batch(z, x, ell, sf2, alpha):
     ck._check_cuda("gp_predict_batch", (z, x, ell, sf2, alpha),
                    dict(z=(b, d), x=(n, d), ell=(ny, d), sf2=(ny,),
                         alpha=(ny, n)))
-    if d > 64:
-        raise ValueError(f"gp_predict_batch: D={d} > 64")
     lib = ck.build_library()
     kw = dict(dtype=torch.float32, device=z.device)
     mu = torch.empty((ny, b), **kw)
@@ -305,12 +365,14 @@ def gp_predict_batch(z, x, ell, sf2, alpha):
 
 # ------------------------------------------ kernels against plain versions
 
-def gram_inputs(n, d, p, seed, device=None):
+def gram_inputs(n, d, p, seed, device=None, ell_scale: float = 1.0):
     """Inputs of the JAX package's Gram test, for ``p`` problems: x (n, d)
-    uniform in [-2, 2], ell ~ exp(0.3 N(0,1)), sf2 1.7, sn2 0.03, f32."""
+    uniform in [-2, 2], ell ~ ell_scale exp(0.3 N(0,1)), sf2 1.7, sn2 0.03,
+    f32.  At wide D, ``ell_scale`` = sqrt(D) keeps d2 of order 1
+    (unscaled, K underflows to 0 off the diagonal from D ~ 60 on)."""
     rng = np.random.default_rng(seed)
     x = rng.uniform(-2, 2, (n, d))
-    ell = np.exp(0.3 * rng.standard_normal((p, d)))
+    ell = ell_scale * np.exp(0.3 * rng.standard_normal((p, d)))
     kw = dict(dtype=torch.float32, device=device)
     return (torch.tensor(x, **kw), torch.tensor(ell, **kw),
             torch.full((p,), 1.7, **kw), torch.full((p,), 0.03, **kw))
@@ -325,15 +387,17 @@ def spd_inputs(n, p, seed, device=None):
     return torch.tensor(spd, dtype=torch.float32, device=device)
 
 
-def predict_inputs(n, d, b, ny, seed, device=None):
+def predict_inputs(n, d, b, ny, seed, device=None, ell_scale: float = 1.0):
     """Inputs of the JAX package's batched-predict test for ``ny`` dims:
-    z (b, d), x (n, d) uniform in [-2, 2], ell ~ exp(0.2 N(0,1)), sf2 1.3,
-    alpha ~ N(0,1), f32."""
+    z (b, d), x (n, d) uniform in [-2, 2], ell ~ ell_scale exp(0.2
+    N(0,1)), sf2 1.3, alpha ~ N(0,1), f32.  ``ell_scale`` as in
+    :func:`gram_inputs`."""
     rng = np.random.default_rng(seed)
     kw = dict(dtype=torch.float32, device=device)
     return (torch.tensor(rng.uniform(-2, 2, (b, d)), **kw),
             torch.tensor(rng.uniform(-2, 2, (n, d)), **kw),
-            torch.tensor(np.exp(0.2 * rng.standard_normal((ny, d))), **kw),
+            torch.tensor(ell_scale * np.exp(0.2 * rng.standard_normal(
+                (ny, d))), **kw),
             torch.full((ny,), 1.3, **kw),
             torch.tensor(rng.standard_normal((ny, n)), **kw))
 

@@ -139,6 +139,36 @@ def test_gram_kernel_matches_plain_version(dev, n, d, p):
     assert ck.LAUNCHES["se_ard_gram"] == before + 1
 
 
+@pytest.mark.parametrize("n,d,p", [(100, 257, 2), (300, 300, 1)])
+def test_gram_kernel_takes_any_d(dev, n, d, p):
+    """K4 past one feature chunk (D > GRAM_DCHUNK = 256) against the plain
+    version, exactly symmetric, its diagonal bitwise; ell scaled by
+    sqrt(D), so K is not 0."""
+    args = gp_cuda.gram_inputs(n, d, p, seed=n + d, device=dev,
+                               ell_scale=np.sqrt(d))
+    before = ck.LAUNCHES["se_ard_gram"]
+    gp_cuda.check_se_ard_gram(*args, 1e-6)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["se_ard_gram"] == before + 1
+
+
+def test_gram_kernel_refuses_n_past_its_int_indices(dev):
+    x, ell, sf2, sn2 = gp_cuda.gram_inputs(4, 2, 1, seed=0, device=dev)
+    x = x.new_zeros((gp_cuda.GRAM_MAX_N + 1, 2))
+    with pytest.raises(ValueError, match=str(gp_cuda.GRAM_MAX_N)):
+        gp_cuda.se_ard_gram(x, ell, sf2, sn2, 1e-6)
+
+
+def test_cholesky_kernel_takes_n_past_4096(dev):
+    """K5's blocked path at N = 4097 (past 4096; its indices are 64-bit)
+    against the plain version in f64."""
+    before = ck.LAUNCHES["cholesky"]
+    gp_cuda.check_cholesky(gp_cuda.spd_inputs(4097, 1, seed=4097,
+                                              device=dev))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["cholesky"] == before + 1
+
+
 @pytest.mark.parametrize("n,p", [(16, 3), (100, 8), (128, 2), (160, 4),
                                  (161, 4), (200, 2), (330, 4), (331, 4),
                                  (500, 4), (1000, 4), (1024, 1), (2048, 1)])
@@ -207,6 +237,28 @@ def test_predict_kernel_matches_plain_version(dev, n, d, b):
                                                             device=dev))
     torch.cuda.synchronize()
     assert ck.LAUNCHES["gp_predict_batch"] == before + 1
+
+
+@pytest.mark.parametrize("ny,b,n,d", [
+    # the --large-fit validation's shape; ragged (N % 4 != 0: 4-byte
+    # stores, a partial last point tile); one query, one point
+    (4, 1000, 1000, 6), (4, 1000, 500, 6), (3, 37, 101, 6), (1, 1, 1, 6),
+    (2, 9, 129, 3),
+    # D past one feature chunk of 8, and past 64
+    (4, 19, 130, 9), (4, 19, 130, 65), (2, 33, 101, 300)])
+def test_predict_kernel_wide_and_large_shapes(dev, ny, b, n, d):
+    """K3 within k* 2e-5 and mu 2e-4 of the plain version (ell scaled by
+    sqrt(D) past D = 6, so k* is not 0), one launch a call, and mu the same
+    bits on a second call (no atomics)."""
+    args = gp_cuda.predict_inputs(n, d, b, ny, seed=b + n, device=dev,
+                                  ell_scale=np.sqrt(d) if d > 6 else 1.0)
+    before = ck.LAUNCHES["gp_predict_batch"]
+    gp_cuda.check_gp_predict_batch(*args)
+    mu1, ks1 = gp_cuda.gp_predict_batch(*args)
+    mu2, ks2 = gp_cuda.gp_predict_batch(*args)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["gp_predict_batch"] == before + 3
+    assert torch.equal(mu1, mu2) and torch.equal(ks1, ks2)
 
 
 def test_nll_gradient_on_the_card_matches_the_cpu(dev):

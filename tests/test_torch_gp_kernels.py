@@ -10,15 +10,20 @@ import re
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
+from gpmpc_tpu.models import gp_core as jcore
 from gpmpc_tpu.ops import kernels as jk
 from gpmpc_tpu.ops.pallas_kernels import (cholesky_pallas,
                                           gp_predict_batch_pallas,
                                           se_ard_gram_pallas)
+from gpmpc_tpu.utils.config import GPConfig as JConfig
+from gpmpc_tpu_torch.models import gp_core
 from gpmpc_tpu_torch.ops import cuda_kernels as ck
 from gpmpc_tpu_torch.ops import gp_cuda
 from gpmpc_tpu_torch.ops import kernels as tk
+from gpmpc_tpu_torch.utils.config import GPConfig
 
 
 def test_gram_reference_matches_jax_f64():
@@ -96,6 +101,43 @@ def test_gram_constants_mirror_the_kernel_source():
     assert abs(gp_cuda.GRAM_EXP2_SCALE ** 2 - 0.5 / np.log(2)) < 1e-15
 
 
+def test_gram_pairs_feature_chunks_match_pallas_interpret_f32():
+    """K4's schedule at D = 257, two feature chunks of GRAM_DCHUNK = 256
+    and 1 (its torch mirror, f32), against the Pallas kernel in interpret
+    mode, one problem per call: rtol and atol 2e-5.  ell is scaled by
+    sqrt(D), so K is not 0 off the diagonal."""
+    n, d = 100, 257
+    x, ell, sf2, sn2 = gp_cuda.gram_inputs(n, d, 2, seed=n + d,
+                                           ell_scale=np.sqrt(d))
+    assert d > gp_cuda.GRAM_DCHUNK
+    got = gp_cuda.se_ard_gram_pairs_reference(x, ell, sf2, sn2, 1e-6)
+    assert float(got[:, ~torch.eye(n, dtype=torch.bool)].max()) > 0.05
+    for p in range(2):
+        ref = se_ard_gram_pallas(jnp.asarray(x.numpy()),
+                                 jnp.asarray(ell[p].numpy()), float(sf2[p]),
+                                 float(sn2[p]), jitter=1e-6, interpret=True)
+        np.testing.assert_allclose(got[p].numpy(), np.asarray(ref),
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_kernel_constants_mirror_the_sources():
+    """The K3 mirror's PREDICT_TILE_N and PREDICT_FC are TILE_N (32 lanes x
+    LANE_N) and FC of csrc/gp_predict_batch.cu, its SCALE is
+    GRAM_EXP2_SCALE to f32 precision, and GRAM_DCHUNK is DCHUNK of
+    csrc/se_ard_gram.cu."""
+    src = (ck.CSRC / "gp_predict_batch.cu").read_text()
+    (lane_n,) = re.findall(r"constexpr int LANE_N = (\d+);", src)
+    assert re.findall(r"constexpr int TILE_N = 32 \* LANE_N;", src)
+    assert 32 * int(lane_n) == gp_cuda.PREDICT_TILE_N
+    assert re.findall(r"constexpr int FC = (\d+);", src) == [
+        str(gp_cuda.PREDICT_FC)]
+    (scale,) = re.findall(r"constexpr float SCALE = ([0-9.]+)f;", src)
+    assert np.float32(scale) == np.float32(gp_cuda.GRAM_EXP2_SCALE)
+    src = (ck.CSRC / "se_ard_gram.cu").read_text()
+    assert re.findall(r"constexpr int DCHUNK = (\d+);", src) == [
+        str(gp_cuda.GRAM_DCHUNK)]
+
+
 @pytest.mark.parametrize("n", [16, 100, 128, 200])
 def test_cholesky_reference_matches_pallas_interpret(n):
     """Plain K5 in f32 against the Pallas kernel in interpret mode and
@@ -127,6 +169,82 @@ def test_predict_reference_matches_pallas_interpret(n, d, b):
                                    rtol=2e-5, atol=2e-5)
         np.testing.assert_allclose(mu[dim].numpy(), np.asarray(mu_p),
                                    rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("n,d,b", [(90, 6, 33), (100, 6, 100), (37, 65, 19)])
+def test_predict_tiles_schedule_matches_pallas_interpret(n, d, b):
+    """K3's schedule (its torch mirror: queries scaled by sqrt(log2 e / 2)
+    / ell, k* = sf2 exp2(-d2') with d2' by direct differences in feature
+    chunks of 8, mu by the lanes' partial sums and their butterfly) for two
+    output dims in f32 against the Pallas kernel in interpret mode, one dim
+    per call: k* within 2e-5, mu within 2e-4 (tests/test_pallas.py).  At
+    D = 65 (nine feature chunks) ell is scaled by sqrt(D)."""
+    z, x, ell, sf2, alpha = gp_cuda.predict_inputs(
+        n, d, b, 2, seed=n + b, ell_scale=np.sqrt(d) if d > 6 else 1.0)
+    mu, ks = gp_cuda.gp_predict_batch_tiles_reference(z, x, ell, sf2, alpha)
+    assert mu.shape == (2, b) and ks.shape == (2, b, n)
+    assert float(ks.max()) > 0.05
+    for dim in range(2):
+        mu_p, ks_p = gp_predict_batch_pallas(
+            jnp.asarray(z.numpy()), jnp.asarray(x.numpy()),
+            jnp.asarray(ell[dim].numpy()), float(sf2[dim]),
+            jnp.asarray(alpha[dim].numpy()), interpret=True)
+        np.testing.assert_allclose(ks[dim].numpy(), np.asarray(ks_p),
+                                   rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(mu[dim].numpy(), np.asarray(mu_p),
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("n,d,tile_n", [(1, 3, 128), (127, 9, 128),
+                                        (128, 8, 128), (129, 17, 128),
+                                        (300, 6, 128), (41, 5, 16)])
+def test_predict_tiles_schedule_matches_jax_f64(n, d, tile_n):
+    """K3's schedule in f64 across its ragged point tiles and feature
+    chunks, for three dims, against JAX x64 se_ard_cross and k* alpha:
+    1e-12."""
+    rng = np.random.default_rng(n + d)
+    z, x = rng.uniform(-2, 2, (7, d)), rng.uniform(-2, 2, (n, d))
+    ell = np.sqrt(max(d, 6) / 6) * np.exp(0.2 * rng.standard_normal((3, d)))
+    sf2, alpha = np.array([1.3, 0.7, 2.0]), rng.standard_normal((3, n))
+    mu, ks = gp_cuda.gp_predict_batch_tiles_reference(
+        *map(torch.as_tensor, (z, x, ell, sf2, alpha)), tile_n=tile_n)
+    for dim in range(3):
+        ref = np.asarray(jk.se_ard_cross(jnp.asarray(z), jnp.asarray(x),
+                                         jnp.asarray(ell[dim]), sf2[dim]))
+        np.testing.assert_allclose(ks[dim].numpy(), ref, rtol=0, atol=1e-12)
+        np.testing.assert_allclose(mu[dim].numpy(), ref @ alpha[dim],
+                                   rtol=0, atol=1e-12)
+
+
+def test_predict_batch_matches_jax_predict_f64():
+    """gp_core.predict_batch (what GP.validate calls; K3 on the card) in
+    f64 against the JAX package's gp_core.predict mapped over the points,
+    as its GP.validate does, on the same posterior data and hypers at
+    N = 300, B = 50, noise included: mu and var within 1e-10."""
+    rng = np.random.default_rng(12)
+    n, d, ny = 300, 6, 2
+    x = rng.uniform(-2, 2, (n, d))
+    y = np.stack([np.sin(x[:, 0]) + x[:, 1] * x[:, 2],
+                  np.cos(x[:, 3] - x[:, 4]) * x[:, 5]], axis=1)
+    y = y + 0.05 * rng.standard_normal((n, ny))
+    h = (0.3 * rng.standard_normal((ny, d)) + 0.3, np.log([1.2, 0.8]),
+         np.log([0.01, 0.02]), np.zeros((ny, 0)))
+    z = rng.uniform(-2, 2, (50, d))
+    kw = dict(jitter=1e-8, min_noise=1e-6, predict_includes_noise=True)
+    jpost = jcore.posterior(jnp.asarray(x), jnp.asarray(y),
+                            jcore.GPHypers(*map(jnp.asarray, h)),
+                            JConfig(**kw))
+    mu_j, var_j = jax.vmap(lambda q: jcore.predict(jpost, q, JConfig(**kw)))(
+        jnp.asarray(z))
+    post = gp_core.posterior(torch.as_tensor(x), torch.as_tensor(y),
+                             gp_core.GPHypers(*map(torch.as_tensor, h)),
+                             GPConfig(**kw))
+    mu, var = gp_core.predict_batch(post, torch.as_tensor(z), GPConfig(**kw))
+    assert mu.shape == var.shape == (50, ny)
+    np.testing.assert_allclose(mu.numpy(), np.asarray(mu_j), rtol=0,
+                               atol=1e-10)
+    np.testing.assert_allclose(var.numpy(), np.asarray(var_j), rtol=0,
+                               atol=1e-10)
 
 
 def test_predict_reference_matches_jax_cross_f64():
