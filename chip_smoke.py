@@ -8,18 +8,22 @@ script exits non-zero before its last line):
   2. build the CUDA kernels from gpmpc_tpu_torch/csrc/ (nvcc, sm_90a);
   3. K1 (Riccati sweep) against its plain PyTorch version on the card, at
      the three shapes of the JAX package's kernel test, at Nt=300 (across
-     the kernel's shared-memory chunks) and at B=1024, plus an indefinite
-     and a zero H_uu pivot (non-finite gains);
+     the kernel's shared-memory chunks) and at B=1024, at the car's
+     (nx, nu) = (6, 2) with Nt=20 at B=1 and 64 and Nt=300, plus an
+     indefinite and a zero H_uu pivot at the default shapes and at (6, 2)
+     (non-finite gains);
   4. K2 (RK4 substeps) against its plain version: one rollout, eight (one
      of them also at n_sub=7, the run-time loop, with a drained tank on
-     the 1e-6 clamp) and 1024;
+     the 1e-6 clamp) and 1024; the Car functor at 1, 200 and 1024, with
+     steering at +-0.5 rad and headings past +-pi;
   5. the main path at full width: the pinned four-tank GP (N=100, D=6,
      Ny=4), TA propagation with chance tightening, Nt=20, the RTI budget,
      the fused plant integrator, f32 on the card, a 30-step closed loop
      from X0 to XSP; launch counts exact, values finite, the tracked
      tanks at their setpoint; each control step of the loop against the
-     same step on the CPU (replay_against_cpu); realized cost against the
-     converged (al4 x mi20) budget;
+     same step on the CPU (replay_against_cpu); realized cost over the
+     first ANCHOR_STEPS = 3 steps against the converged (al4 x mi20)
+     budget's (cut from 30 steps to make room for the car);
   6. per-step time, a torch.profiler trace of three control steps (device
      kernels and device time per step, the device's busy share);
   7. K4 (SE-ARD Gram), K5 (Cholesky) and K3 (batched GP predict) against
@@ -29,7 +33,8 @@ script exits non-zero before its last line):
      K5 also at N = 330 to 2048 and 4097 (both of its paths), plus K5's
      NaN on a matrix that is not positive definite, on each path; K3 also
      at (Ny, B, N, D) = (4, 1000, 1000, 6), a ragged (3, 37, 101, 6), and
-     at D = 65 and 300;
+     at D = 65 and 300; all three also at the car GP's shapes (K4 (4, 80,
+     6), K5 (4, 80), K3 (4, 200, 80, 6));
   8. the training path at full width: GP(tank_X, tank_Y) trained on the
      card with the fixture's recipe (multistart=1, max_iters=100) and the
      example's (multistart=2, max_iters=200, seed=1), launch counts exact
@@ -53,8 +58,28 @@ script exits non-zero before its last line):
      k*; K2 at B = 1, 64 and 1024, and the SM cycles
      of its dependent chain (one thread between two clock64() reads);
      each beside the launch floor (a one-element add_) and nvidia-smi's
-     SM clock and power draw over its window.  A profiler window that shows
-     no device event is run once more, and the line says so.
+     SM clock and power draw over its window; the car's instantiations, K1
+     at (6, 2) (Nt=20, B=1) and K2 Car at B = 1 and 200, and K3, K4, K5 at
+     the car GP's shapes.  A profiler window that shows no device event is
+     run once more, and the line says so;
+ 12. the car (bench config 4, bench.py:266-330) at full width: the pinned
+     car fixture GP (N=80, D=6, Ny=4), EM propagation, the hybrid
+     discretization, the delta-u penalty, two ellipse obstacles as user
+     constraints with per-solve parameters, Nt=20, the RTI preset, f32; a
+     40-step closed loop from x0 through MPC.solve: launch counts exact,
+     values finite, px past the second obstacle, the clearance (min
+     ellipse metric, floor 0.9; bench.py's 0.995 reported), ten steps
+     replayed on the CPU (the first four and the three nearest each
+     obstacle), ms per control step by CUDA events, a torch.profiler
+     trace of three steps (device activity only);
+ 13. the car's validation: 200 held-out points in its training box,
+     targets integrate - rk4 through the fused plant (one K2 Car launch),
+     the fixture GP's validate (one K3 launch), SMSE within 1.5x of the
+     port's f64 validation on the CPU; K2 Car and K3 (k*, mean, and the
+     variance formed from k*) against their plain versions on the
+     validation's own inputs.
+Phases 12 and 13 run before phase 11, whose JSON rows carry their launch
+counts.
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with the kernels' rows, and {"ok": true, "device": {...}}.
 
@@ -95,6 +120,10 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_STEPS = 30
+#: steps of phase 5's converged (al4 x mi20) anchor, compared with the
+#: first ANCHOR_STEPS of the RTI loop: cut from N_STEPS to make room for
+#: the car's phases within the smoke's time
+ANCHOR_STEPS = 3
 RTI = dict(al_iters=2, max_iters=2, ls_steps=8, penalty_init=1e3,
            fused_kkt=True)
 CONVERGED = dict(al_iters=4, max_iters=20, fused_kkt=True)
@@ -103,10 +132,33 @@ GP_OPTS = dict(jitter=1e-5, min_noise=1e-4)
 #: one H100 SXM: HBM bytes/s and f32 (non-tensor-core) FLOP/s, published
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+#: the car bench (bench config 4): control period, the closed loop's steps
+#: (both obstacles are behind the car by step ~30), the steps replayed on
+#: the CPU besides the first ones, and the clearance floor of this smoke
+#: (below the JAX package's own f64 reading, 0.946, far above a loop that
+#: drives through an obstacle, ~0.1-0.5); bench.py's gate is 0.995
+CAR_DT = 0.1
+CAR_STEPS = 40
+CAR_NEAREST = 3
+CAR_CLEARANCE_FLOOR = 0.9
+CAR_BENCH_GATE = 0.995
+#: bound of the car replay's next-state difference, card vs CPU, per step
+#: (max |diff| / (1 + |x|)): the replayed steps read 7.0e-9 to 7.3e-6 on
+#: an H100 80GB HBM3 at 700 W, the same in three runs; a solve whose
+#: acceleration is off by 0.1 moves the next state by ~3e-3
+CAR_REPLAY_TOL = 1e-4
+#: max abs errors of the car instantiations against their plain versions
+#: at the car paths' shapes: K1 at (6, 2), Nt=20, B=1 (the loop), the K2
+#: Car functor at B=200 (the validation)
+CAR_ERRS = {}
+
+
+#: the smoke's start, for the elapsed seconds at the head of each log line
+T0 = time.perf_counter()
 
 
 def log(msg):
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
 
 
 def card_line():
@@ -218,6 +270,15 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+def log_ptxas(ck):
+    """The build's ptxas lines: each kernel's entry name, registers, and
+    spills."""
+    for line in ck.BUILD_INFO["log"].splitlines():
+        if ("registers" in line or "spill" in line
+                or "Compiling entry function" in line):
+            log(f"[build] {line.strip()}")
+
+
 def check_kernels(ck, four_tank_ode, dev):
     """K1 and K2 against their plain versions on the card (tolerances in
     ``cuda_kernels.check_*``); returns their max abs errors at the main
@@ -234,12 +295,23 @@ def check_kernels(ck, four_tank_ode, dev):
         log(f"[K1] B={batch or 1}, (Nt,nx,nu)=({nt},{nx},{nu}) max|err| "
             f"{err:.3e}")
         k1_err = err if k1_err is None else k1_err
+    # the car's (6, 2) (4 states + the previous input): its path's Nt=20 at
+    # one problem and a batch, and a horizon across the chunks
+    for nt, batch in [(20, None), (20, 64), (300, None)]:
+        err = ck.check_riccati_sweep(
+            ck.stage_qp_inputs(nt, 6, 2, nt + 6, batch, device=dev),
+            torch.full(() if batch is None else (batch,), 1e-6, device=dev))
+        log(f"[K1] B={batch or 1}, (Nt,nx,nu)=({nt},6,2) max|err| {err:.3e}")
+        if (nt, batch) == (20, None):
+            CAR_ERRS["riccati_sweep"] = err
     # bad pivots without regularization: non-finite gains, so ok=False
     # upstream
     for kind in ("indefinite", "zero"):
-        ck.check_riccati_sweep_bad_pivot(kind, device=dev)
-        torch.cuda.synchronize()
-        log(f"[K1] {kind} H_uu pivot -> non-finite gains: ok")
+        for shape in (None, (20, 6, 2)):
+            ck.check_riccati_sweep_bad_pivot(kind, device=dev, shape=shape)
+            torch.cuda.synchronize()
+            log(f"[K1] {kind} H_uu pivot at (Nt,nx,nu)="
+                f"{shape or ('default',)} -> non-finite gains: ok")
     k2_err = None
     # the main path's rollout, a batch (also through the run-time loop, a
     # drained tank on the clamp), the batched study's width
@@ -249,6 +321,16 @@ def check_kernels(ck, four_tank_ode, dev):
         log(f"[K2] batch={batch or 1}, n_sub={n_sub} max|err| {err:.3e} "
             f"(rtol 1e-5, atol 1e-6: rsqrt form, FMA contraction)")
         k2_err = err if k2_err is None else k2_err
+    # the Car functor: one rollout, the car validation's 200, the batched
+    # width; steering at +-0.5 rad and headings past +-pi in the batches
+    from gpmpc_tpu_torch.systems import car_ode
+    for batch in (None, 200, 1024):
+        x, u = ck.car_inputs(batch, batch or 1, dev)
+        err = ck.check_rk4_substeps(car_ode, x, u, CAR_DT / 10, 10)
+        log(f"[K2 car] batch={batch or 1}, n_sub=10 max|err| {err:.3e} "
+            f"(rtol 1e-5, atol 1e-6)")
+        if batch == 200:
+            CAR_ERRS["rk4_substeps"] = err
     torch.cuda.synchronize()
     return k1_err, k2_err
 
@@ -298,12 +380,12 @@ TRANSIENT_STEPS = 4
 
 def replay_against_cpu(dev):
     """Per-step check of the card against the CPU on the main path (chance
-    tightening on): replay a 30-step closed loop on the card through
-    ``solve_step`` and, at every step, solve the same step on the CPU from
-    the card's state, warm start and last input, with the card's GP
-    posterior and feedback gain.  The next states must agree within rtol
-    1e-3 once the loop tracks the setpoint, and 1e-2 in the saturated
-    transient.
+    tightening on): replay the N_STEPS-step closed loop on the card
+    through ``solve_step`` and, at every step, solve the same step on
+    the CPU from the card's state, warm start and last input, with the
+    card's GP posterior and feedback gain.  The next states must agree
+    within rtol 1e-3 once the loop tracks the setpoint, and 1e-2 in the
+    saturated transient.
 
     Why per step and why two bounds: the RTI line search takes the first of
     eight step lengths whose merit passes the Armijo test, and near a
@@ -360,29 +442,38 @@ def replay_against_cpu(dev):
     return worst
 
 
-def profile_steps(step, n=3):
+def profile_steps(step, n=3, cpu_ops=True):
     """torch.profiler over ``n`` calls of ``step``: device kernels and
-    device ms per call, and the share of the wall time the device is
-    busy."""
+    device ms per call (the device rows alone: a CPU op's row repeats the
+    time of the kernels it launched), the share of the wall time the
+    device is busy, and the top rows by device time (with ``cpu_ops`` the
+    aten ops beside the kernels; without, the kernels alone, which keeps
+    the trace small enough to read back quickly for a long step)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu_ops
+                                      else [])
+    for attempt in range(2):        # a window with no device event: again
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    ev = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in ev)
-    kernels = sum(e.count for e in ev if e.self_device_time_total > 0
-                  and e.device_type.name == "CUDA")
+        t0 = time.perf_counter()
+        with profile(activities=acts) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ev = prof.key_averages()
+        device = [e for e in ev if e.device_type.name == "CUDA"]
+        dev_us = sum(e.self_device_time_total for e in device)
+        if dev_us > 0:
+            break
+    all_us = sum(e.self_device_time_total for e in ev)
+    kernels = sum(e.count for e in device if e.self_device_time_total > 0)
     if dev_us <= 0:
         raise AssertionError("the profiler saw no device time")
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
     return dict(kernels_per_step=kernels / n, device_ms_per_step=dev_us / n
-                / 1e3, wall_ms_per_step=wall / n * 1e3,
+                / 1e3, all_rows_ms_per_step=all_us / n / 1e3,
+                wall_ms_per_step=wall / n * 1e3,
                 busy_share=dev_us / 1e6 / wall,
                 top=[(e.key[:60], e.count, e.self_device_time_total / n)
                      for e in top])
@@ -607,11 +698,12 @@ def check_gp_kernels(gc, dev):
     K5's NaN for a matrix that is not positive definite; returns the max
     abs errors at the training and validation paths' shapes."""
     errs = {}
-    # the JAX package's shapes, the large-fit and one-matrix shapes, and
-    # D past one feature chunk (ell scaled by sqrt(D): K not 0)
+    # the JAX package's shapes, the car posterior's, the large-fit and
+    # one-matrix shapes, and D past one feature chunk (ell scaled by
+    # sqrt(D): K not 0)
     for p, n, d in [(8, 40, 6), (8, 100, 6), (8, 200, 12), (8, 130, 3),
-                    (1, 101, 6), (4, 1000, 6), (1, 2048, 6), (2, 100, 257),
-                    (1, 300, 300)]:
+                    (4, 80, 6), (1, 101, 6), (4, 1000, 6), (1, 2048, 6),
+                    (2, 100, 257), (1, 300, 300)]:
         err = gc.check_se_ard_gram(*gc.gram_inputs(
             n, d, p, n + d, device=dev,
             ell_scale=np.sqrt(d) if d > gc.GRAM_DCHUNK else 1.0), 1e-6)
@@ -619,8 +711,9 @@ def check_gp_kernels(gc, dev):
             f"2e-5; exactly symmetric, diagonal bitwise)")
         if (p, n, d) == (8, 100, 6):
             errs["se_ard_gram"] = err
-    for n, p in [(16, 8), (100, 8), (128, 8), (200, 8), (330, 4), (331, 4),
-                 (500, 4), (1000, 4), (1024, 1), (2048, 1), (4097, 1)]:
+    for n, p in [(16, 8), (80, 4), (100, 8), (128, 8), (200, 8), (330, 4),
+                 (331, 4), (500, 4), (1000, 4), (1024, 1), (2048, 1),
+                 (4097, 1)]:
         err = gc.check_cholesky(gc.spd_inputs(n, p, n, device=dev))
         log(f"[K5] (P,N)=({p},{n}) {k5_path(gc, n)} path: max|err| against "
             f"the plain version in f64 {err:.3e} (atol 2e-4 max|L|)")
@@ -643,8 +736,9 @@ def check_gp_kernels(gc, dev):
     log(f"[K5] {k5_path(gc, 1000)} path, (P,N)=(3,1000), bad pivot in the "
         f"last panel of the middle matrix -> NaN in its lower triangle only:"
         f" ok")
-    # the JAX package's shapes, the large-fit validation's, a ragged one
-    # (N % 4 != 0: 4-byte stores) and D past one and many feature chunks
+    # the JAX package's shapes, the large-fit and the car validations', a
+    # ragged one (N % 4 != 0: 4-byte stores) and D past one and many
+    # feature chunks
     for ny, b, n, d in K3_CHECK_SHAPES:
         err = gc.check_gp_predict_batch(*gc.predict_inputs(
             n, d, b, ny, b, device=dev,
@@ -659,7 +753,8 @@ def check_gp_kernels(gc, dev):
 
 #: (Ny, B, N, D) at which phase 7 holds K3 against its plain version
 K3_CHECK_SHAPES = ((4, 33, 90, 6), (4, 100, 100, 6), (4, 1000, 1000, 6),
-                   (3, 37, 101, 6), (4, 19, 130, 65), (2, 33, 101, 300))
+                   (4, 200, 80, 6), (3, 37, 101, 6), (4, 19, 130, 65),
+                   (2, 33, 101, 300))
 
 
 def k5_path(gc, n):
@@ -754,6 +849,307 @@ def validate_on_card(ck, dev, gp):
         raise AssertionError("the card-trained GP validates worse than 1.5x "
                              "the fixture GP's SMSE")
     return launches
+
+
+def build_car(dev):
+    """The car bench (bench.py:266-330) in the port: the pinned car fixture
+    GP (N=80, D=6, Ny=4, zero mean), EM propagation, the hybrid
+    discretization, the delta-u penalty S, both ellipse obstacles with
+    scale 2, chance tightening and LQR feedback at x0, Nt=20, the RTI
+    preset, f32.  The plant is unfused, as in the bench."""
+    from gpmpc_tpu_torch import MPC, Model
+    from gpmpc_tpu_torch.models.convert import gp_from_fixture
+    from gpmpc_tpu_torch.systems import (CAR_OBSTACLES, CAR_U_LB, CAR_U_UB,
+                                         CAR_X0, car_ode,
+                                         ellipse_obstacle_constraints)
+    model = Model(Nx=4, Nu=2, ode=car_ode, dt=CAR_DT,
+                  R=np.diag([1e-5, 1e-5, 1e-6, 1e-5]), integrator_substeps=10,
+                  device=dev, dtype=torch.float32)
+    gp = gp_from_fixture(prefix="car", device=dev, dtype=torch.float32,
+                         gp_method="EM")
+    cb, n_par = ellipse_obstacle_constraints(len(CAR_OBSTACLES), scale=2.0)
+    return MPC(horizon=20 * CAR_DT, model=model, gp=gp, gp_method="EM",
+               discrete_method="hybrid", Q=np.diag([5.0, 20.0, 0.5, 1.0]),
+               R=np.diag([0.1, 1.0]), S=np.diag([0.05, 0.5]), ulb=CAR_U_LB,
+               uub=CAR_U_UB, xlb=[-5.0, -4.0, -2.0, 0.0],
+               xub=[25.0, 4.0, 2.0, 10.0], percentile=0.95, feedback=True,
+               op_x=CAR_X0, inequality_constraints=cb, num_con_par=n_par,
+               cov_updates=1, solver_opts="rti", device=dev)
+
+
+def car_metric(xs):
+    """The bench's ellipse metric (bench.py:333-341) per state and
+    obstacle, ((px - cx)/rx)^2 + ((py - cy)/ry)^2 (>= 1 outside): (T, 2)."""
+    from gpmpc_tpu_torch.systems import CAR_OBSTACLES
+    xs = np.asarray(xs, np.float64)
+    return np.stack([((xs[:, 0] - cx) / rx) ** 2 + ((xs[:, 1] - cy) / ry) ** 2
+                     for cx, cy, rx, ry in CAR_OBSTACLES], axis=1)
+
+
+class StepRecorder:
+    """Wraps a controller's ``_solve_step`` while ``MPC.solve`` runs: keeps
+    each loop step's inputs (warm start, state, last input, constraint
+    parameters), the last step's output state, and a CUDA event at the
+    start of each step.  The cold-start preparation (which
+    passes ``cfg``) is not recorded."""
+
+    def __init__(self, mpc):
+        self.calls, self.events, self.last = [], [], None
+        inner = mpc._solve_step
+
+        def solve_step(warm, x0, x_sp, u_prev, sigma0, con_par, consts,
+                       cfg=None):
+            if cfg is None:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.events.append(ev)
+                self.calls.append((warm, x0, u_prev, con_par))
+            out = inner(warm, x0, x_sp, u_prev, sigma0, con_par, consts,
+                        cfg=cfg)
+            if cfg is None:
+                self.last = out[0]
+            return out
+
+        mpc._solve_step = solve_step
+
+
+def car_replay_steps(xs, n_first=4, nearest=CAR_NEAREST):
+    """The steps the car replay holds: the first ``n_first``, and the
+    ``nearest`` steps after them whose next state is nearest each
+    obstacle."""
+    metric = car_metric(xs[1:])
+    steps = set(range(n_first))
+    for o in range(metric.shape[1]):
+        order = [k for k in np.argsort(metric[:, o]) if k >= n_first]
+        steps.update(int(k) for k in order[:nearest])
+    return sorted(steps)
+
+
+def car_replay(mpc, rec, xs, us, dev):
+    """Per-step check of the card against the CPU on the car: at each of
+    :func:`car_replay_steps`, solve the step on the CPU in f32 from the
+    card's state, warm start, last input and obstacle parameters, with the
+    card's posterior, gain and bounds, and step the CPU plant.  Returns
+    (step, max |next-state difference| / (1 + |x|), |u difference|) rows.
+
+    The car is chaotic under last-ulp reordering (a reordered sum changes
+    the line search's choices), so it is held step by step, not as a
+    trajectory, within CAR_REPLAY_TOL."""
+    from gpmpc_tpu_torch.solvers.al_sqp import SolverState
+    from gpmpc_tpu_torch.systems import CAR_XSP
+    cpu = build_car(torch.device("cpu"))
+    cpu.consts = to_cpu(mpc.consts)
+    rows = []
+    for k in car_replay_steps(xs):
+        warm, x, u_prev, par = rec.calls[k]
+        u_c, _, _, _ = cpu.solve_step(
+            x.cpu(), CAR_XSP, warm=SolverState(*(t.cpu() for t in warm)),
+            u_prev=u_prev.cpu(), con_par=par.cpu())
+        x_c = cpu.model.integrate(x.cpu(), u_c).numpy()
+        rel = float(np.max(np.abs(xs[k + 1] - x_c) / (1.0 + np.abs(x_c))))
+        rows.append((k, rel, float(np.max(np.abs(us[k] - u_c.numpy())))))
+    return rows
+
+
+def car_loop(ck, dev, card):
+    """Phase 12: the car bench's closed loop on the card, CAR_STEPS steps
+    from x0 through ``MPC.solve`` with the obstacles as ``con_par``: exact
+    launch counts (the posterior's one K4 and three K5, K1 at (6, 2) once
+    per inner SQP step, no K2: the plant is unfused), finite values, px
+    past the second obstacle, the clearance, ten steps replayed on the CPU
+    (:func:`car_replay`), ms per control step by CUDA events and a
+    torch.profiler trace of three steps (device activity only: with the
+    CPU ops, reading back a car step's trace took minutes).  Returns the
+    loop's launches."""
+    from gpmpc_tpu_torch.systems import CAR_OBSTACLES, CAR_X0, CAR_XSP
+    ck.reset_launches()
+    mpc = build_car(dev)
+    rec = StepRecorder(mpc)
+    par = CAR_OBSTACLES.reshape(-1)
+    t0 = time.perf_counter()
+    xs, us = mpc.solve(CAR_X0, CAR_STEPS * CAR_DT, CAR_XSP, noise=False,
+                       con_par_func=lambda k: par)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    cfg, init = mpc.sqp_cfg, mpc.init_sqp_cfg
+    per_step = cfg.al_iters * cfg.max_iters
+    cold = init.al_iters * init.max_iters if init.fused_kkt else 0
+    expect = {"riccati_sweep": CAR_STEPS * per_step + cold,
+              "rk4_substeps": 0, "se_ard_gram": 1, "cholesky": 3,
+              "gp_predict_batch": 0}
+    log(f"[car] {CAR_STEPS}-step closed loop (EM, hybrid, delta-u, two "
+        f"obstacles, Nt=20, RTI al{cfg.al_iters} x mi{cfg.max_iters}, f32) "
+        f"on the card: {wall:.3f} s (cold start included); launches "
+        f"{launches}, expected {expect} (K1 {per_step} a step, {cold} in "
+        f"the unfused cold start)")
+    if launches != expect:
+        raise AssertionError(f"car launch counts {launches} != {expect}")
+    xs, us = xs.cpu().numpy(), us.cpu().numpy()
+    if xs.shape != (CAR_STEPS + 1, 4) or us.shape != (CAR_STEPS, 2):
+        raise AssertionError(f"car shapes {xs.shape}, {us.shape}")
+    run = mpc.last_run
+    if not (np.all(np.isfinite(xs)) and np.all(np.isfinite(us))
+            and np.all(np.isfinite(run["obj"]))):
+        raise AssertionError("non-finite car closed loop")
+    far_edge = CAR_OBSTACLES[1, 0] + CAR_OBSTACLES[1, 2]
+    metric = car_metric(xs)
+    clear = metric.min(axis=0)
+    log(f"[car] final state {xs[-1].tolist()}; px {xs[-1, 0]:.4f} (> "
+        f"{far_edge}, the second obstacle's far edge); max |defect| "
+        f"{float(np.max(run['defect'])):.3e}, max violation "
+        f"{float(np.max(run['con_viol'])):.3e}, converged "
+        f"{int(run['converged'].sum())}/{CAR_STEPS}")
+    log(f"[car] clearance (min ellipse metric, >= 1 outside): obstacle 1 "
+        f"{clear[0]:.5f} at step {int(metric[:, 0].argmin())}, obstacle 2 "
+        f"{clear[1]:.5f} at step {int(metric[:, 1].argmin())}; min "
+        f"{clear.min():.5f}: bench gate {CAR_BENCH_GATE} "
+        f"{'met' if clear.min() >= CAR_BENCH_GATE else 'not met'} "
+        f"(information), this smoke's floor {CAR_CLEARANCE_FLOOR} "
+        f"{'met' if clear.min() >= CAR_CLEARANCE_FLOOR else 'NOT met'}")
+    if xs[-1, 0] <= far_edge or clear.min() < CAR_CLEARANCE_FLOOR:
+        raise AssertionError("the car did not pass both obstacles clear")
+    ev = rec.events
+    step_ms = [ev[k].elapsed_time(ev[k + 1]) for k in range(4, len(ev) - 1)]
+    log(f"[time] car control step (solve + plant step), CUDA events between "
+        f"step starts {4}..{len(ev) - 1}: mean {np.mean(step_ms):.3f} ms, "
+        f"median {np.median(step_ms):.3f}, min {np.min(step_ms):.3f}, max "
+        f"{np.max(step_ms):.3f} ms/step on {card}")
+    t0 = time.perf_counter()
+    rows = car_replay(mpc, rec, xs, us, dev)
+    near = set(car_replay_steps(xs)) - set(range(4))
+    worst = max(r[1] for r in rows)
+    for k, rel, du in rows:
+        log(f"[car] replay step {k:2d}: next state card vs CPU max "
+            f"|diff|/(1+|x|) {rel:.3e}, |u diff| {du:.3e}"
+            f"{' (near an obstacle)' if k in near else ''}")
+    log(f"[car] per-step replay of {len(rows)} steps against the CPU "
+        f"({time.perf_counter() - t0:.1f} s): worst {worst:.3e} (bound "
+        f"{CAR_REPLAY_TOL})")
+    if len(rows) < 10 or worst > CAR_REPLAY_TOL:
+        raise AssertionError("CUDA and CPU car steps disagree")
+    state = {"x": torch.as_tensor(xs[-1], device=dev), "warm": rec.last,
+             "u": torch.as_tensor(us[-1], device=dev)}
+    con_par = torch.as_tensor(par, dtype=torch.float32, device=dev)
+
+    def step():
+        u, w, _, _ = mpc.solve_step(state["x"], CAR_XSP, warm=state["warm"],
+                                    u_prev=state["u"], con_par=con_par)
+        state.update(u=u, warm=w, x=mpc.model.integrate(state["x"], u))
+
+    prof = profile_steps(step, cpu_ops=False)
+    log(f"[profile] per car control step: {prof['kernels_per_step']:.0f} "
+        f"device kernels, {prof['device_ms_per_step']:.3f} ms device time, "
+        f"{prof['wall_ms_per_step']:.3f} ms wall under the profiler; device "
+        f"busy {100 * prof['busy_share']:.2f}% on {card}")
+    for name, count, us_ in prof["top"]:
+        log(f"[profile]   {name:60s} {count:6d} launches/3 steps "
+            f"{us_:9.1f} us/step")
+    return launches
+
+
+def car_validation(ck, gc, dev, card):
+    """Phase 13: the car residual GP's held-out check (the one of
+    benchmarks/r5_car_seeds.py:110-131) on the card: 200 points drawn in
+    the car's training box from a seeded torch.Generator, targets
+    integrate - rk4 with the fused plant (one K2 Car launch at B=200), the
+    fixture GP's validate (one K3 launch at (Ny,B,N,D) = (4,200,80,6));
+    SMSE finite and within 1.5x of the port's f64 validation on the CPU on
+    the same points, per dim.  That ratio is loose by nature (the
+    fixture's residuals are f32 rounding, so SMSE is ~1 whatever the
+    prediction), so both kernels are then held against their plain
+    versions on the validation's own inputs (:func:`check_car_predict`).
+    Returns the launches."""
+    from gpmpc_tpu_torch import Model
+    from gpmpc_tpu_torch.models.convert import gp_from_fixture
+    from gpmpc_tpu_torch.systems import (CAR_U_LB, CAR_U_UB, CAR_X_LB,
+                                         CAR_X_UB, car_ode)
+    lo = np.concatenate([CAR_X_LB, CAR_U_LB])
+    hi = np.concatenate([CAR_X_UB, CAR_U_UB])
+    gp = gp_from_fixture(prefix="car", device=dev, dtype=torch.float32,
+                         gp_method="EM")
+    plant = Model(Nx=4, Nu=2, ode=car_ode, dt=CAR_DT, integrator_substeps=10,
+                  fused_integrator=True, device=dev, dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(9)
+    kw = dict(dtype=torch.float32, device=dev)
+    z = torch.as_tensor(lo, **kw) + torch.as_tensor(hi - lo, **kw) \
+        * torch.rand((200, 6), generator=g, **kw)
+    x, u = z[:, :4].contiguous(), z[:, 4:].contiguous()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    y = plant.integrate(x, u) - plant.rk4(x, u)
+    smse, mnlp, _ = gp.validate(z, y, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    refs = {}
+    for dtype in (torch.float64, torch.float32):
+        cpu = torch.device("cpu")
+        m = Model(Nx=4, Nu=2, ode=car_ode, dt=CAR_DT, integrator_substeps=10,
+                  device=cpu, dtype=dtype)
+        zc = z.cpu().to(dtype)
+        yc = m.integrate(zc[:, :4], zc[:, 4:]) - m.rk4(zc[:, :4], zc[:, 4:])
+        refs[dtype] = gp_from_fixture(prefix="car", device=cpu, dtype=dtype,
+                                      gp_method="EM").validate(
+            zc, yc, verbose=False)[0]
+    log(f"[car validate] 200 held-out points, targets integrate - rk4 "
+        f"({1e3 * wall:.3f} ms wall): SMSE per dim on the card "
+        f"{smse.tolist()}, MNLP {mnlp.tolist()}; the port on the CPU on "
+        f"the same points: f64 {refs[torch.float64].tolist()}, f32 "
+        f"{refs[torch.float32].tolist()} (information: the fixture's "
+        f"residuals are f32 rounding, y std 3e-8 to 1e-6); launches "
+        f"{launches} on {card}")
+    none = dict.fromkeys(ck.LAUNCHES, 0)
+    if launches != dict(none, rk4_substeps=1, gp_predict_batch=1):
+        raise AssertionError(f"car validation launches {launches}")
+    if not (np.all(np.isfinite(smse)) and np.all(np.isfinite(mnlp))
+            and np.all(smse <= 1.5 * refs[torch.float64])):
+        raise AssertionError("the car validation on the card is off the "
+                             "CPU's")
+    err = ck.check_rk4_substeps(car_ode, x, u, CAR_DT / 10, 10)
+    log(f"[car validate] K2 Car on the validation's 200 rollouts against its"
+        f" plain version: max|err| {err:.3e} (rtol 1e-5, atol 1e-6)")
+    check_car_predict(gc, gp, z)
+    return launches
+
+
+def check_car_predict(gc, gp, z):
+    """K3 on the car validation's own inputs (the normalized queries and
+    the fixture posterior) against its plain version: k* and the mean at
+    K3's tolerances (``gp_cuda.check_gp_predict_batch``), and the
+    predictive variance sf2 - ||L^-1 k*||^2 formed from each one's k*
+    through the posterior's Cholesky factor (as ``gp_core.predict_batch``
+    forms it), within K3's k* tolerance carried through that solve: per
+    point and dim, |dvar| <= 2 ||v|| e + e^2 with e = ||L^-1||_2 ||dk||
+    and dk = KS_TOL (1 + |k*|)."""
+    post = gp.post
+    h = post.hypers
+    sf2 = torch.exp(h.log_sf2).contiguous()
+    args = (((z - gp.norm.z_mean) / gp.norm.z_std).contiguous(),
+            post.x.contiguous(), torch.exp(h.log_ell).contiguous(), sf2,
+            post.alpha.contiguous())
+    err_k = gc.check_gp_predict_batch(*args)
+    (mu, ks), (mu_r, ks_r) = gc.gp_predict_batch(*args), \
+        gc.gp_predict_batch_reference(*args)
+    v, v_r = (torch.linalg.solve_triangular(post.chol, k.mT, upper=False)
+              for k in (ks, ks_r))
+    var, var_r = (sf2[:, None] - torch.sum(w * w, dim=-2) for w in (v, v_r))
+    inv_norm = torch.linalg.matrix_norm(torch.linalg.inv(post.chol.double()),
+                                        ord=2).float()
+    e = inv_norm[:, None] * torch.linalg.vector_norm(
+        gc.KS_TOL * (1.0 + ks_r.abs()), dim=-1)
+    tol = 2.0 * torch.linalg.vector_norm(v_r, dim=-2) * e + e * e
+    gap = (var - var_r).abs()
+    log(f"[car validate] K3 on the validation's inputs against its plain "
+        f"version: max|err| k* {err_k:.3e} (rtol, atol {gc.KS_TOL}), mu "
+        f"{float((mu - mu_r).abs().max()):.3e} (rtol, atol {gc.MU_TOL}); "
+        f"variance max|err| {float(gap.max()):.3e}, largest share of its "
+        f"carried tolerance {float((gap / tol).max()):.3f} (<= 1; tolerance "
+        f"{float(tol.min()):.3e} to {float(tol.max()):.3e}, variance "
+        f"{float(var_r.min()):.3e} to {float(var_r.max()):.3e})")
+    if not bool(torch.all(gap <= tol)):
+        raise AssertionError("K3's car predictive variance is off its plain "
+                             "version's")
 
 
 def bound(nbytes, flops):
@@ -921,6 +1317,76 @@ def k1_times(ck, dev, card, sweep=None):
             f"{fmt_pair(floor[1])} over 200, {fmt_pair(floor[2])} over 20 "
             f"after those on {card}")
     log(f"[K1 time] nvidia-smi over the K1 window: {smi.summary()}")
+
+
+def car_kernel_times(ck, gc, dev, card):
+    """Phase 11's car lines: K1 at (nx, nu) = (6, 2), Nt=20, B=1 and the
+    K2 Car functor at B = 1 and 200 (n_sub=10, h = dt/10), and K3, K4 and
+    K5 at the car GP's shapes (posterior: P = Ny = 4, N = 80; validation:
+    (Ny,B,N,D) = (4,200,80,6)): event ms over 200 calls, device ms per
+    launch (torch.profiler, mean/median over 200 calls), the plain
+    version's event ms and the bound, beside the launch floor and
+    nvidia-smi's clocks.  Returns the rows keyed by name: those of the two
+    new instantiations at their paths' shapes are "riccati_sweep[6,2]"
+    (B=1) and "rk4_substeps[car]" (B=200)."""
+    from gpmpc_tpu_torch.systems import car_ode
+    rows = {}
+    with SmiSampler() as smi:
+        q = ck.stage_qp_inputs(20, 6, 2, 26, device=dev)
+        reg = torch.tensor(1e-6, device=dev)
+        out = ck.riccati_sweep(*q, reg)
+        cases = [("riccati_sweep[6,2]", "B=1, Nt=20, nx=6, nu=2",
+                  lambda: ck.riccati_sweep(*q, reg),
+                  lambda: ck.riccati_sweep_reference(*q, reg),
+                  bound(nbytes(*q, reg, *out), riccati_flops(20, 6, 2)))]
+        for bsz in (1, 200):
+            x, u = ck.car_inputs(None if bsz == 1 else bsz, bsz + 1, dev)
+            xo = ck.rk4_substeps(car_ode, x, u, CAR_DT / 10, 10)
+            # per rollout the slip angle (~60 operations: tan, atan, sin);
+            # per substep 4 evaluations (~44: one sincos, 3 products) and
+            # ~52 for the stage combinations
+            cases.append((
+                "rk4_substeps[car]" if bsz == 200 else "rk4_substeps[car] B=1",
+                f"B={bsz}, n_sub=10",
+                lambda x=x, u=u: ck.rk4_substeps(car_ode, x, u, CAR_DT / 10,
+                                                 10),
+                lambda x=x, u=u: ck.rk4_substeps_reference(
+                    car_ode, x, u, CAR_DT / 10, 10),
+                bound(nbytes(x, u, xo), bsz * (60 + 10 * (4 * 44 + 52)))))
+        g = gc.gram_inputs(80, 6, 4, 86, device=dev)
+        k = gc.se_ard_gram(*g, 1e-6)
+        cases.append(("se_ard_gram", "P=4, N=80, D=6 (car posterior)",
+                      lambda: gc.se_ard_gram(*g, 1e-6),
+                      lambda: gc.se_ard_gram_reference(*g, 1e-6),
+                      bound(nbytes(*g, k), 4 * 80 * 80 * (3 * 6 + 3))))
+        a = gc.spd_inputs(80, 4, 80, device=dev)
+        cases.append(("cholesky", "P=4, N=80 (car posterior)",
+                      lambda: gc.cholesky(a),
+                      lambda: gc.cholesky_reference(a),
+                      cholesky_bound(4, 80)))
+        p3 = gc.predict_inputs(80, 6, 200, 4, 280, device=dev)
+        mu, ks = gc.gp_predict_batch(*p3)
+        cases.append(("gp_predict_batch", "Ny=4, B=200, N=80, D=6 (car "
+                      "validation)", lambda: gc.gp_predict_batch(*p3),
+                      lambda: gc.gp_predict_batch_reference(*p3),
+                      bound(nbytes(*p3, mu, ks), 4 * 200 * 80 * (3 * 6 + 5))))
+        lib, _, note = device_time_ms(lambda: torch.linalg.cholesky_ex(a))
+        log(f"[car time] cholesky_ex (P=4, N=80), the library call: event "
+            f"{cuda_time_ms(lambda: torch.linalg.cholesky_ex(a), 200):.4f} "
+            f"ms (200 calls), device {fmt_ms(lib)}{note} on {card}")
+        for name, shape, fn, plain, bd in cases:
+            r = dict(ms=cuda_time_ms(fn, reps=200),
+                     plain_ms=cuda_time_ms(plain, reps=20),
+                     dev=launch_ms(fn, 200), bound=bd, shape=shape)
+            log(f"[car time] {name} ({shape}): event {r['ms']:.4f} ms (200 "
+                f"calls); device per launch mean/median "
+                f"{fmt_pair(r['dev'])}; plain {r['plain_ms']:.4f} ms; bound "
+                f"{bd[0]:.3e} ms ({bd[1]}) on {card}")
+            rows[name] = r
+        log(f"[car time] launch floor (one-element add_): device per launch "
+            f"mean/median {fmt_pair(floor_ms(dev))} on {card}")
+    log(f"[car time] nvidia-smi over the window: {smi.summary()}")
+    return rows
 
 
 #: (P, N, D) at which phase 11 times K4: the training path's (the example
@@ -1198,6 +1664,8 @@ def k1_alone(other_src=None):
     card = card_line()
     dev = torch.device("cuda")
     log(f"[card] nvidia-smi: {card}")
+    ck.build_library()
+    log_ptxas(ck)
     check_kernels(ck, four_tank_ode, dev)
     k1_times(ck, dev, card)
     return 0
@@ -1249,9 +1717,7 @@ def main(argv):
     ck.build_library()
     torch.cuda.synchronize()
     log(f"[build] {time.perf_counter() - t0:.2f} s -> {ck.BUILD_INFO['path']}")
-    for line in ck.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    log_ptxas(ck)
 
     # 3-4. kernels against their plain versions
     k1_err, k2_err = check_kernels(ck, four_tank_ode, dev)
@@ -1289,12 +1755,14 @@ def main(argv):
 
     cost_rti = closed_loop_cost(xs_np, us_np, XSP)
     t0 = time.perf_counter()
-    xs_c, us_c = build_slice(dev, CONVERGED).solve(X0, N_STEPS * DT, XSP,
-                                                   noise=False)
+    xs_c, us_c = build_slice(dev, CONVERGED).solve(X0, ANCHOR_STEPS * DT,
+                                                   XSP, noise=False)
     cost_conv = closed_loop_cost(xs_c.cpu().numpy(), us_c.cpu().numpy(), XSP)
-    log(f"[slice] realized cost over {N_STEPS} steps at X0: RTI "
-        f"{cost_rti:.4f}, converged al4xmi20 {cost_conv:.4f}, ratio "
-        f"{cost_rti / cost_conv:.5f} (information; converged run "
+    cost_rti_a = closed_loop_cost(xs_np[:ANCHOR_STEPS + 1],
+                                  us_np[:ANCHOR_STEPS], XSP)
+    log(f"[slice] realized cost over the first {ANCHOR_STEPS} steps at X0: "
+        f"RTI {cost_rti_a:.4f}, converged al4xmi20 {cost_conv:.4f}, ratio "
+        f"{cost_rti_a / cost_conv:.5f} (information; converged run "
         f"{time.perf_counter() - t0:.1f} s)")
 
     # 6. timings on the card
@@ -1312,7 +1780,9 @@ def main(argv):
         f"after warm-up: {step_ms:.3f} ms/step on {card}")
     prof = profile_steps(rti_step)
     log(f"[profile] per RTI control step: {prof['kernels_per_step']:.0f} "
-        f"device kernels, {prof['device_ms_per_step']:.3f} ms device time, "
+        f"device kernels, {prof['device_ms_per_step']:.3f} ms device time "
+        f"({prof['all_rows_ms_per_step']:.3f} ms summed over every row, "
+        f"CPU ops included, as PRs 1-6 summed it), "
         f"{prof['wall_ms_per_step']:.3f} ms wall under the profiler; device "
         f"busy {100 * prof['busy_share']:.2f}% on {card}")
     for name, count, us in prof["top"]:
@@ -1345,8 +1815,13 @@ def main(argv):
     if miss > 0.5 or cost_t > 1.1 * cost_rti:
         raise AssertionError("the card-trained GP's closed loop misses")
 
+    # 12. the car's closed loop, 13. the car's validation
+    car_launches = car_loop(ck, dev, card)
+    car_val_launches = car_validation(ck, gc, dev, card)
+
     # 11. kernel times beside their bounds
     times = kernel_times(ck, gc, four_tank_ode, dev, card)
+    car_times = car_kernel_times(ck, gc, dev, card)
     k1_times(ck, dev, card)
     k4_times(gc, dev, card)
     k3_times(gc, dev, card)
@@ -1369,6 +1844,22 @@ def main(argv):
              "bound_by": times[name]["bound"][1],
              "library_ms": times[name]["library_ms"]}
             for name, line in sources.items()]
+    # the car paths' instantiations: K1 at (6, 2) from the car loop, the K2
+    # Car functor at B=200 from the car validation
+    for name, kernel, launched in (
+            ("riccati_sweep[6,2]", "riccati_sweep",
+             car_launches["riccati_sweep"]),
+            ("rk4_substeps[car]", "rk4_substeps",
+             car_val_launches["rk4_substeps"])):
+        r = car_times[name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"gpmpc_tpu_torch/csrc/{kernel}.cu",
+                     "replaces": f"gpmpc_tpu/ops/pallas_kernels.py:"
+                                 f"{sources[kernel]}",
+                     "launches": launched, "max_abs_err": CAR_ERRS[kernel],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "device_ms": r["dev"][0], "bound_ms": r["bound"][0],
+                     "bound_by": r["bound"][1], "library_ms": None})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -530,6 +530,7 @@ extern "C" int gpmpc_riccati_sweep_f32(
   GPMPC_RICCATI_CASE(4, 2)
   GPMPC_RICCATI_CASE(5, 3)
   GPMPC_RICCATI_CASE(2, 1)
+  GPMPC_RICCATI_CASE(6, 2)
 #undef GPMPC_RICCATI_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -33,9 +33,15 @@
 // clock64() reads, so the chain's length can be read in SM cycles.
 //
 // Constants are folded in double and cast to float, as the Python float
-// folding of gpmpc_tpu_torch/systems.py:four_tank_ode does; the rsqrt form,
-// the different folding and nvcc's FMA contraction round differently from
-// the plain version, by a few ulps per evaluation.
+// folding of gpmpc_tpu_torch/systems.py:four_tank_ode and car_ode does; the
+// rsqrt form, the different folding and nvcc's FMA contraction round
+// differently from the plain version, by a few ulps per evaluation.
+//
+// Two functors: FourTank (ode_id 0, the four-tank main path) and Car
+// (ode_id 1, the kinematic bicycle of the car bench).  Car takes the
+// accurate tanf, atanf and sincosf (no __ intrinsics, no fast-math
+// flags): its steering reaches +-0.5 rad and its heading any angle, where
+// the approximate forms lose digits.
 
 #include <cuda_runtime.h>
 
@@ -52,10 +58,21 @@ __device__ __forceinline__ float rsqrt_approx(float v) {
   return r;
 }
 
+// A functor has NX states, NU inputs and NW input terms: prep(u, w) forms
+// once per rollout what the ODE needs of the input, which is constant over
+// the substeps, and eval(x, w, f) the right-hand side from the state and
+// those terms.
+
 // Quadruple-tank process with the default TANK_PARAMS (systems.py).
 struct FourTank {
   static constexpr int NX = 4;
   static constexpr int NU = 2;
+  static constexpr int NW = 2;
+
+  __device__ static void prep(const float* u, float* w) {
+    w[0] = u[0];
+    w[1] = u[1];
+  }
 
   __device__ static void eval(const float* x, const float* u, float* f) {
     constexpr double A1 = 28.0, A2 = 32.0, A3 = 28.0, A4 = 32.0;
@@ -83,31 +100,59 @@ struct FourTank {
   }
 };
 
-// One RK4 substep of size h of Ode, in place on xv.
+// Kinematic bicycle car with the default CAR_PARAMS (systems.py): states
+// [px, py, psi, v], inputs [a, delta].  The slip angle beta and sin(beta) /
+// lr depend on the input alone: prep takes them once per rollout, so each
+// evaluation is one sincosf and three products.
+struct Car {
+  static constexpr int NX = 4;
+  static constexpr int NU = 2;
+  static constexpr int NW = 3;
+
+  __device__ static void prep(const float* u, float* w) {
+    constexpr double lf = 1.2, lr = 1.4;
+    const float beta =
+        atanf(static_cast<float>(lr / (lf + lr)) * tanf(u[1]));
+    w[0] = u[0];                                   // a
+    w[1] = beta;
+    w[2] = sinf(beta) * static_cast<float>(1.0 / lr);
+  }
+
+  __device__ static void eval(const float* x, const float* w, float* f) {
+    float s, c;
+    sincosf(x[2] + w[1], &s, &c);
+    f[0] = x[3] * c;
+    f[1] = x[3] * s;
+    f[2] = x[3] * w[2];
+    f[3] = w[0];
+  }
+};
+
+// One RK4 substep of size h of Ode, in place on xv; wv the input terms.
 template <class Ode>
-__device__ __forceinline__ void rk4_step(float* xv, const float* uv, float h,
+__device__ __forceinline__ void rk4_step(float* xv, const float* wv, float h,
                                          float h_half, float h_sixth) {
   constexpr int NX = Ode::NX;
   float k[NX], acc[NX], tmp[NX];
-  Ode::eval(xv, uv, k);
+  Ode::eval(xv, wv, k);
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
     acc[i] = k[i];
     tmp[i] = fmaf(h_half, k[i], xv[i]);
   }
-  Ode::eval(tmp, uv, k);
+  Ode::eval(tmp, wv, k);
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
     acc[i] = fmaf(2.f, k[i], acc[i]);
     tmp[i] = fmaf(h_half, k[i], xv[i]);
   }
-  Ode::eval(tmp, uv, k);
+  Ode::eval(tmp, wv, k);
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
     acc[i] = fmaf(2.f, k[i], acc[i]);
     tmp[i] = fmaf(h, k[i], xv[i]);
   }
-  Ode::eval(tmp, uv, k);
+  Ode::eval(tmp, wv, k);
   // x + h/6 (k1 + 2 k2 + 2 k3 + k4), the k4 term last
 #pragma unroll
   for (int i = 0; i < NX; ++i)
@@ -117,16 +162,16 @@ __device__ __forceinline__ void rk4_step(float* xv, const float* uv, float h,
 // n_sub substeps: NSUB of them when NSUB > 0 (unrolled), else the run-time
 // count.
 template <class Ode, int NSUB>
-__device__ __forceinline__ void rk4_chain(float* xv, const float* uv,
+__device__ __forceinline__ void rk4_chain(float* xv, const float* wv,
                                           int n_sub, float h, float h_half,
                                           float h_sixth) {
   if (NSUB > 0) {
 #pragma unroll
-    for (int s = 0; s < NSUB; ++s) rk4_step<Ode>(xv, uv, h, h_half, h_sixth);
+    for (int s = 0; s < NSUB; ++s) rk4_step<Ode>(xv, wv, h, h_half, h_sixth);
   } else {
 #pragma unroll 1
     for (int s = 0; s < n_sub; ++s)
-      rk4_step<Ode>(xv, uv, h, h_half, h_sixth);
+      rk4_step<Ode>(xv, wv, h, h_half, h_sixth);
   }
 }
 
@@ -138,12 +183,13 @@ rk4_substeps_kernel(const float* __restrict__ x, const float* __restrict__ u,
   constexpr int NX = Ode::NX, NU = Ode::NU;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= batch) return;
-  float xv[NX], uv[NU];
+  float xv[NX], uv[NU], wv[Ode::NW];
 #pragma unroll
   for (int i = 0; i < NX; ++i) xv[i] = x[p * NX + i];
 #pragma unroll
   for (int i = 0; i < NU; ++i) uv[i] = u[p * NU + i];
-  rk4_chain<Ode, NSUB>(xv, uv, n_sub, h, h_half, h_sixth);
+  Ode::prep(uv, wv);
+  rk4_chain<Ode, NSUB>(xv, wv, n_sub, h, h_half, h_sixth);
 #pragma unroll
   for (int i = 0; i < NX; ++i) out[p * NX + i] = xv[i];
 }
@@ -159,12 +205,13 @@ __global__ void rk4_chain_cycles_kernel(const float* __restrict__ x,
                                         float h_sixth) {
   constexpr int NX = Ode::NX, NU = Ode::NU;
   const long long t0 = clock64();
-  float xv[NX], uv[NU];
+  float xv[NX], uv[NU], wv[Ode::NW];
 #pragma unroll
   for (int i = 0; i < NX; ++i) xv[i] = x[i];
 #pragma unroll
   for (int i = 0; i < NU; ++i) uv[i] = u[i];
-  rk4_chain<Ode, NSUB>(xv, uv, n_sub, h, h_half, h_sixth);
+  Ode::prep(uv, wv);
+  rk4_chain<Ode, NSUB>(xv, wv, n_sub, h, h_half, h_sixth);
 #pragma unroll
   for (int i = 0; i < NX; ++i) out[i] = xv[i];
   cycles[0] = clock64() - t0;
@@ -205,7 +252,7 @@ cudaError_t chain_cycles(const float* x, const float* u, float* out,
 
 }  // namespace
 
-// C interface, loaded with ctypes.  ode_id 0 = FourTank.  x (batch, NX),
+// C interface, loaded with ctypes.  ode_id 0 = FourTank, 1 = Car.  x (batch, NX),
 // u (batch, NU), out (batch, NX), all contiguous float32 on the device.
 extern "C" int gpmpc_rk4_substeps_f32(int ode_id, const float* x,
                                       const float* u, float* out, int batch,
@@ -215,6 +262,8 @@ extern "C" int gpmpc_rk4_substeps_f32(int ode_id, const float* x,
   switch (ode_id) {
     case 0:
       return static_cast<int>(launch<FourTank>(x, u, out, batch, n_sub, h, s));
+    case 1:
+      return static_cast<int>(launch<Car>(x, u, out, batch, n_sub, h, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -234,6 +283,9 @@ extern "C" int gpmpc_rk4_chain_cycles_f32(int ode_id, const float* x,
     case 0:
       return static_cast<int>(
           chain_cycles<FourTank>(x, u, out, cycles, n_sub, h, s));
+    case 1:
+      return static_cast<int>(
+          chain_cycles<Car>(x, u, out, cycles, n_sub, h, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -181,7 +181,8 @@ se_ard_gram_kernel(const float* __restrict__ x, const float* __restrict__ ell,
   const bool vec = (n % RUN) == 0;
   auto store_run = [&](int row, int col, const float* w) {
     if (row >= n) return;
-    float* dst = out_p + row * n + col;
+    // 64-bit: N x N passes 2^31 from N = 46341 on
+    float* dst = out_p + static_cast<size_t>(row) * n + col;
     if (vec && col + RUN <= n) {
       *reinterpret_cast<float4*>(dst) = make_float4(w[0], w[1], w[2], w[3]);
     } else {
@@ -220,12 +221,15 @@ extern "C" int gpmpc_se_ard_gram_f32(const float* x, const float* ell,
                                      const float* sf2, const float* sn2,
                                      float jitter, float* out, int batch,
                                      int n, int d, void* stream) {
-  // n * n, n * d and batch * d are indexed in int
-  if (batch <= 0 || n <= 0 || n > 46340 || d <= 0 || batch > 65535 ||
+  // the matrices are indexed in 64 bits; n * d and batch * d in int
+  if (batch <= 0 || n <= 0 || d <= 0 || batch > 65535 ||
       static_cast<long long>(n) * d > INT_MAX ||
       static_cast<long long>(batch) * d > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (n + TILE - 1) / TILE;
+  // one block per tile pair, in grid.x (beyond any N that fits the card)
+  if (static_cast<long long>(tiles) * (tiles + 1) / 2 > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 blocks(tiles * (tiles + 1) / 2, batch);
   const size_t shared =
       (2 * TILE * (d < DCHUNK ? d : DCHUNK) + TILE * (TILE + 1)) *

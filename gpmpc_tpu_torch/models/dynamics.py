@@ -74,10 +74,10 @@ class Model:
                 raise ValueError(
                     "fused_integrator=True on a CUDA device needs an ODE "
                     "compiled into the RK4 kernel (have "
-                    f"{sorted(cuda_kernels.CUDA_ODES)}, e.g. "
-                    "systems.four_tank_ode passed directly, not wrapped); "
-                    "other ODEs are ROADMAP work (K2 functors for the car "
-                    "and quadrotor)")
+                    f"{sorted(cuda_kernels.CUDA_ODES)}: "
+                    "systems.four_tank_ode or systems.car_ode passed "
+                    "directly, not wrapped); other ODEs are ROADMAP work "
+                    "(the quadrotor's K2 functor, slice F item 10)")
         if integrator == "adaptive":
             raise NotImplementedError(
                 "integrator='adaptive' is not ported yet (ROADMAP slice F "
@@ -115,17 +115,21 @@ class Model:
 
     def linearize(self, x: torch.Tensor, u: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Continuous-time Jacobians A = df/dx, B = df/du at (x, u)."""
+        """Continuous-time Jacobians A = df/dx, B = df/du at (x, u), in
+        x's dtype (:meth:`discrete_linearize` says why)."""
         a = jacfwd(lambda xx: self.ode(xx, u))(x)
         b = jacfwd(lambda uu: self.ode(x, uu))(u)
-        return a, b
+        return a.to(x.dtype), b.to(x.dtype)
 
     def discrete_linearize(self, x: torch.Tensor, u: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Discrete-time Jacobians of the one-step RK4 map."""
+        """Discrete-time Jacobians of the one-step RK4 map, in x's dtype:
+        torch.func's forward-mode derivatives of a 0-d slice times a Python
+        float (as the ODEs are written) come out in float64 for a float32
+        primal (torch 2.13)."""
         a = jacfwd(lambda xx: self.rk4(xx, u))(x)
         b = jacfwd(lambda uu: self.rk4(x, uu))(u)
-        return a, b
+        return a.to(x.dtype), b.to(x.dtype)
 
     # ------------------------------------------------------------ simulate
 

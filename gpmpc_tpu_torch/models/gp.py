@@ -141,6 +141,15 @@ class GP:
         """Select the propagation scheme and build the one-step moment map
         ``(mu_z, Sigma_z) -> (mu_y, Sigma_y, C)``."""
         self.gp_method = gp_method.upper()
+        if self.gp_method == "EM" and self.cfg.mean_func != "zero":
+            raise ValueError(
+                "exact moment matching (EM) requires mean_func='zero' "
+                "(PILCO closed forms assume a zero prior mean)")
+        if self.gp_method == "EM" and self.cfg.kernel != "se":
+            raise ValueError(
+                "exact moment matching (EM) requires kernel='se' — the "
+                "PILCO closed forms are SE-specific; use ME/TA with "
+                f"kernel={self.cfg.kernel!r}")
         prop = get_propagator(self.gp_method)
         cfg = self.cfg
 

@@ -1,9 +1,13 @@
 """Receding-horizon GP-MPC controller.
 
-Counterpart of ``gpmpc_tpu/mpc/controller.py::MPC`` for the main path:
-multiple-shooting NLP over the horizon, mean + covariance propagation
-(ME/TA), chance-constraint tightening, linear state feedback, expected
-quadratic / saturating costs, and the ``gp | rk4 | exact`` discretizations.
+Counterpart of ``gpmpc_tpu/mpc/controller.py::MPC``: multiple-shooting NLP
+over the horizon, mean + covariance propagation (ME/TA/EM),
+chance-constraint tightening, linear state feedback, expected quadratic /
+saturating costs, the delta-u penalty ``S`` and hard rate bounds
+``dulb``/``duub`` (by augmenting the state with the previous input, so the
+NLP stays stage-separable and the Riccati sweep still factors it), user
+inequality constraints with per-solve parameters (``con_par``), and the
+``gp | rk4 | exact | hybrid`` discretizations.
 
 Covariance handling is zero-order, as in the JAX package: Sigma_t is
 propagated along the current iterate between SQP passes and enters the NLP
@@ -12,10 +16,9 @@ as a per-stage parameter (tightened bounds, trace cost terms).  The JAX
 Python loops here; nothing inside a solve reads a tensor on the host.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): EM propagation, the hybrid discretization, user inequality
-constraints, the delta-u penalty ``S`` and rate bounds, soft constraints
-``lam``/``lam_state``, the terminal constraint, reference trajectories
-(``x_sp`` other than one setpoint), the online GP, and ``solve_mc``.
+item): UT/GH propagation, soft constraints ``lam``/``lam_state``, the
+terminal constraint, reference trajectories (``x_sp`` other than one
+setpoint), the online GP, and ``solve_mc``.
 """
 
 from __future__ import annotations
@@ -46,11 +49,14 @@ class MPCConsts(NamedTuple):
     q: torch.Tensor
     p: torch.Tensor
     r: torch.Tensor
+    s: Optional[torch.Tensor]         # delta-u weight (None = no penalty)
     u_sp: torch.Tensor
     xlb: torch.Tensor
     xub: torch.Tensor
     ulb: torch.Tensor
     uub: torch.Tensor
+    dulb: Optional[torch.Tensor]      # hard input-rate bounds (None = off)
+    duub: Optional[torch.Tensor]
     x_scale: torch.Tensor
     u_scale: torch.Tensor
     u_guard_lo: torch.Tensor
@@ -58,6 +64,7 @@ class MPCConsts(NamedTuple):
     k_fb: torch.Tensor
     noise_cov: torch.Tensor
     model_r: torch.Tensor
+    bd: Optional[torch.Tensor]        # hybrid residual selector (Nx, Ny)
     post: Optional[object]            # GPPosterior or None
     norm: Optional[object]            # Normalization or None
 
@@ -71,6 +78,7 @@ class MPCParams(NamedTuple):
     margins_x: torch.Tensor   # (Nt+1, Nx) chance tightening on state bounds
     margins_u: torch.Tensor   # (Nt, Nu) tightening on input bounds (feedback)
     sigmas: torch.Tensor      # (Nt+1, Nx, Nx) propagated covariances
+    con_par: torch.Tensor     # (num_con_par,) user-constraint parameters
     consts: MPCConsts
 
 
@@ -94,6 +102,9 @@ class MPC:
 
     Same constructor surface as the JAX ``MPC`` plus ``device``; the
     options listed in the module docstring raise ``NotImplementedError``.
+    ``inequality_constraints(x, cov, u, par) -> (num_con,)`` returns user
+    constraint values (g <= 0), ``par`` a ``num_con_par``-vector given per
+    solve (``solve(con_par_func=)``, ``solve_step(con_par=)``).
     Every tensor lives on ``device`` (default: the CUDA card;
     ``device="cpu"`` for the CPU), which must be the model's and the GP's,
     in ``dtype`` (default: the model's)."""
@@ -125,24 +136,17 @@ class MPC:
                  online_capacity: Optional[int] = None,
                  device=None,
                  dtype=None):
-        if S is not None or dulb is not None or duub is not None:
-            _not_ported("the delta-u penalty S and rate bounds dulb/duub",
-                        "ROADMAP slice B and slice F item 3")
         if lam is not None or lam_state is not None:
             _not_ported("soft constraints lam/lam_state",
                         "ROADMAP slice F item 3")
         if terminal_constraint is not None:
             _not_ported("terminal_constraint", "ROADMAP slice F item 3")
-        if inequality_constraints is not None or num_con_par:
-            _not_ported("user inequality constraints", "ROADMAP slice B")
         if online_capacity is not None:
             _not_ported("the online GP (online_capacity)", "ROADMAP slice D")
         dm = discrete_method.lower()
         if dm not in ("gp", "rk4", "exact", "hybrid"):
             raise ValueError(f"unknown discrete_method {discrete_method!r}")
-        if dm == "hybrid" or hybrid_Bd is not None:
-            _not_ported("discrete_method='hybrid'", "ROADMAP slice B")
-        if dm == "gp" and gp is None:
+        if dm in ("gp", "hybrid") and gp is None:
             raise ValueError(f"discrete_method={dm!r} requires a GP")
         if dm == "exact" and model.fused_integrator:
             raise ValueError(
@@ -207,10 +211,21 @@ class MPC:
         self.Q = mat(Q, self.Nx, 1.0)
         self.P = mat(P, self.Nx, 0.0) if P is not None else self.Q * 10.0
         self.R = mat(R, self.Nu, 0.01)
+        self.S = mat(S, self.Nu, 0.0) if S is not None else None
+        # hard input-rate bounds dulb <= u_t - u_{t-1} <= duub; with them or
+        # the delta-u penalty the state carries the previous input, so the
+        # NLP stays stage-separable (Riccati-factorable)
+        self.has_du_bounds = dulb is not None or duub is not None
+        self.aug = self.S is not None or self.has_du_bounds
+        if self.has_du_bounds and self.S is None:
+            self.S = torch.zeros((self.Nu, self.Nu), **kw)   # no-op penalty
+        self.Nxa = self.Nx + (self.Nu if self.aug else 0)
         self.ulb = vec(ulb, self.Nu, -_BIG)
         self.uub = vec(uub, self.Nu, _BIG)
         self.xlb = vec(xlb, self.Nx, -_BIG)
         self.xub = vec(xub, self.Nx, _BIG)
+        self.dulb = vec(dulb, self.Nu, -_BIG) if self.has_du_bounds else None
+        self.duub = vec(duub, self.Nu, _BIG) if self.has_du_bounds else None
         self.u_sp = vec(u_sp, self.Nu, 0.0)
 
         # quantile for chance-constraint tightening: Phi^{-1}(percentile)
@@ -219,8 +234,31 @@ class MPC:
             percentile, dtype=torch.float64 if dtype == torch.float64
             else torch.float32))) if percentile is not None else 0.0)
 
+        # hybrid: the GP models residuals on the dims Bd (Nx, Ny) selects
+        if hybrid_Bd is not None:
+            self.Bd = t(hybrid_Bd)
+        elif dm == "hybrid":
+            if gp.Ny != self.Nx:
+                raise ValueError("hybrid without Bd requires gp.Ny == Nx")
+            self.Bd = torch.eye(self.Nx, **kw)
+        else:
+            self.Bd = None
+
+        # user constraints: probe once for the static constraint count
+        self.user_ineq = inequality_constraints
+        self.num_con_par = int(num_con_par)
+        if inequality_constraints is not None:
+            probe = inequality_constraints(
+                torch.zeros(self.Nx, **kw), torch.zeros((self.Nx, self.Nx),
+                                                        **kw),
+                torch.zeros(self.Nu, **kw), torch.zeros(self.num_con_par,
+                                                        **kw))
+            self.num_user_con = int(probe.shape[0])
+        else:
+            self.num_user_con = 0
+
         # feedback gain from discrete LQR at the operating point; in pure-GP
-        # mode from the GP mean's linearization
+        # mode from the GP mean's linearization, else from the known model's
         if self.feedback:
             ox = t(op_x) if op_x is not None else torch.zeros(self.Nx, **kw)
             ou = t(op_u) if op_u is not None else torch.zeros(self.Nu, **kw)
@@ -250,19 +288,19 @@ class MPC:
         pad = 0.5 * torch.where(self.uub - self.ulb < _BIG,
                                 self.uub - self.ulb, _BIG)
         self.consts = MPCConsts(
-            q=self.Q, p=self.P, r=self.R, u_sp=self.u_sp,
+            q=self.Q, p=self.P, r=self.R, s=self.S, u_sp=self.u_sp,
             xlb=self.xlb, xub=self.xub, ulb=self.ulb, uub=self.uub,
-            x_scale=x_scale, u_scale=u_scale,
+            dulb=self.dulb, duub=self.duub, x_scale=x_scale, u_scale=u_scale,
             u_guard_lo=self.ulb - pad, u_guard_hi=self.uub + pad,
             k_fb=self.K_fb, noise_cov=noise_cov, model_r=self.model.R,
-            post=gp.post if gp is not None else None,
+            bd=self.Bd, post=gp.post if gp is not None else None,
             norm=gp.norm if gp is not None else None)
 
         self.options = MPCOptions(
             gp_method=self.gp_method, discrete_method=dm,
             cost_func=self.cost_func, feedback=self.feedback,
             percentile=percentile, cov_updates=self.cov_updates,
-            solver=self.sqp_cfg)
+            num_con_par=self.num_con_par, solver=self.sqp_cfg)
         self._build_problem()
         self._last_run = None
 
@@ -274,8 +312,12 @@ class MPC:
             return self.model.rk4(x, u)
         if self.discrete_method == "exact":
             return self.model.integrate(x, u)
-        return mean_fn_functional(consts.post, consts.norm, self._gp_cfg,
-                                  torch.cat([x, u]))
+        gp_mean = mean_fn_functional(consts.post, consts.norm, self._gp_cfg,
+                                     torch.cat([x, u]))
+        if self.discrete_method == "gp":
+            return gp_mean
+        # hybrid: known model + GP residual correction
+        return self.model.rk4(x, u) + consts.bd @ gp_mean
 
     def _cov_step(self, x, u, sigma, consts: MPCConsts):
         """One-step covariance propagation (zero-order pass), with the
@@ -290,14 +332,27 @@ class MPC:
                  else self.model.integrate)
             jx = jacfwd(lambda xx: f(xx, u))(x)
             ju = jacfwd(lambda uu: f(x, uu))(u)
-            j = torch.cat([jx, ju], dim=1)                  # (Nx, Nx+Nu)
+            # in x's dtype: see Model.discrete_linearize
+            j = torch.cat([jx, ju], dim=1).to(x.dtype)      # (Nx, Nx+Nu)
             sig_n = j @ sigma_z @ j.T + consts.model_r
             return 0.5 * (sig_n + sig_n.T)
-        if self.gp_method == "ME":
-            return torch.zeros_like(sigma)
-        _, sig_y, _ = self._propagator(consts.post, consts.norm, self._gp_cfg,
-                                       torch.cat([x, u]), sigma_z)
-        sig_n = sig_y + consts.noise_cov
+        z = torch.cat([x, u])
+        if self.discrete_method == "gp":
+            if self.gp_method == "ME":
+                return torch.zeros_like(sigma)
+            _, sig_y, _ = self._propagator(consts.post, consts.norm,
+                                           self._gp_cfg, z, sigma_z)
+            sig_n = sig_y + consts.noise_cov
+            return 0.5 * (sig_n + sig_n.T)
+        # hybrid: linearized known part + GP residual part + cross terms
+        jx, ju = self.model.discrete_linearize(x, u)
+        j = torch.cat([jx, ju], dim=1)
+        _, sig_y, c_zy = self._propagator(consts.post, consts.norm,
+                                          self._gp_cfg, z, sigma_z)
+        bd = consts.bd
+        cross = j @ c_zy @ bd.T
+        sig_n = (j @ sigma_z @ j.T + bd @ sig_y @ bd.T
+                 + cross + cross.T + consts.noise_cov)
         return 0.5 * (sig_n + sig_n.T)
 
     def propagate_covariances(self, xs, us, sigma0, consts: MPCConsts):
@@ -317,20 +372,34 @@ class MPC:
             return cost_lib.expected_saturating(x, sig, x_ref, w)
         return self.cost_func(x, sig, x_ref, w)
 
+    def _split(self, xa):
+        """Augmented state -> (physical state, previous input)."""
+        if self.aug:
+            return xa[:self.Nx], xa[self.Nx:]
+        return xa, None
+
     def _build_problem(self):
         nx, nu, nt = self.Nx, self.Nu, self.Nt
 
-        def dynamics(x, u, t, params: MPCParams):
-            return self._mean_dynamics(x, u, params.consts)
+        def dynamics(xa, u, t, params: MPCParams):
+            x, _ = self._split(xa)
+            xn = self._mean_dynamics(x, u, params.consts)
+            return torch.cat([xn, u]) if self.aug else xn
 
-        def stage_cost(x, u, t, params: MPCParams):
+        def stage_cost(xa, u, t, params: MPCParams):
             c0 = params.consts
+            x, u_prev = self._split(xa)
             c = self._stage_cost_value(x, params.sigmas[t], params.x_sp[t],
                                        c0.q)
             du_sp = u - c0.u_sp
-            return c + du_sp @ c0.r @ du_sp
+            c = c + du_sp @ c0.r @ du_sp
+            if self.aug:
+                dd = u - u_prev
+                c = c + dd @ c0.s @ dd
+            return c
 
-        def terminal_cost(x, params: MPCParams):
+        def terminal_cost(xa, params: MPCParams):
+            x, _ = self._split(xa)
             return self._stage_cost_value(x, params.sigmas[nt],
                                           params.x_sp[nt], params.consts.p)
 
@@ -338,23 +407,37 @@ class MPC:
             return [(x - (c0.xub - mx)) / c0.x_scale,
                     ((c0.xlb + mx) - x) / c0.x_scale]
 
-        def stage_ineq(x, u, t, params: MPCParams):
+        def stage_ineq(xa, u, t, params: MPCParams):
             c0 = params.consts
+            x, u_prev = self._split(xa)
             mu_m = params.margins_u[t]
-            return torch.cat(state_box(x, params.margins_x[t], c0) + [
+            g = state_box(x, params.margins_x[t], c0) + [
                 (u - (c0.uub - mu_m)) / c0.u_scale,
-                ((c0.ulb + mu_m) - u) / c0.u_scale])
+                ((c0.ulb + mu_m) - u) / c0.u_scale]
+            if self.has_du_bounds:
+                # hard rate bounds on du = u_t - u_{t-1}, untightened (the
+                # rate is commanded, not stochastic)
+                du = u - u_prev
+                g += [(du - c0.duub) / c0.u_scale,
+                      (c0.dulb - du) / c0.u_scale]
+            if self.user_ineq is not None:
+                g.append(self.user_ineq(x, params.sigmas[t], u,
+                                        params.con_par))
+            return torch.cat(g)
 
-        def terminal_ineq(x, params: MPCParams):
+        def terminal_ineq(xa, params: MPCParams):
+            x, _ = self._split(xa)
             return torch.cat(state_box(x, params.margins_x[nt],
                                        params.consts))
 
+        n_du_con = 2 * nu if self.has_du_bounds else 0
         self.problem = al_sqp.TrajectoryProblem(
-            nx=nx, nu=nu, horizon=nt,
+            nx=self.Nxa, nu=nu, horizon=nt,
             dynamics=dynamics, stage_cost=stage_cost,
             terminal_cost=terminal_cost,
             stage_ineq=stage_ineq, terminal_ineq=terminal_ineq,
-            n_ineq=2 * nx + 2 * nu, n_term_ineq=2 * nx,
+            n_ineq=2 * nx + 2 * nu + n_du_con + self.num_user_con,
+            n_term_ineq=2 * nx,
             u_guard=lambda p: (p.consts.u_guard_lo, p.consts.u_guard_hi))
 
     def _margins(self, sigmas, consts: MPCConsts):
@@ -399,18 +482,22 @@ class MPC:
         """A setpoint (Nx,) broadcast to the (Nt+1, Nx) per-stage window."""
         return self._setpoint(x_sp)[None, :].expand(self.Nt + 1, self.Nx)
 
+    def _augment_x0(self, x0, u_prev):
+        return torch.cat([x0, u_prev]) if self.aug else x0
+
     def _solve_step(self, warm: al_sqp.SolverState, x0, x_sp, u_prev,
-                    sigma0, consts: MPCConsts, cfg=None):
+                    sigma0, con_par, consts: MPCConsts, cfg=None):
         """One MPC solve: zero-order covariance refresh passes around the
         AL-SQP, each refreshing Sigma from the previous pass's solution."""
         cfg = cfg if cfg is not None else self.sqp_cfg
-        state = al_sqp.shift_state(warm, x0)
+        state = al_sqp.shift_state(warm, self._augment_x0(x0, u_prev))
         for _ in range(max(self.cov_updates, 1)):
             sigmas = self.propagate_covariances(state.x, state.u, sigma0,
                                                 consts)
             mx, mu_m = self._margins(sigmas, consts)
             params = MPCParams(x0=x0, x_sp=x_sp, u_prev=u_prev, margins_x=mx,
-                               margins_u=mu_m, sigmas=sigmas, consts=consts)
+                               margins_u=mu_m, sigmas=sigmas,
+                               con_par=con_par, consts=consts)
             result = al_sqp.solve(self.problem, params, state, cfg)
             state = result.state
         info = StepInfo(obj=result.obj, defect=result.defect,
@@ -418,24 +505,25 @@ class MPC:
                         iters=result.iters, converged=result.converged)
         return state, state.u[0], sigmas, info
 
-    def _init_warm(self, x0, x_sp, u_init=None):
+    def _init_warm(self, x0a, x_sp, u_init=None):
         zeros = torch.zeros
         kw = dict(dtype=self.dtype, device=self.device)
         params = MPCParams(
-            x0=x0, x_sp=x_sp, u_prev=zeros(self.Nu, **kw),
+            x0=x0a[:self.Nx], x_sp=x_sp, u_prev=zeros(self.Nu, **kw),
             margins_x=zeros((self.Nt + 1, self.Nx), **kw),
             margins_u=zeros((self.Nt, self.Nu), **kw),
             sigmas=zeros((self.Nt + 1, self.Nx, self.Nx), **kw),
-            consts=self.consts)
-        return al_sqp.init_state(self.problem, x0, params=params,
+            con_par=zeros(self.num_con_par, **kw), consts=self.consts)
+        return al_sqp.init_state(self.problem, x0a, params=params,
                                  u_init=u_init)
 
     def solve_step(self, x0, x_sp, warm=None, u_prev=None, sigma0=None,
-                   u_init=None):
+                   con_par=None, u_init=None):
         """Single receding-horizon step; returns ``(u0, warm_state, sigmas,
         info)`` for driving a real plant externally.  A cold start
         (``warm=None``) uses the cold-start budget and ``u_init`` ((Nu,) or
-        (Nt, Nu)) to seed its rollout."""
+        (Nt, Nu)) to seed its rollout.  ``con_par`` ((num_con_par,)) are
+        this solve's user-constraint parameters (zeros when None)."""
         x0 = self._tensor(x0)
         x_sp = self._ref_window(x_sp)
         if u_prev is None:
@@ -446,39 +534,58 @@ class MPC:
                 u_init = self._tensor(u_init)
                 if u_init.ndim == 1:
                     u_init = u_init[None].expand(self.Nt, self.Nu)
-            warm = self._init_warm(x0, x_sp, u_init=u_init)
+            warm = self._init_warm(self._augment_x0(x0, u_prev), x_sp,
+                                   u_init=u_init)
         if sigma0 is None:
             sigma0 = torch.zeros((self.Nx, self.Nx), dtype=self.dtype,
                                  device=self.device)
+        con_par = (self._tensor(con_par) if con_par is not None else
+                   torch.zeros(self.num_con_par, dtype=self.dtype,
+                               device=self.device))
         state, u0, sigmas, info = self._solve_step(
-            warm, x0, x_sp, u_prev, sigma0, self.consts,
+            warm, x0, x_sp, u_prev, sigma0, con_par, self.consts,
             cfg=self.init_sqp_cfg if cold else None)
-        # saturate to the hard box like the internal closed loop does
-        u0 = torch.clamp(u0, self.consts.ulb, self.consts.uub)
+        # saturate to the hard box (and rate window) like the internal
+        # closed loop does
+        u0 = self._saturate(u0, u_prev, self.consts)
         return u0, state, sigmas, info
+
+    def _saturate(self, u, u_prev, consts: MPCConsts):
+        """The input the plant can receive: inside the hard box and, with
+        rate bounds, the rate window around ``u_prev``, whatever the
+        solver's residual violation."""
+        u = torch.clamp(u, consts.ulb, consts.uub)
+        if self.has_du_bounds:
+            u = torch.clamp(u, u_prev + consts.dulb, u_prev + consts.duub)
+        return u
 
     # ------------------------------------------------------------ closed loop
 
-    def _closed_loop(self, x0, ref_windows, u0_guess, noise_w, consts,
-                     n_steps, noise):
+    def _closed_loop(self, x0, ref_windows, u0_guess, con_pars, noise_w,
+                     consts, n_steps, noise):
         """The receding-horizon loop: solve, apply u0* to the plant, shift,
-        repeat.  ``ref_windows`` is (n_steps, Nt+1, Nx)."""
+        repeat.  ``ref_windows`` is (n_steps, Nt+1, Nx), ``con_pars``
+        (n_steps, num_con_par)."""
         kw = dict(dtype=self.dtype, device=self.device)
         u_prev = torch.zeros(self.Nu, **kw)
-        warm = self._init_warm(x0, ref_windows[0], u0_guess)
+        warm = self._init_warm(self._augment_x0(x0, u_prev), ref_windows[0],
+                               u0_guess)
         sigma0 = torch.zeros((self.Nx, self.Nx), **kw)
         # cold-start preparation: one full-budget solve preconditions the
         # warm state so the in-loop (possibly RTI-grade) budget only tracks
         if self.init_sqp_cfg != self.sqp_cfg:
+            con_par0 = (con_pars[0] if con_pars.shape[0] else
+                        torch.zeros(self.num_con_par, **kw))
             warm = self._solve_step(warm, x0, ref_windows[0], u_prev, sigma0,
-                                    consts, cfg=self.init_sqp_cfg)[0]
+                                    con_par0, consts,
+                                    cfg=self.init_sqp_cfg)[0]
         x = x0
         xs, us, sig1s, infos = [], [], [], []
         for k in range(n_steps):
             warm, u_cmd, sigmas, info = self._solve_step(
-                warm, x, ref_windows[k], u_prev, sigma0, consts)
-            # physical actuator saturation
-            u_cmd = torch.clamp(u_cmd, consts.ulb, consts.uub)
+                warm, x, ref_windows[k], u_prev, sigma0, con_pars[k], consts)
+            # physical actuator saturation (box and rate window)
+            u_cmd = self._saturate(u_cmd, u_prev, consts)
             x_next = self.model.integrate(x, u_cmd)
             if noise:
                 x_next = x_next + noise_w[k]
@@ -498,6 +605,16 @@ class MPC:
         return self._setpoint(x_sp)[None, None, :].expand(
             n_steps, self.Nt + 1, self.Nx)
 
+    def _prep_con_pars(self, con_par_func, n_steps):
+        """Per-step user-constraint parameters (n_steps, num_con_par),
+        gathered on the host from ``con_par_func(k)`` before the loop."""
+        if con_par_func is not None:
+            con_pars = np.stack([np.asarray(con_par_func(k), dtype=np.float64)
+                                 for k in range(n_steps)])
+            return self._tensor(con_pars).reshape(n_steps, self.num_con_par)
+        return torch.zeros((n_steps, self.num_con_par), dtype=self.dtype,
+                           device=self.device)
+
     def _noise_chol(self):
         return torch.linalg.cholesky(
             self.model.R + 1e-32 * torch.eye(self.Nx, dtype=self.dtype,
@@ -511,19 +628,19 @@ class MPC:
               con_par_func: Optional[Callable] = None):
         """Closed-loop receding-horizon simulation.
 
-        ``x_sp`` is a fixed setpoint (Nx,).  With ``noise=True`` the plant gets additive
-        process noise ~ N(0, model.R): ``noise_w`` (n_steps, Nx) when given,
-        else drawn from ``generator`` (default: a generator on the
-        controller's device seeded with 0).  Returns ``(x_sim (M+1, Nx),
+        ``x_sp`` is a fixed setpoint (Nx,); ``con_par_func(k)`` gives step
+        k's user-constraint parameters (num_con_par,).  With
+        ``noise=True`` the plant gets additive process noise ~ N(0,
+        model.R): ``noise_w`` (n_steps, Nx) when given, else drawn from
+        ``generator`` (default: a generator on the controller's device
+        seeded with 0).  Returns ``(x_sim (M+1, Nx),
         u_sim (M, Nu))``; diagnostics are in ``last_run``."""
-        if con_par_func is not None:
-            _not_ported("user constraint parameters (con_par_func)",
-                        "ROADMAP slice B")
         n_steps = int(round(sim_time / self.dt))
         x0 = self._tensor(x0)
         ref_windows = self._prep_ref_windows(x_sp, n_steps)
         u0_guess = (self._tensor(u0)[None].expand(self.Nt, self.Nu)
                     if u0 is not None else None)
+        con_pars = self._prep_con_pars(con_par_func, n_steps)
         if noise and noise_w is None:
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
@@ -535,7 +652,8 @@ class MPC:
 
         t_start = time.perf_counter()
         xs, us, sig1s, infos = self._closed_loop(
-            x0, ref_windows, u0_guess, noise_w, self.consts, n_steps, noise)
+            x0, ref_windows, u0_guess, con_pars, noise_w, self.consts,
+            n_steps, noise)
         x_sim = xs.cpu().numpy()                      # waits for the device
         wall = time.perf_counter() - t_start
         self._last_run = {

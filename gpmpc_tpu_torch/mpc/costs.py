@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from gpmpc_tpu_torch.ops.chol import ge_solve_small
+
 
 def expected_quadratic(mu: torch.Tensor, sigma: torch.Tensor,
                        x_sp: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -23,6 +25,9 @@ def expected_saturating(mu: torch.Tensor, sigma: torch.Tensor,
                         x_sp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     e = mu - x_sp
     m = torch.eye(mu.shape[0], dtype=mu.dtype, device=mu.device) + sigma @ w
-    quad = e @ w @ torch.linalg.solve(m, e)
+    # the unrolled pivoted solve, not torch.linalg.solve: under vmap over
+    # the stages, hessian() through torch.linalg.solve gave NaN for every
+    # stage whose Sigma is not diagonal (torch 2.13)
+    quad = e @ w @ ge_solve_small(m, e)
     _, logdet = torch.linalg.slogdet(m)
     return 1.0 - torch.exp(-0.5 * quad - 0.5 * logdet)

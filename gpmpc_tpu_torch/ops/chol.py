@@ -4,8 +4,9 @@ Counterpart of ``gpmpc_tpu/ops/chol.py``: the plain Gram factor
 (LAPACK/cuSOLVER through ``torch.linalg``; the plain version of K5, which
 GP training and the posterior reach through ``gp_cuda.cholesky_auto``),
 triangular solves, and the unrolled small-matrix forms the Riccati
-sweeps use.  The unrolled forms build their result from Python lists (no
-in-place writes), so ``torch.func`` transforms pass through them.
+sweeps and the EM propagation use.  The unrolled forms build their
+result from Python lists (no in-place writes), so ``torch.func``
+transforms pass through them.
 """
 
 from __future__ import annotations
@@ -84,6 +85,13 @@ def tri_solve_small(l: torch.Tensor, b: torch.Tensor,
         x[i] = acc / l[..., i, i, None]
     out = torch.stack(x, dim=-2)
     return out[..., 0] if vec else out
+
+
+def chol_logdet_small(l: torch.Tensor) -> torch.Tensor:
+    """log det A from its small Cholesky factor L (..., n, n): the sum of 2
+    log diag L, unrolled over n like the JAX version."""
+    n = l.shape[-1]
+    return 2.0 * sum(torch.log(l[..., i, i]) for i in range(n))
 
 
 def ge_solve_small(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -60,8 +60,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: (nx, nu) pairs the Riccati kernel is instantiated for
-RICCATI_SHAPES = ((4, 2), (5, 3), (2, 1))
+#: (nx, nu) pairs the Riccati kernel is instantiated for: the four-tank
+#: main path, the JAX package's kernel-test shapes, and the car with the
+#: delta-u augmentation (nx = 4 states + the previous 2 inputs)
+RICCATI_SHAPES = ((4, 2), (5, 3), (2, 1), (6, 2))
 
 #: stages per shared-memory chunk of the Riccati kernel: the constant
 #: ``CHUNK`` of ``csrc/riccati_sweep.cu``, mirrored for tests that cross
@@ -69,7 +71,7 @@ RICCATI_SHAPES = ((4, 2), (5, 3), (2, 1))
 RICCATI_CHUNK = 32
 
 #: ODE functors compiled into the RK4 kernel: id name -> (ode_id, nx, nu)
-CUDA_ODES = {"four_tank": (0, 4, 2)}
+CUDA_ODES = {"four_tank": (0, 4, 2), "car": (1, 4, 2)}
 
 _lib = None
 #: what the last build did: seconds, library path, compiler output
@@ -310,8 +312,8 @@ def rk4_substeps(ode, x, u, h: float, n_sub: int):
     if spec is None:
         raise ValueError(
             f"rk4_substeps: no CUDA functor for ODE {ode!r}; the kernel "
-            f"compiles its ODEs in (have {sorted(CUDA_ODES)}; the car and "
-            "quadrotor ODEs are ROADMAP work)")
+            f"compiles its ODEs in (have {sorted(CUDA_ODES)}; the quadrotor "
+            "ODE is ROADMAP slice F item 10)")
     ode_id, nx, nu = spec
     batched = x.ndim == 2
     bsz = x.shape[0] if batched else 1
@@ -368,6 +370,25 @@ def rk4_inputs(batch, seed, device=None):
             torch.tensor(np.abs(rng.standard_normal(lead + (2,))) * 3, **kw))
 
 
+def car_inputs(batch, seed, device=None):
+    """Car states and inputs for K2's checks: positions in [-2, 20] x
+    [-2, 2], headings in [-4, 4] (past +-pi), speeds in [0, 8],
+    accelerations in [-3, 3] and steering in [-0.5, 0.5] rad; with a batch
+    the first four rollouts steer at +0.5 and -0.5 rad and head at
+    +-(pi + 0.3).  f32 (4,) and (2,) for one rollout when ``batch`` is
+    None, else (batch, 4) and (batch, 2)."""
+    rng = np.random.default_rng(seed)
+    lead = () if batch is None else (batch,)
+    x = rng.uniform([-2.0, -2.0, -4.0, 0.0], [20.0, 2.0, 4.0, 8.0],
+                    lead + (4,))
+    u = rng.uniform([-3.0, -0.5], [3.0, 0.5], lead + (2,))
+    if batch is not None and batch >= 4:
+        u[:4, 1] = [0.5, -0.5, 0.5, -0.5]
+        x[:4, 2] = [np.pi + 0.3, -np.pi - 0.3, -np.pi - 0.3, np.pi + 0.3]
+    kw = dict(dtype=torch.float32, device=device)
+    return torch.tensor(x, **kw), torch.tensor(u, **kw)
+
+
 def check_riccati_sweep(args, reg) -> float:
     """Launch K1 on CUDA tensors and its plain version on the same tensors;
     raise unless dx and du agree within 1e-5 x (1 + max|dx|), the gains and
@@ -389,20 +410,23 @@ def check_riccati_sweep(args, reg) -> float:
     return max(errs)
 
 
-def check_riccati_sweep_bad_pivot(kind: str, device=None) -> None:
+def check_riccati_sweep_bad_pivot(kind: str, device=None,
+                                  shape=None) -> None:
     """Launch K1 at reg = 0 on stage QPs whose H_uu has a bad pivot, and
     raise unless the gains come out non-finite: ``kind="indefinite"``
-    negates q_uu (Nt=8, nx=2, nu=1); ``kind="zero"`` sets B and q_uu to 0,
-    so H_uu = 0 (Nt=20, nx=4, nu=2)."""
+    negates q_uu (by default Nt=8, nx=2, nu=1); ``kind="zero"`` sets B and
+    q_uu to 0, so H_uu = 0 (by default Nt=20, nx=4, nu=2).  ``shape``
+    (Nt, nx, nu) overrides the default."""
+    if kind not in ("indefinite", "zero"):
+        raise ValueError(f"unknown bad-pivot case {kind!r}")
+    nt, nx, nu = shape or ((8, 2, 1) if kind == "indefinite" else (20, 4, 2))
+    args = stage_qp_inputs(nt, nx, nu, 2 if kind == "indefinite" else 5,
+                           device=device)
     if kind == "indefinite":
-        args = stage_qp_inputs(8, 2, 1, 2, device=device)
         args[4] = -args[4]
-    elif kind == "zero":
-        args = stage_qp_inputs(20, 4, 2, 5, device=device)
+    else:
         args[1] = torch.zeros_like(args[1])
         args[4] = torch.zeros_like(args[4])
-    else:
-        raise ValueError(f"unknown bad-pivot case {kind!r}")
     gains = riccati_sweep(*args, torch.zeros((), device=device))[2]
     if bool(torch.all(torch.isfinite(gains))):
         raise AssertionError(f"riccati_sweep gave finite gains for a {kind} "

@@ -77,10 +77,6 @@ GRAM_EXP2_SCALE = math.sqrt(0.5 * math.log2(math.e))
 #: of ``csrc/se_ard_gram.cu``; D <= it is one chunk
 GRAM_DCHUNK = 256
 
-#: K4's largest N: its kernel indexes one (N, N) matrix in int
-GRAM_MAX_N = 46340
-
-
 def se_ard_gram_pairs_reference(x, ell, sf2, sn2, jitter: float = 0.0,
                                 tile: int = GRAM_TILE,
                                 chunk: int = GRAM_DCHUNK):
@@ -121,9 +117,6 @@ def se_ard_gram(x, ell, sf2, sn2, jitter: float = 0.0):
     (n, d), p = x.shape, ell.shape[0]
     ck._check_cuda("se_ard_gram", (x, ell, sf2, sn2),
                    dict(x=(n, d), ell=(p, d), sf2=(p,), sn2=(p,)))
-    if n > GRAM_MAX_N:
-        raise ValueError(f"se_ard_gram: N={n} > {GRAM_MAX_N}, the largest "
-                         f"N whose N x N matrix the kernel indexes in int")
     lib = ck.build_library()
     out = torch.empty((p, n, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):

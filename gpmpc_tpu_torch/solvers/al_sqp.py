@@ -16,8 +16,10 @@ Counterpart of ``gpmpc_tpu/solvers/al_sqp.py``:
 The JAX version's ``lax.while_loop`` with early exit becomes a fixed budget
 of ``cfg.max_iters`` inner steps whose updates are masked with
 ``torch.where`` once the loop is done: the iterates and the iteration count
-are those of the JAX loop, and no solve reads a tensor value on the host
-(no ``.item()``, no branch on data), so a step never waits for the device.
+are those of the JAX loop, and no solve on the card reads a tensor value
+on the host (no ``.item()``, no branch on data), so a step never waits for
+the device.  On the CPU, where nothing runs ahead of the host, the loop
+leaves at its first done step instead (``CPU_EARLY_EXIT``).
 """
 
 from __future__ import annotations
@@ -159,6 +161,23 @@ def _merit(prob, state, params, mu, nu_pen, w_viol=0.0):
     return m, defects
 
 
+#: on a CPU tensor, leave the inner loop at its first done step: the steps
+#: left would be masked no-ops (the same iterate, bit for bit), and on the
+#: CPU no device waits on the host.  False runs the card's masked budget on
+#: the CPU too (tests hold the two equal, and the masked loop against JAX).
+CPU_EARLY_EXIT = True
+
+
+def _in_dtype(dtype, *ts):
+    """The tensors in ``dtype``.  torch.func's forward-mode derivatives of
+    a product of a 0-d slice (``x[..., 0]``) and a Python float come out in
+    float64 when the primal is float32 (torch 2.13; the ODEs and the
+    obstacle callback are written that way, as in the JAX package), so
+    the derivatives the QP is built from are brought back to the iterate's
+    dtype."""
+    return [t.to(dtype) for t in ts]
+
+
 def _build_qp(prob, state, params, mu, reg_state):
     """Linearize dynamics + second-order expand the AL objective per stage."""
     nx = prob.nx
@@ -174,8 +193,8 @@ def _build_qp(prob, state, params, mu, reg_state):
         xu = torch.cat([x, u])
         return a, b, grad(cost_xu)(xu), hessian(cost_xu)(xu)
 
-    a, b, g, hess = vmap(stage_data)(state.x[:-1], state.u,
-                                     _stage_ids(prob, state.x), state.lam)
+    a, b, g, hess = _in_dtype(state.x.dtype, *vmap(stage_data)(
+        state.x[:-1], state.u, _stage_ids(prob, state.x), state.lam))
     defects = _rollout_defects(prob, state, params)
 
     eye_x = torch.eye(nx, dtype=state.x.dtype, device=state.x.device)
@@ -188,8 +207,9 @@ def _build_qp(prob, state, params, mu, reg_state):
         q_xx=hess[:, :nx, :nx] + reg_state * eye_x[None],
         q_uu=hess[:, nx:, nx:], q_xu=hess[:, :nx, nx:],
         q_x=g[:, :nx], q_u=g[:, nx:],
-        qf_xx=hessian(term_fn)(state.x[-1]) + reg_state * eye_x,
-        qf_x=grad(term_fn)(state.x[-1]))
+        qf_xx=hessian(term_fn)(state.x[-1]).to(eye_x.dtype)
+        + reg_state * eye_x,
+        qf_x=grad(term_fn)(state.x[-1]).to(eye_x.dtype))
     return qp, defects
 
 
@@ -219,10 +239,10 @@ def _kkt_stat(prob, state, params, mu):
             lambda uu: _al_stage_cost(prob, x, uu, t, params, lam_t, mu))(u)
         return a, b, gx, gu
 
-    a, b, gx, gu = vmap(stage_grads)(state.x[:-1], state.u,
-                                     _stage_ids(prob, state.x), state.lam)
+    a, b, gx, gu = _in_dtype(state.x.dtype, *vmap(stage_grads)(
+        state.x[:-1], state.u, _stage_ids(prob, state.x), state.lam))
     p = grad(lambda x: _al_term_cost(prob, x, params, state.lam_term, mu))(
-        state.x[-1])
+        state.x[-1]).to(state.x.dtype)
     p_next = [None] * prob.horizon
     for t in range(prob.horizon - 1, -1, -1):
         p_next[t] = p
@@ -245,7 +265,8 @@ def solve(prob: TrajectoryProblem, params: Any, init: SolverState,
     loop: ``cfg.max_iters`` Gauss-Newton SQP steps via the Riccati KKT
     sweep with an L1 merit line search; once a step is small or the
     regularization stalls, the remaining steps run masked (their results
-    are discarded), exactly reproducing the early-exit loop."""
+    are discarded), exactly reproducing the early-exit loop.  On a CPU
+    tensor the loop exits there instead while ``CPU_EARLY_EXIT``."""
     dtype, device = init.x.dtype, init.x.device
     kw = dict(dtype=dtype, device=device)
     kkt_solve = riccati.select_backend(prob.horizon, dtype,
@@ -307,6 +328,8 @@ def solve(prob: TrajectoryProblem, params: Any, init: SolverState,
             nu_p = torch.where(active, nu_n, nu_p)
             iters = iters + active.to(torch.int32)
             done = done | done_n
+            if CPU_EARLY_EXIT and device.type == "cpu" and bool(done):
+                break
 
         # multiplier update: lam <- max(0, lam + mu g)
         lam_cap = 1e10  # keep multipliers finite under pathological iterates

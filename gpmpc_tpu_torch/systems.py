@@ -1,11 +1,14 @@
 """Plant models shipped with the framework.
 
-Counterpart of ``gpmpc_tpu/systems.py``.  Only the four-tank process is
-ported so far; the car and planar-quadrotor ODEs are ROADMAP slice B/F work.
+Counterpart of ``gpmpc_tpu/systems.py``: the four-tank process, the
+kinematic car with its ellipse obstacles, and the car's bench constants
+(training box, obstacles, start and goal).  The planar quadrotor is
+ROADMAP slice F item 10.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: Quadruple-tank parameters (Johansson 2000 lab process): tank/outlet areas
@@ -45,3 +48,79 @@ def four_tank_ode(x, u, p=None):
 #: ``csrc/rk4_substeps.cu`` that computes this function with the default
 #: ``TANK_PARAMS``.
 four_tank_ode.cuda_ode = "four_tank"
+
+
+# --------------------------------------------------------------------- car
+
+#: Kinematic bicycle parameters: front/rear axle distances [m].
+CAR_PARAMS = dict(lf=1.2, lr=1.4)
+
+
+def car_ode(x, u, p=None):
+    """Kinematic bicycle car: states [px, py, psi (heading), v (speed)],
+    inputs [a (acceleration), delta (steering angle)]; elementwise over
+    leading batch dimensions of ``x`` (..., 4) and ``u`` (..., 2).
+
+    lr / (lf + lr) is a Python float folded in double, as in the JAX
+    version; the CUDA functor ``Car`` in ``csrc/rk4_substeps.cu`` folds it
+    (and 1 / lr) the same way."""
+    p = p or CAR_PARAMS
+    v, psi = x[..., 3], x[..., 2]
+    beta = torch.atan(p["lr"] / (p["lf"] + p["lr"]) * torch.tan(u[..., 1]))
+    return torch.stack([
+        v * torch.cos(psi + beta),
+        v * torch.sin(psi + beta),
+        v / p["lr"] * torch.sin(beta),
+        u[..., 0],
+    ], dim=-1)
+
+
+#: the id of the functor in ``csrc/rk4_substeps.cu`` that computes this
+#: function with the default ``CAR_PARAMS``
+car_ode.cuda_ode = "car"
+
+
+def ellipse_obstacle_constraints(n_obstacles: int, scale: float = 1.0):
+    """An ``inequality_constraints`` callback for ``n_obstacles`` ellipse
+    keep-out zones, parameterized per solve by ``par = [cx, cy, rx, ry] *
+    n`` (through ``num_con_par``/``con_par_func``).  Returns the callback
+    and its parameter count.
+
+    Constraint per obstacle (g <= 0):
+        1 - ((px-cx)/(rx+m))^2 - ((py-cy)/(ry+m))^2 <= 0
+    with m = scale * sqrt(max eigenvalue of the positional covariance), an
+    uncertainty margin from the propagated state covariance.  The callback
+    ``(x, cov, u, par) -> (n_obstacles,)`` is elementwise over leading
+    batch dimensions of ``x`` and ``cov``."""
+    def cb(x, cov, u, par):
+        px, py = x[..., 0], x[..., 1]
+        c00, c01 = cov[..., 0, 0], cov[..., 0, 1]
+        c10, c11 = cov[..., 1, 0], cov[..., 1, 1]
+        # conservative radius inflation from covariance (largest axis)
+        tr = c00 + c11
+        det = c00 * c11 - c01 * c10
+        lam_max = 0.5 * tr + torch.sqrt(torch.clamp(0.25 * tr * tr - det,
+                                                    min=0.0))
+        m = scale * torch.sqrt(torch.clamp(lam_max, min=0.0))
+        g = []
+        for i in range(n_obstacles):
+            cx, cy, rx, ry = (par[4 * i], par[4 * i + 1],
+                              par[4 * i + 2], par[4 * i + 3])
+            g.append(1.0 - ((px - cx) / (rx + m)) ** 2
+                     - ((py - cy) / (ry + m)) ** 2)
+        return torch.stack(g, dim=-1)
+
+    return cb, 4 * n_obstacles
+
+
+#: The car bench's constants (bench config 4): the box its residual GP is
+#: trained and validated in (states, inputs), its two ellipse obstacles
+#: ``[cx, cy, rx, ry]``, start and goal.
+CAR_X_LB = np.array([-1.0, -1.0, -0.6, 0.0])
+CAR_X_UB = np.array([1.0, 1.0, 0.6, 8.0])
+CAR_U_LB = np.array([-3.0, -0.5])
+CAR_U_UB = np.array([3.0, 0.5])
+CAR_OBSTACLES = np.array([[6.0, 0.3, 1.5, 1.0],
+                          [12.0, -0.6, 1.5, 1.2]])
+CAR_X0 = np.array([0.0, 0.0, 0.0, 2.0])
+CAR_XSP = np.array([18.0, 0.0, 0.0, 2.0])

@@ -35,7 +35,10 @@ CH = ck.RICCATI_CHUNK
     (2 * CH + 1, 4, 2, None), (300, 4, 2, None),
     # a warp per problem: many blocks, and last blocks with idle warps
     (20, 4, 2, 1024), (13, 5, 3, 8), (8, 2, 1, 8), (40, 5, 3, 5),
-    (70, 2, 1, 6)])
+    (70, 2, 1, 6),
+    # the car with the delta-u augmentation: (6, 2), one problem and a
+    # batch, its path's Nt=20 and a horizon across the chunks
+    (20, 6, 2, None), (300, 6, 2, None), (20, 6, 2, 64), (300, 6, 2, 64)])
 def test_riccati_kernel_matches_plain_version(dev, nt, nx, nu, batch):
     args = ck.stage_qp_inputs(nt, nx, nu, nt + nx, batch, device=dev)
     reg = torch.full(() if batch is None else (batch,), 1e-6, device=dev)
@@ -45,12 +48,20 @@ def test_riccati_kernel_matches_plain_version(dev, nt, nx, nu, batch):
     assert ck.LAUNCHES["riccati_sweep"] == before + 1
 
 
-def test_riccati_kernel_indefinite_gives_nan(dev):
-    ck.check_riccati_sweep_bad_pivot("indefinite", device=dev)
+@pytest.mark.parametrize("shape", [None, (20, 6, 2)])
+def test_riccati_kernel_indefinite_gives_nan(dev, shape):
+    ck.check_riccati_sweep_bad_pivot("indefinite", device=dev, shape=shape)
 
 
-def test_riccati_kernel_zero_pivot_gives_non_finite_gains(dev):
-    ck.check_riccati_sweep_bad_pivot("zero", device=dev)
+@pytest.mark.parametrize("shape", [None, (20, 6, 2)])
+def test_riccati_kernel_zero_pivot_gives_non_finite_gains(dev, shape):
+    ck.check_riccati_sweep_bad_pivot("zero", device=dev, shape=shape)
+
+
+def test_riccati_kernel_refuses_an_uninstantiated_shape(dev):
+    args = ck.stage_qp_inputs(8, 3, 1, 0, device=dev)
+    with pytest.raises(ValueError, match="no kernel instantiated"):
+        ck.riccati_sweep(*args, torch.tensor(1e-6, device=dev))
 
 
 @pytest.mark.parametrize("n_sub", [1, 7, 10])
@@ -64,6 +75,72 @@ def test_rk4_kernel_matches_plain_version(dev, batch, n_sub):
     ck.check_rk4_substeps(four_tank_ode, x, u, 0.3, n_sub)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["rk4_substeps"] == before + 1
+
+
+@pytest.mark.parametrize("n_sub", [1, 10])
+@pytest.mark.parametrize("batch", [None, 200, 1024])
+def test_rk4_kernel_car_functor_matches_plain_version(dev, batch, n_sub):
+    """K2's Car functor (ode_id 1) over one rollout, the car validation's
+    200 and the batched width; the batches steer at +-0.5 rad and head
+    past +-pi."""
+    from gpmpc_tpu_torch.systems import car_ode
+    x, u = ck.car_inputs(batch, n_sub + (batch or 1), dev)
+    before = ck.LAUNCHES["rk4_substeps"]
+    ck.check_rk4_substeps(car_ode, x, u, 0.01, n_sub)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["rk4_substeps"] == before + 1
+
+
+def test_fused_integrator_without_a_functor_raises_on_the_card(dev):
+    from gpmpc_tpu_torch import Model
+    from gpmpc_tpu_torch.systems import car_ode
+    with pytest.raises(ValueError, match="compiled into the RK4 kernel"):
+        Model(Nx=4, Nu=2, ode=lambda x, u: car_ode(x, u), dt=0.1,
+              fused_integrator=True, device=dev)
+    x, u = ck.car_inputs(8, 0, dev)
+    with pytest.raises(ValueError, match="no CUDA functor"):
+        ck.rk4_substeps(lambda a, b: car_ode(a, b), x, u, 0.01, 10)
+
+
+def test_car_closed_loop_on_the_card_counts_its_launches(dev):
+    """The car (EM, hybrid, delta-u, both obstacles through con_par) at
+    Nt=8 with the fixture GP's first 40 points and the RTI preset: the
+    posterior's one K4 and three K5, K1 at (6, 2) al x mi times a step and
+    in the fused cold start, no K2 (the plant is unfused), then one K2 Car
+    launch for a fused plant step."""
+    from gpmpc_tpu_torch import MPC, Model
+    from gpmpc_tpu_torch.models.convert import gp_from_fixture
+    from gpmpc_tpu_torch.systems import (CAR_OBSTACLES, CAR_U_LB, CAR_U_UB,
+                                         CAR_X0, CAR_XSP, car_ode,
+                                         ellipse_obstacle_constraints)
+    ck.reset_launches()
+    m = Model(Nx=4, Nu=2, ode=car_ode, dt=0.1,
+              R=np.diag([1e-5, 1e-5, 1e-6, 1e-5]), integrator_substeps=10,
+              device=dev)
+    g = gp_from_fixture(prefix="car", n=40, device=dev, gp_method="EM")
+    cb, n_par = ellipse_obstacle_constraints(2, scale=2.0)
+    mpc = MPC(horizon=0.8, model=m, gp=g, gp_method="EM",
+              discrete_method="hybrid", Q=np.diag([5.0, 20.0, 0.5, 1.0]),
+              R=np.diag([0.1, 1.0]), S=np.diag([0.05, 0.5]), ulb=CAR_U_LB,
+              uub=CAR_U_UB, xlb=[-5.0, -4.0, -2.0, 0.0],
+              xub=[25.0, 4.0, 2.0, 10.0], percentile=0.95, feedback=True,
+              op_x=CAR_X0, inequality_constraints=cb, num_con_par=n_par,
+              cov_updates=1, solver_opts="rti",
+              init_solver_opts=dict(al_iters=1, max_iters=4, fused_kkt=True))
+    par = CAR_OBSTACLES.reshape(-1)
+    xs, us = mpc.solve(CAR_X0, 0.3, CAR_XSP, noise=False,
+                       con_par_func=lambda k: par)
+    assert ck.LAUNCHES == {"riccati_sweep": 3 * 24 + 4, "rk4_substeps": 0,
+                           "se_ard_gram": 1, "cholesky": 3,
+                           "gp_predict_batch": 0}
+    assert xs.device.type == "cuda" and bool(torch.all(torch.isfinite(xs)))
+    assert bool(torch.all(torch.isfinite(us)))
+    fused = Model(Nx=4, Nu=2, ode=car_ode, dt=0.1, integrator_substeps=10,
+                  fused_integrator=True, device=dev)
+    x1 = fused.integrate(xs[-1], us[-1])
+    assert ck.LAUNCHES["rk4_substeps"] == 1
+    torch.testing.assert_close(x1, m.integrate(xs[-1], us[-1]), rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_closed_loop_on_cuda_goes_through_both_kernels(dev):
@@ -152,11 +229,29 @@ def test_gram_kernel_takes_any_d(dev, n, d, p):
     assert ck.LAUNCHES["se_ard_gram"] == before + 1
 
 
-def test_gram_kernel_refuses_n_past_its_int_indices(dev):
-    x, ell, sf2, sn2 = gp_cuda.gram_inputs(4, 2, 1, seed=0, device=dev)
-    x = x.new_zeros((gp_cuda.GRAM_MAX_N + 1, 2))
-    with pytest.raises(ValueError, match=str(gp_cuda.GRAM_MAX_N)):
-        gp_cuda.se_ard_gram(x, ell, sf2, sn2, 1e-6)
+def test_gram_kernel_takes_n_past_46340(dev):
+    """K4 at N = 46341, D = 6, P = 1, the first N whose N x N Gram (8.6 GB)
+    passes 2^31 elements (its offsets are 64-bit): the last tile row and
+    column (rows >= 46336) and three diagonal tiles against the plain
+    cross-covariance of those rows, at the plain version's tolerance;
+    exactly symmetric there, the diagonal bitwise sf2 + sn2 + jitter sf2."""
+    from gpmpc_tpu_torch.ops.kernels import se_ard_cross
+    n, jitter = 46341, 1e-6
+    x, ell, sf2, sn2 = gp_cuda.gram_inputs(n, 6, 1, seed=n, device=dev)
+    before = ck.LAUNCHES["se_ard_gram"]
+    k = gp_cuda.se_ard_gram(x, ell, sf2, sn2, jitter)[0]
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["se_ard_gram"] == before + 1
+    diag = sf2 + sn2 + jitter * sf2
+    tol = gp_cuda.GRAM_TOL
+    for r0, r1 in ((46336, n), (0, 32), (23168, 23200)):
+        rows = k[r0:r1]
+        ref = se_ard_cross(x[r0:r1], x, ell[0], sf2[0])
+        idx = torch.arange(r0, r1, device=dev)
+        ref[idx - r0, idx] = diag[0]
+        assert bool(torch.all((rows - ref).abs() <= tol + tol * ref.abs()))
+        assert torch.equal(rows, k[:, r0:r1].T)
+        assert torch.equal(rows[idx - r0, idx], diag.expand(r1 - r0))
 
 
 def test_cholesky_kernel_takes_n_past_4096(dev):

@@ -147,3 +147,26 @@ def test_fused_integrator_guards():
     fused = Model(ode=four_tank_ode, fused_integrator=True, **TKW)
     with pytest.raises(ValueError, match="exact"):
         MPC(horizon=9.0, model=fused, discrete_method="exact", device="cpu")
+
+
+def test_car_ode_functor_is_registered_and_in_the_source():
+    """The car ODE maps to ode_id 1 of csrc/rk4_substeps.cu (both of its C
+    entries switch on it), with the car's (nx, nu); its plain fused path on
+    the CPU is the plain RK4 loop, and a wrapped ODE has no functor."""
+    import re
+    from gpmpc_tpu_torch.ops.cuda_kernels import CSRC, CUDA_ODES, kernel_ode_id
+    from gpmpc_tpu_torch.systems import car_ode
+
+    assert kernel_ode_id(car_ode) == CUDA_ODES["car"] == (1, 4, 2)
+    assert kernel_ode_id(lambda x, u: car_ode(x, u)) is None
+    src = (CSRC / "rk4_substeps.cu").read_text()
+    assert re.findall(r"case 1:\s*return static_cast<int>\(\s*(\w+)<Car>",
+                      src) == ["launch", "chain_cycles"]
+    kw = dict(Nx=4, Nu=2, ode=car_ode, dt=0.1, integrator_substeps=10,
+              device="cpu")
+    x = torch.tensor([[1.0, 0.5, 3.0, 4.0], [0.0, -1.0, -3.5, 2.0]])
+    u = torch.tensor([[1.0, 0.5], [-2.0, -0.5]])
+    before = dict(LAUNCHES)
+    assert torch.equal(Model(fused_integrator=True, **kw).integrate(x, u),
+                       Model(**kw).integrate(x, u))
+    assert LAUNCHES == before

@@ -141,5 +141,6 @@ def test_gp_from_numpy_f32_and_guards():
         GP(f["tank_X"], f["tank_Y"], inducing=10, device="cpu")
     with pytest.raises(NotImplementedError, match="slice F item 10"):
         GP(f["tank_X"], f["tank_Y"], mesh=object(), device="cpu")
+    gp.set_method("EM")         # ported with the car (slice B)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gp.set_method("EM")
+        gp.set_method("UT")

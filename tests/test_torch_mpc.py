@@ -95,13 +95,14 @@ def test_closed_loop_explicit_noise_matches_jax_x64():
 
 
 def test_unported_options_raise():
+    """Every option still unported raises and names its ROADMAP item: soft
+    constraints, the terminal constraint, the online GP, UT/GH
+    propagation, solve_mc and reference windows."""
     m = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT, device="cpu")
     g = gp_from_fixture(n=10, device="cpu")
-    for kw in (dict(S=np.eye(2)), dict(lam=1.0), dict(lam_state=1.0),
+    for kw in (dict(lam=1.0), dict(lam_state=1.0),
                dict(terminal_constraint=1.0), dict(online_capacity=5),
-               dict(discrete_method="hybrid"),
-               dict(inequality_constraints=lambda *a: 0, num_con_par=1),
-               dict(gp_method="EM")):
+               dict(gp_method="UT"), dict(gp_method="GH")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MPC(horizon=3 * DT, model=m, gp=g, device="cpu", **kw)
     mpc = MPC(horizon=3 * DT, model=m, gp=g, feedback=False, device="cpu")

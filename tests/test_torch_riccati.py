@@ -11,7 +11,8 @@ import jax.numpy as jnp
 from gpmpc_tpu.ops.pallas_kernels import riccati_sweep_pallas
 from gpmpc_tpu.solvers import riccati as jric
 from gpmpc_tpu_torch.ops.cuda_kernels import (
-    CSRC, LAUNCHES, RICCATI_CHUNK, check_riccati_sweep_bad_pivot,
+    CSRC, LAUNCHES, RICCATI_CHUNK, RICCATI_SHAPES,
+    check_riccati_sweep_bad_pivot,
     riccati_sweep, riccati_sweep_reference)
 from gpmpc_tpu_torch.solvers import riccati as tric
 
@@ -36,7 +37,7 @@ def random_qp(nt, nx, nu, seed):
 
 
 @pytest.mark.parametrize("nt,nx,nu,seed", [(20, 4, 2, 0), (13, 5, 3, 1),
-                                           (8, 2, 1, 2)])
+                                           (8, 2, 1, 2), (20, 6, 2, 3)])
 def test_solve_matches_jax_f64(nt, nx, nu, seed):
     qp, dx0 = random_qp(nt, nx, nu, seed)
     ref = jric.solve(jric.StageQP(*map(jnp.asarray, qp)), jnp.asarray(dx0),
@@ -50,7 +51,7 @@ def test_solve_matches_jax_f64(nt, nx, nu, seed):
     assert bool(got.ok) and bool(ref.ok)
 
 
-@pytest.mark.parametrize("nx,nu", [(4, 2), (5, 3), (2, 1)])
+@pytest.mark.parametrize("nx,nu", [(4, 2), (5, 3), (2, 1), (6, 2)])
 def test_sweep_reference_long_horizon_matches_jax_f64(nx, nu):
     """The kernel's plain version in f64 against JAX x64 riccati.solve at
     Nt=300, the long horizon that the kernel streams through its
@@ -66,6 +67,17 @@ def test_sweep_reference_long_horizon_matches_jax_f64(nx, nu):
                                    rtol=0, atol=1e-8, err_msg=name)
 
 
+def test_riccati_shapes_mirror_the_kernel_instantiations():
+    """RICCATI_SHAPES, the (nx, nu) pairs the wrapper lets through, are the
+    instantiations of csrc/riccati_sweep.cu's C entry."""
+    src = (CSRC / "riccati_sweep.cu").read_text()
+    found = re.findall(r"^\s*GPMPC_RICCATI_CASE\((\d+), (\d+)\)", src,
+                       re.MULTILINE)
+    assert sorted((int(a), int(b)) for a, b in found) == \
+        sorted(RICCATI_SHAPES)
+    assert (6, 2) in RICCATI_SHAPES
+
+
 def test_riccati_chunk_mirrors_the_kernel_source():
     """RICCATI_CHUNK, which the card tests use to cross the kernel's chunk
     boundaries, is the CHUNK constant of csrc/riccati_sweep.cu."""
@@ -74,11 +86,13 @@ def test_riccati_chunk_mirrors_the_kernel_source():
     assert found == [str(RICCATI_CHUNK)]
 
 
+@pytest.mark.parametrize("shape", [None, (20, 6, 2)])
 @pytest.mark.parametrize("kind", ["indefinite", "zero"])
-def test_bad_pivot_cases_give_non_finite_gains_on_cpu(kind):
-    """The bad-pivot cases the card checks K1 with: its plain version gives
-    non-finite gains for an indefinite and for a zero H_uu pivot too."""
-    check_riccati_sweep_bad_pivot(kind, device="cpu")
+def test_bad_pivot_cases_give_non_finite_gains_on_cpu(kind, shape):
+    """The bad-pivot cases the card checks K1 with, at their default shapes
+    and at the car's (6, 2): its plain version gives non-finite gains for
+    an indefinite and for a zero H_uu pivot too."""
+    check_riccati_sweep_bad_pivot(kind, device="cpu", shape=shape)
     with pytest.raises(ValueError, match="unknown"):
         check_riccati_sweep_bad_pivot("other", device="cpu")
 
