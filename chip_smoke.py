@@ -8,7 +8,8 @@ script exits non-zero before its last line):
   2. build the CUDA kernels from gpmpc_tpu_torch/csrc/ (nvcc, sm_90a);
   3. K1 (Riccati sweep) against its plain PyTorch version on the card, at
      the three shapes of the JAX package's kernel test, at Nt=300 (across
-     the kernel's shared-memory chunks) and at B=1024, at the car's
+     the kernel's shared-memory chunks) and at B=1024 (Nt=20, and the
+     batched study's Nt=8), at the car's
      (nx, nu) = (6, 2) with Nt=20 at B=1 and 64 and Nt=300, plus an
      indefinite and a zero H_uu pivot at the default shapes and at (6, 2)
      (non-finite gains);
@@ -77,9 +78,23 @@ script exits non-zero before its last line):
      the fixture GP's validate (one K3 launch), SMSE within 1.5x of the
      port's f64 validation on the CPU; K2 Car and K3 (k*, mean, and the
      variance formed from k*) against their plain versions on the
-     validation's own inputs.
-Phases 12 and 13 run before phase 11, whose JSON rows carry their launch
-counts.
+     validation's own inputs;
+ 14. the batched closed-loop study (bench config 5, bench.py:400-454) at
+     full width: the pinned fixture GP, capacity 128, saturate, Nt=8,
+     al1 x mi3 x ls4, f32, B=1024 rollouts from (8, 9, 1, 1) + 0.5 U(0, 1)
+     to (12.4, 12.7, 1.8, 1.4) with process noise; (a) as the JAX
+     package runs it (unfused plant, sequential KKT, no kernel):
+     study_rollout_solves_per_s as bench.py defines it (B over the wall
+     slope between a 12- and a 4-step run) and ms per control step by
+     CUDA events, finite values, every posterior conditioned on the card
+     on a novel transition and held against the CPU, a per-step CPU
+     replay of four rollouts, a profile of three steps; (b) the same with
+     fused_kkt and the fused plant: K1 exactly 3 launches per control
+     step and K2 1, each for all 1024 rollouts, its mean cost within
+     STUDY_COST_RTOL of (a)'s; (c) save_study, load_study (bitwise) and a
+     resumed run on the card.
+Phases 12-14 run before phase 11, whose JSON rows carry their launch
+counts (K1 at (1024, 8, 4, 2) and K2 at B=1024 get rows of their own).
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with the kernels' rows, and {"ok": true, "device": {...}}.
 
@@ -104,6 +119,8 @@ directory, counts the K2 kernels' instructions by opcode and reads the
 repository K2's chain in SM cycles;
 ``python3 chip_smoke.py --k1 [OTHER_SRC]`` runs phase 3's K1 and K2 checks
 and phase 11's K1 lines alone, and with OTHER_SRC is ``--compare k1``;
+``python3 chip_smoke.py --study`` runs phases 1-2 and 14 and the study's
+kernel rows alone;
 ``python3 chip_smoke.py --build-times`` times the kernels' build, one
 ``nvcc`` over all sources against one per source at once.
 The script imports no JAX.
@@ -288,7 +305,7 @@ def check_kernels(ck, four_tank_ode, dev):
     # shared-memory chunks nine times, and the batched study's width
     for nt, nx, nu, seed, batch in [(20, 4, 2, 0, None), (13, 5, 3, 1, None),
                                     (8, 2, 1, 2, None), (300, 4, 2, 3, None),
-                                    (20, 4, 2, 4, 1024)]:
+                                    (20, 4, 2, 4, 1024), (8, 4, 2, 5, 1024)]:
         err = ck.check_riccati_sweep(
             ck.stage_qp_inputs(nt, nx, nu, seed, batch, device=dev),
             torch.full(() if batch is None else (batch,), 1e-6, device=dev))
@@ -1186,6 +1203,421 @@ def riccati_flops(nt, nx, nu):
     return nt * per_stage
 
 
+#: the batched study, bench config 5 (bench.py:400-454): B rollouts, the
+#: online capacity, the horizon in steps, the solver budget, the steps of
+#: the long and the short timed run (the rate is B over the slope between
+#: them), the rollouts replayed on the CPU
+STUDY_B = 1024
+STUDY_CAPACITY = 128
+STUDY_NT = 8
+STUDY_BUDGET = dict(al_iters=1, max_iters=3, ls_steps=4)
+STUDY_STEPS = 12
+STUDY_SHORT = 4
+STUDY_REPLAY = (0, 1, 511, 1023)
+#: the study's setpoint (bench.py:432), not the main path's
+STUDY_XSP = np.array([12.4, 12.7, 1.8, 1.4])
+#: bound of the study replay's next-state difference, card vs CPU, per
+#: step and replayed rollout (max |diff| / (1 + |x|)): the first reading
+#: was 1.107e-4 (H100 80GB HBM3 at 700 W), the f32 line search's choices
+#: moving with the summation order as in the tank's replay
+STUDY_REPLAY_TOL = 1e-3
+#: bound of the fused variant's ensemble mean cost against the bench
+#: configuration's, relative: the two differ only in K1's and K2's f32
+#: rounding, which can flip a line-search choice (first reading 1.2e-7)
+STUDY_COST_RTOL = 1e-3
+
+
+def build_study(dev, fused):
+    """The batched study as bench.py builds it (bench config 5) on ``dev``,
+    f32: the pinned fixture GP, capacity 128, saturate, Nt=8, the al1 x mi3
+    x ls4 budget, the plant with clip_negative; with ``fused`` the KKT
+    sweep kernel (K1) and the fused plant (K2)."""
+    from benchmarks.bench_spec import DT, MODEL_R
+    from gpmpc_tpu_torch import Model
+    from gpmpc_tpu_torch.models.convert import gp_from_fixture
+    from gpmpc_tpu_torch.parallel import BatchedStudy
+    from gpmpc_tpu_torch.systems import four_tank_ode
+
+    model = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT, R=MODEL_R,
+                  clip_negative=True, integrator_substeps=10,
+                  fused_integrator=fused, device=dev, dtype=torch.float32)
+    gp = gp_from_fixture(device=dev, dtype=torch.float32,
+                         optimizer_opts=GP_OPTS)
+    opts = dict(STUDY_BUDGET, fused_kkt=True) if fused else STUDY_BUDGET
+    return BatchedStudy(model, gp, horizon=STUDY_NT * DT,
+                        Q=np.diag([10.0, 10.0, 0.1, 0.1]), R=0.01 * np.eye(2),
+                        ulb=[0.0, 0.0], uub=[8.0, 8.0],
+                        capacity=STUDY_CAPACITY, online_policy="saturate",
+                        solver_opts=opts)
+
+
+def study_inputs(study):
+    """x0s = (8, 9, 1, 1) + 0.5 U(0, 1) from a numpy generator seeded 0 (the
+    bench draws them with jax.random), and the process noise of
+    STUDY_STEPS steps from a torch generator on the study's device seeded
+    1: (B, 4) and (B, STUDY_STEPS, 4) on the device."""
+    rng = np.random.default_rng(0)
+    x0s = np.array([8.0, 9.0, 1.0, 1.0]) + 0.5 * rng.uniform(
+        size=(STUDY_B, 4))
+    gen = torch.Generator(device=study.device).manual_seed(1)
+    return (torch.tensor(x0s, dtype=torch.float32, device=study.device),
+            study.noise(STUDY_B, STUDY_STEPS, gen))
+
+
+def study_step_fn(study, x0s, noise):
+    """A callable that runs one vmapped control step of every rollout and
+    carries their state, for timing and profiling single steps."""
+    from torch.func import vmap
+    xsp = torch.as_tensor(STUDY_XSP, dtype=torch.float32,
+                          device=study.device)
+    warm = vmap(study._init_warm, in_dims=(0, None, None, None))(
+        x0s, study.post0, xsp, study.consts)
+    state = {"x": x0s, "warm": warm, "post": study.post0, "k": 0}
+
+    def step():
+        pdim = 0 if state["k"] else None
+        x, w, post, _, _ = vmap(study._step,
+                                in_dims=(0, 0, pdim, 0, None, None))(
+            state["x"], state["warm"], state["post"],
+            noise[:, state["k"] % STUDY_STEPS], xsp, study.consts)
+        state.update(x=x, warm=w, post=post, k=state["k"] + 1)
+
+    return step
+
+
+def study_timing(study, x0s, noise, card, tag):
+    """bench.py's rate: wall time of a STUDY_STEPS-step and a STUDY_SHORT-step
+    run (best of two), their slope per step, twice; B / the median slope.
+    Beside it the same slope from CUDA events (one run each).  Returns
+    (rollout solves per s, event ms per control step)."""
+    b = x0s.shape[0]
+
+    def run(n):
+        return study.run(x0s, STUDY_XSP, n, noise_ws=noise[:, :n]).cost
+
+    def wall(n, reps=2):
+        torch.cuda.synchronize()
+        best = np.inf
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            run(n)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    run(STUDY_SHORT)                                 # warm-up
+    span = STUDY_STEPS - STUDY_SHORT
+    slopes = [(wall(STUDY_STEPS) - wall(STUDY_SHORT)) / span
+              for _ in range(2)]
+    per_step = max(float(np.median(slopes)), 1e-9)
+    ev_ms = (cuda_time_ms(lambda: run(STUDY_STEPS), reps=1, warmup=0)
+             - cuda_time_ms(lambda: run(STUDY_SHORT), reps=1, warmup=0)) \
+        / span
+    rate = b / per_step
+    log(f"[study] ({tag}) study_rollout_solves_per_s {rate:.1f} (B={b} / "
+        f"median wall slope {per_step * 1e3:.3f} ms per control step, "
+        f"slopes {[round(v * 1e3, 3) for v in slopes]} ms); CUDA events "
+        f"{ev_ms:.3f} ms per control step on {card}")
+    return rate, ev_ms
+
+
+def study_replay(study, x0s, noise, dev):
+    """Per-step replay of STUDY_REPLAY's rollouts on the CPU in f32: drive
+    the STUDY_STEPS steps of all B rollouts on the card one vmapped step at
+    a time and, at each step, run the same step of the replayed rollouts on
+    the CPU from the card's state, warm start and posterior (the CPU study
+    takes the card's posterior and constants).  Returns the worst next-state
+    difference max |diff| / (1 + |x|) and its step."""
+    from torch.func import vmap
+    cpu = build_study(torch.device("cpu"), fused=False)
+    cpu.post0, cpu.consts = to_cpu(study.post0), to_cpu(study.consts)
+    idx = torch.tensor(STUDY_REPLAY, device=dev)
+    xsp = torch.as_tensor(STUDY_XSP, dtype=torch.float32, device=dev)
+    warm = vmap(study._init_warm, in_dims=(0, None, None, None))(
+        x0s, study.post0, xsp, study.consts)
+    x, post = x0s, study.post0
+    worst = (0.0, 0)
+
+    def pick(tree, batched):
+        if not batched:
+            return to_cpu(tree)
+        return type(tree)(*(t.index_select(0, idx).cpu() for t in tree))
+
+    for k in range(STUDY_STEPS):
+        pdim = 0 if k else None
+        args = (x.index_select(0, idx).cpu(), pick(warm, True),
+                pick(post, k > 0), noise[:, k].index_select(0, idx).cpu(),
+                xsp.cpu(), cpu.consts)
+        x, warm, post, _, _ = vmap(study._step, in_dims=(
+            0, 0, pdim, 0, None, None))(x, warm, post, noise[:, k], xsp,
+                                        study.consts)
+        x_c = vmap(cpu._step, in_dims=(0, 0, pdim, 0, None, None))(*args)[0]
+        x_g = x.index_select(0, idx).cpu()
+        if not bool(torch.all(torch.isfinite(x_g))):
+            raise AssertionError("non-finite state in the study replay")
+        rel = float(((x_g - x_c).abs() / (1.0 + x_c.abs())).max())
+        worst = max(worst, (rel, k))
+    torch.cuda.synchronize()
+    return worst
+
+
+#: bound of the card's conditioned posteriors against the CPU's on the
+#: same f32 inputs: count, x and y equal, inv_k and alpha within this
+#: fraction of their largest entry
+STUDY_CONDITION_TOL = 1e-3
+
+
+def gate_schur(post, norm, z):
+    """The novelty gate's Schur complement s = sf2 + sn2 - k*' invK k* of
+    every output dim at the raw inputs ``z`` (M, D) against the online
+    posterior ``post`` (online_gp.condition's first pass, for M points at
+    once), and the gate's threshold per dim: ((M, Ny), (Ny,))."""
+    zn = (z - norm.z_mean) / norm.z_std
+    live = torch.arange(post.x.shape[0], device=z.device) < post.count
+    ell, sf2 = torch.exp(post.log_ell), torch.exp(post.log_sf2)
+    s = []
+    for d in range(ell.shape[0]):
+        d2 = (((zn[:, None, :] - post.x[None]) / ell[d]) ** 2).sum(-1)
+        ks = torch.where(live, sf2[d] * torch.exp(-0.5 * d2), 0.0)
+        s.append(sf2[d] + post.sn2[d] - (ks * (ks @ post.inv_k[d])).sum(-1))
+    thr = torch.maximum(3.0 * post.sn2, 1e-6 * (sf2 + post.sn2))
+    return torch.stack(s, dim=-1), thr
+
+
+def study_gate_reading(study, res, card):
+    """Information: the novelty gate on the study's STUDY_STEPS x B
+    transitions, each against the initial posterior, in f32 on the card
+    and in f64 on the CPU (the fixture GP rebuilt in f64): the share each
+    precision would take and the largest gap between the two s."""
+    from gpmpc_tpu_torch.models.convert import gp_from_fixture
+    from gpmpc_tpu_torch.parallel import online_gp
+
+    z = torch.cat([res.x_traj[:, :-1], res.u_traj], dim=-1).reshape(-1, 6)
+    s32, thr = gate_schur(study.post0, study.norm, z)
+    gp64 = gp_from_fixture(device="cpu", dtype=torch.float64,
+                           optimizer_opts=GP_OPTS)
+    post64, norm64 = online_gp.from_gp(gp64, STUDY_CAPACITY)
+    s64, thr64 = gate_schur(post64, norm64, z.cpu().double())
+    take32 = float((s32 > thr).all(-1).double().mean())
+    take64 = float((s64 > thr64).all(-1).double().mean())
+    gap = (s32.cpu().double() - s64).abs().max(dim=0).values
+    log(f"[study] (a) novelty gate on the {z.shape[0]} transitions against "
+        f"the initial posterior: taken {100 * take32:.3f}% in f32 on the "
+        f"card, {100 * take64:.3f}% in f64 on the CPU; largest |s f32 - s "
+        f"f64| per output dim {[float(f'{v:.3e}') for v in gap]} against "
+        f"thresholds {[float(f'{v:.3e}') for v in thr64]} (information) on "
+        f"{card}")
+
+
+def study_condition_check(study, res, dev, card):
+    """Condition every rollout's posterior on the card on one novel
+    transition (the last state and input moved by (40, 40, 10, 10) and
+    (10, 10), several lengthscales off the data: the gate's Schur
+    complement is 4e2-3e3 times its threshold in f64, far above f32's
+    rounding; nearer points this smooth GP does not take, even in f64),
+    all B at once, and hold STUDY_REPLAY's rollouts against the same
+    conditioning on the CPU."""
+    from torch.func import vmap
+    from gpmpc_tpu_torch.parallel import online_gp
+
+    shift = torch.tensor([40.0, 40.0, 10.0, 10.0], device=dev)
+    z = torch.cat([res.x_traj[:, -1] + shift, res.u_traj[:, -1] + 10.0],
+                  dim=-1)
+    y = res.x_traj[:, -1] + shift
+
+    def cond(post, norm, zz, yy):
+        return online_gp.condition(post, norm, zz, yy,
+                                   kernel=study.kernel,
+                                   policy=study.online_policy,
+                                   mean_func=study.mean_func)
+
+    new = vmap(cond, in_dims=(0, None, 0, 0))(res.post, study.norm, z, y)
+    torch.cuda.synchronize()
+    idx = torch.tensor(STUDY_REPLAY, device=dev)
+    sub = type(res.post)(*(t.index_select(0, idx).cpu() for t in res.post))
+    cpu = vmap(cond, in_dims=(0, None, 0, 0))(
+        sub, to_cpu(study.norm), z.index_select(0, idx).cpu(),
+        y.index_select(0, idx).cpu())
+    got = type(new)(*(t.index_select(0, idx).cpu() for t in new))
+    rel = max(float((g - c).abs().max() / c.abs().max())
+              for g, c in ((got.inv_k, cpu.inv_k), (got.alpha, cpu.alpha)))
+    grown = bool(torch.all(new.count == res.post.count + 1))
+    same = (torch.equal(got.count, cpu.count) and torch.equal(got.x, cpu.x)
+            and torch.equal(got.y, cpu.y))
+    log(f"[study] (a) conditioning all {new.count.shape[0]} posteriors on "
+        f"the card on a novel transition: every count +1: {grown}; "
+        f"rollouts {list(STUDY_REPLAY)} against the CPU: count, x, y equal:"
+        f" {same}, inv_k and alpha within {rel:.3e} of their largest entry "
+        f"(bound {STUDY_CONDITION_TOL}) on {card}")
+    if not (grown and same and rel <= STUDY_CONDITION_TOL):
+        raise AssertionError("the study's conditioning on the card is off")
+
+
+def study_phase(ck, dev, card):
+    """Phase 14: the batched closed-loop study at full width (B=1024).
+    (a) bench config 5 as the JAX package runs it, no kernel (unfused
+    plant, sequential KKT): rate and ms per control step, finite values,
+    gp_points in [100, capacity] (the f32 novelty gate's decisions here
+    are rounding), every posterior conditioned on the card on a novel
+    transition and held against the CPU (study_condition_check), a
+    per-step CPU replay of four rollouts, a profile of three steps; (b) the
+    same study with ``fused_kkt`` and the fused plant: exact launch counts
+    (K1 once per inner SQP step, K2 once per control step, both batched
+    over the 1024 rollouts), ms per control step, a profile, its ensemble
+    mean cost within STUDY_COST_RTOL of (a)'s; (c) save_study/load_study on
+    the card (the loaded posterior bitwise the saved one) and a resumed
+    run.  Returns (b)'s launches and (a)'s result for phase 11's rows."""
+    from gpmpc_tpu_torch.parallel import load_study, save_study
+
+    # (a) the bench configuration
+    study = build_study(dev, fused=False)
+    x0s, noise = study_inputs(study)
+    rate_a, ms_a = study_timing(study, x0s, noise, card, "a: bench config, "
+                                "unfused plant, sequential KKT")
+    ck.reset_launches()
+    res_a = study.run(x0s, STUDY_XSP, STUDY_STEPS, noise_ws=noise)
+    torch.cuda.synchronize()
+    if any(ck.LAUNCHES.values()):
+        raise AssertionError(f"the unfused study launched kernels: "
+                             f"{ck.LAUNCHES}")
+    for name in ("x_traj", "u_traj", "cost", "obj"):
+        if not bool(torch.all(torch.isfinite(getattr(res_a, name)))):
+            raise AssertionError(f"non-finite study {name}")
+    pts = res_a.gp_points
+    log(f"[study] (a) {STUDY_STEPS} steps at B={STUDY_B}: mean cost "
+        f"{float(res_a.mean_cost):.4f}, gp_points min/mean/max "
+        f"{int(pts.min())}/{float(pts.float().mean()):.2f}/{int(pts.max())} "
+        f"(training set 100, capacity {STUDY_CAPACITY}); final state of "
+        f"rollout 0 {res_a.x_traj[0, -1].tolist()} on {card}")
+    # in f32 the novelty gate's decisions on this configuration's
+    # transitions are rounding: its Schur complement s = sf2 + sn2 - k*'w
+    # is a cancellation whose f32 error dwarfs the gate's 3 sn2
+    # (study_gate_reading), so the counts are only checked for range, and
+    # the conditioning itself on a transition the gate must take
+    if int(pts.min()) < 100 or int(pts.max()) > STUDY_CAPACITY:
+        raise AssertionError("gp_points out of [100, capacity]")
+    study_gate_reading(study, res_a, card)
+    study_condition_check(study, res_a, dev, card)
+    t0 = time.perf_counter()
+    worst, at = study_replay(study, x0s, noise, dev)
+    log(f"[study] (a) per-step replay of rollouts {list(STUDY_REPLAY)} on "
+        f"the CPU in f32 ({time.perf_counter() - t0:.1f} s): worst next-state"
+        f" max |diff|/(1+|x|) {worst:.3e} at step {at} (bound "
+        f"{STUDY_REPLAY_TOL}) on {card}")
+    if worst > STUDY_REPLAY_TOL:
+        raise AssertionError("CUDA and CPU study steps disagree")
+    prof_a = profile_steps(study_step_fn(study, x0s, noise), cpu_ops=False)
+    log(f"[profile] (a) per study step: {prof_a['kernels_per_step']:.0f} "
+        f"device kernels, {prof_a['device_ms_per_step']:.3f} ms device time,"
+        f" {prof_a['wall_ms_per_step']:.3f} ms wall under the profiler; "
+        f"device busy {100 * prof_a['busy_share']:.2f}% on {card}")
+    for name, count, us_ in prof_a["top"]:
+        log(f"[profile]   {name:60s} {count:6d} launches/3 steps "
+            f"{us_:9.1f} us/step")
+
+    # (b) the fused variant: K1 and K2 batched over the rollouts
+    fstudy = build_study(dev, fused=True)
+    _, ms_b = study_timing(fstudy, x0s, noise, card,
+                           "b: fused_kkt, fused plant")
+    ck.reset_launches()
+    res_b = fstudy.run(x0s, STUDY_XSP, STUDY_STEPS, noise_ws=noise)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    cfg = fstudy.sqp_cfg
+    expect = {"riccati_sweep": STUDY_STEPS * cfg.al_iters * cfg.max_iters,
+              "rk4_substeps": STUDY_STEPS, "se_ard_gram": 0, "cholesky": 0,
+              "gp_predict_batch": 0}
+    log(f"[study] (b) {STUDY_STEPS} steps at B={STUDY_B}: launches "
+        f"{launches}, expected {expect}; mean cost "
+        f"{float(res_b.mean_cost):.4f} against (a)'s "
+        f"{float(res_a.mean_cost):.4f} (relative difference "
+        f"{abs(float(res_b.mean_cost / res_a.mean_cost) - 1):.3e}, bound "
+        f"{STUDY_COST_RTOL}) on {card}")
+    if launches != expect:
+        raise AssertionError(f"study launch counts {launches} != {expect}")
+    if not bool(torch.all(torch.isfinite(res_b.x_traj))):
+        raise AssertionError("non-finite fused study")
+    if abs(float(res_b.mean_cost / res_a.mean_cost) - 1) > STUDY_COST_RTOL:
+        raise AssertionError("the fused study's mean cost is off (a)'s")
+    prof_b = profile_steps(study_step_fn(fstudy, x0s, noise), cpu_ops=False)
+    log(f"[profile] (b) per study step: {prof_b['kernels_per_step']:.0f} "
+        f"device kernels, {prof_b['device_ms_per_step']:.3f} ms device time,"
+        f" {prof_b['wall_ms_per_step']:.3f} ms wall under the profiler; "
+        f"device busy {100 * prof_b['busy_share']:.2f}% on {card}")
+
+    # (c) a checkpoint on the card, and a resumed run
+    path = str(ck.BUILD_DIR / "study_checkpoint.npz")
+    ck.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    save_study(path, res_b)
+    loaded = load_study(path, fstudy.post0)
+    same = all(torch.equal(a, b) for a, b in zip(loaded.post, res_b.post))
+    resumed = fstudy.run(res_b.x_traj[:, -1], STUDY_XSP, 2,
+                         noise_ws=noise[:, :2], init_post=loaded.post)
+    torch.cuda.synchronize()
+    ok = (same and bool(torch.all(torch.isfinite(resumed.x_traj)))
+          and bool(torch.all(resumed.gp_points >= loaded.gp_points)))
+    log(f"[study] (c) save_study/load_study on the card: loaded posterior "
+        f"bitwise the saved one: {same}; resumed 2 steps: finite, gp_points"
+        f" {int(resumed.gp_points.min())}..{int(resumed.gp_points.max())} "
+        f"on {card}")
+    os.remove(path)
+    if not ok:
+        raise AssertionError("the study checkpoint does not resume")
+    log(f"[study] study_rollout_solves_per_s {rate_a:.1f}; ms per control "
+        f"step (CUDA events) {ms_a:.3f} (a), {ms_b:.3f} (b); device busy "
+        f"{100 * prof_a['busy_share']:.2f}% (a), "
+        f"{100 * prof_b['busy_share']:.2f}% (b); launches {launches} on "
+        f"{card}")
+    return launches, res_a
+
+
+def study_kernel_rows(ck, dev, card, launches, res_a, sources):
+    """Phase 11's rows of the study's shapes: K1 at (B, Nt, nx, nu) =
+    (1024, 8, 4, 2) and K2 at B=1024 on (a)'s own states and inputs of step
+    5, each held against its plain version, timed (event ms over 200 calls,
+    device ms per launch), beside the plain version's time and the bound,
+    with the launches of phase 14 (b)."""
+    from benchmarks.bench_spec import DT
+    from gpmpc_tpu_torch.systems import four_tank_ode
+    rows = []
+    q = ck.stage_qp_inputs(STUDY_NT, 4, 2, 14, STUDY_B, device=dev)
+    reg = torch.full((STUDY_B,), 1e-6, device=dev)
+    err1 = ck.check_riccati_sweep(q, reg)
+    out = ck.riccati_sweep(*q, reg)
+    x = res_a.x_traj[:, 5].contiguous()
+    u = res_a.u_traj[:, 5].contiguous()
+    err2 = ck.check_rk4_substeps(four_tank_ode, x, u, DT / 10, 10)
+    y = ck.rk4_substeps(four_tank_ode, x, u, DT / 10, 10)
+    for name, kernel, fn, plain, b, err in (
+            ("riccati_sweep[study]", "riccati_sweep",
+             lambda: ck.riccati_sweep(*q, reg),
+             lambda: ck.riccati_sweep_reference(*q, reg),
+             bound(nbytes(*q, reg, *out),
+                   STUDY_B * riccati_flops(STUDY_NT, 4, 2)), err1),
+            ("rk4_substeps[study]", "rk4_substeps",
+             lambda: ck.rk4_substeps(four_tank_ode, x, u, DT / 10, 10),
+             lambda: ck.rk4_substeps_reference(four_tank_ode, x, u, DT / 10,
+                                               10),
+             bound(nbytes(x, u, y), STUDY_B * 10 * (4 * 22 + 52)), err2)):
+        ms = cuda_time_ms(fn, reps=200)
+        dev_ms, _, note = device_time_ms(fn)
+        plain_ms = cuda_time_ms(plain, reps=20)
+        log(f"[time] {name} (B={STUDY_B}"
+            f"{', Nt=8, nx=4, nu=2' if kernel == 'riccati_sweep' else ''}): "
+            f"kernel {ms:.4f} ms, device {fmt_ms(dev_ms)}{note} per launch, "
+            f"plain torch on the card {plain_ms:.4f} ms, bound {b[0]:.3e} ms "
+            f"({b[1]}); {launches[kernel]} launches in phase 14 (b); max|err|"
+            f" {err:.3e} on {card}")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"gpmpc_tpu_torch/csrc/{kernel}.cu",
+                     "replaces": f"gpmpc_tpu/ops/pallas_kernels.py:"
+                                 f"{sources[kernel]}",
+                     "launches": launches[kernel], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+                     "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+    return rows
+
+
 def kernel_times(ck, gc, four_tank_ode, dev, card):
     """Phase 11: each kernel's time beside its plain version's, the library
     call's (K5), its device time per launch (torch.profiler) and its
@@ -1671,6 +2103,24 @@ def k1_alone(other_src=None):
     return 0
 
 
+def study_alone():
+    """Phases 1-2 and 14, and phase 11's study rows, alone."""
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    card = card_line()
+    dev = torch.device("cuda")
+    log(f"[card] nvidia-smi: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    ck.build_library()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    launches, res = study_phase(ck, dev, card)
+    rows = study_kernel_rows(ck, dev, card, launches, res,
+                             {"riccati_sweep": 394, "rk4_substeps": 233})
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -1689,6 +2139,8 @@ def main(argv):
         return build_times()
     if "--k5-paths" in argv:
         return k5_paths()
+    if "--study" in argv:
+        return study_alone()
     if "--k1" in argv:
         i = argv.index("--k1") + 1
         return k1_alone(argv[i] if i < len(argv) else None)
@@ -1819,6 +2271,9 @@ def main(argv):
     car_launches = car_loop(ck, dev, card)
     car_val_launches = car_validation(ck, gc, dev, card)
 
+    # 14. the batched study
+    study_launches, study_res = study_phase(ck, dev, card)
+
     # 11. kernel times beside their bounds
     times = kernel_times(ck, gc, four_tank_ode, dev, card)
     car_times = car_kernel_times(ck, gc, dev, card)
@@ -1860,6 +2315,8 @@ def main(argv):
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "device_ms": r["dev"][0], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1], "library_ms": None})
+    rows += study_kernel_rows(ck, dev, card, study_launches, study_res,
+                              sources)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

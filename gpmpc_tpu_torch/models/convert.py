@@ -7,7 +7,9 @@ them, ``hypers_to_numpy`` gives them back from a port-trained GP (the JAX
 ``gp_from_fixture`` reads the pinned bench fixture
 (``benchmarks/bench_fixture.npz``) the way ``bench.py`` does.  Like the
 ``GP`` they make, both functions place it on the card unless ``device``
-says otherwise.
+says otherwise.  ``online_posterior_from_numpy`` carries a conditioned
+online posterior (``OnlinePosterior`` of either package) over by its
+leaves.
 """
 
 from __future__ import annotations
@@ -16,8 +18,13 @@ import os
 
 import numpy as np
 
+import torch
+
 from gpmpc_tpu_torch.models.gp import GP
 from gpmpc_tpu_torch.models.gp_core import GPHypers
+from gpmpc_tpu_torch.models.propagate import Normalization
+from gpmpc_tpu_torch.parallel.online_gp import OnlinePosterior
+from gpmpc_tpu_torch.utils.device import resolve_device
 
 #: the pinned bench model shared with the JAX package
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -57,3 +64,26 @@ def gp_from_fixture(path: str = FIXTURE, prefix: str = "tank", n=None, *,
                          f[f"{prefix}_log_ell"], f[f"{prefix}_log_sf2"],
                          f[f"{prefix}_log_sn2"], mean_func="zero",
                          device=device, dtype=dtype, **gp_kwargs)
+
+
+def online_posterior_from_numpy(leaves, norm, *, device=None, dtype=None):
+    """The port's ``(OnlinePosterior, Normalization)`` from an online
+    posterior's leaves as numpy arrays in the field order both packages
+    share (x, y, inv_k, alpha, count, log_ell, log_sf2, sn2, mean_w; a
+    leading batch dim allowed) and the normalization's four arrays
+    (z_mean, z_std, y_mean, y_std).  ``count`` stays int32; the rest take
+    ``dtype`` (default: their own).  On the card unless ``device`` says
+    otherwise."""
+    dev = resolve_device(device)
+    leaves = list(leaves)
+    if len(leaves) != len(OnlinePosterior._fields):
+        raise ValueError(f"expected {len(OnlinePosterior._fields)} leaves "
+                         f"{OnlinePosterior._fields}; got {len(leaves)}")
+
+    def t(a, dt=dtype):
+        return torch.tensor(np.asarray(a), dtype=dt, device=dev)
+
+    count = OnlinePosterior._fields.index("count")
+    post = OnlinePosterior(*(t(a, torch.int32) if i == count else t(a)
+                             for i, a in enumerate(leaves)))
+    return post, Normalization(*(t(a) for a in norm))

@@ -61,8 +61,18 @@ class GPPosterior(NamedTuple):
     x: torch.Tensor          # (N, D) training inputs (normalized)
     chol: torch.Tensor       # (Ny, N, N) lower Cholesky of K + sn2 I
     alpha: torch.Tensor      # (Ny, N) K^{-1} (y - m(X))
-    inv_k: torch.Tensor      # (Ny, N, N) explicit inverse (online GP, slice D)
+    inv_k: torch.Tensor      # (Ny, N, N) explicit inverse (EM, online GP)
     hypers: GPHypers
+
+
+class ExplicitInversePosterior(GPPosterior):
+    """A posterior known only by its explicit inverse: the online GP's
+    (``parallel/online_gp.py::as_gp_posterior``), whose bordered updates
+    keep K^-1 and no factor, so ``chol`` is None.  :func:`predict` takes
+    its variance as sf2 - k*' K^-1 k*, the JAX package's form; every other
+    posterior keeps the factor's form."""
+
+    __slots__ = ()
 
 
 def _noise_var(log_sn2: torch.Tensor, cfg: GPConfig) -> torch.Tensor:
@@ -275,17 +285,25 @@ def predict(post: GPPosterior, z: torch.Tensor, cfg: GPConfig
     1.2 along a closed-loop trajectory, most values clamped to zero), which
     the chance tightening turns into chattering inputs; the triangular
     solve carries only cond(L) = sqrt(cond(K)) (median relative error
-    1.4e-3).  In f64 the two forms agree to ~1e-12 of sf2."""
-    def one(log_ell, log_sf2, log_sn2, mean_w, alpha, chol):
+    1.4e-3).  In f64 the two forms agree to ~1e-12 of sf2.
+
+    An :class:`ExplicitInversePosterior` (the online GP) has no factor: its
+    variance is the explicit-inverse form, selected by its type."""
+    explicit = isinstance(post, ExplicitInversePosterior)
+
+    def one(log_ell, log_sf2, log_sn2, mean_w, alpha, mat):
         ks = kernel_cross(cfg.kernel, z[None, :], post.x, torch.exp(log_ell),
                           torch.exp(log_sf2))[0]                    # (N,)
         mu = mean_value(z, mean_w, cfg.mean_func) + torch.dot(ks, alpha)
-        v = tri_solve(chol, ks)                                     # L^-1 k*
-        var = torch.exp(log_sf2) - torch.dot(v, v)
+        if explicit:
+            var = torch.exp(log_sf2) - torch.dot(ks, mat @ ks)     # K^-1
+        else:
+            v = tri_solve(mat, ks)                                  # L^-1 k*
+            var = torch.exp(log_sf2) - torch.dot(v, v)
         if cfg.predict_includes_noise:
             var = var + _noise_var(log_sn2, cfg)
         return mu, torch.maximum(var, torch.zeros_like(var))
 
     h = post.hypers
     return vmap(one)(h.log_ell, h.log_sf2, h.log_sn2, h.mean_w,
-                     post.alpha, post.chol)
+                     post.alpha, post.inv_k if explicit else post.chol)

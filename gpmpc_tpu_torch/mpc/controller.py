@@ -7,7 +7,9 @@ saturating costs, the delta-u penalty ``S`` and hard rate bounds
 ``dulb``/``duub`` (by augmenting the state with the previous input, so the
 NLP stays stage-separable and the Riccati sweep still factors it), user
 inequality constraints with per-solve parameters (``con_par``), and the
-``gp | rk4 | exact | hybrid`` discretizations.
+``gp | rk4 | exact | hybrid`` discretizations, and online GP conditioning
+(``online_capacity``: the closed loop conditions the GP on every observed
+transition through :mod:`gpmpc_tpu_torch.parallel.online_gp`).
 
 Covariance handling is zero-order, as in the JAX package: Sigma_t is
 propagated along the current iterate between SQP passes and enters the NLP
@@ -18,7 +20,7 @@ Python loops here; nothing inside a solve reads a tensor on the host.
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): UT/GH propagation, soft constraints ``lam``/``lam_state``, the
 terminal constraint, reference trajectories (``x_sp`` other than one
-setpoint), the online GP, and ``solve_mc``.
+setpoint), and ``solve_mc``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from gpmpc_tpu_torch.models.dynamics import Model
 from gpmpc_tpu_torch.models.gp import GP, mean_fn_functional
 from gpmpc_tpu_torch.models.propagate import get_propagator
 from gpmpc_tpu_torch.mpc import costs as cost_lib
+from gpmpc_tpu_torch.parallel import online_gp
 from gpmpc_tpu_torch.solvers import al_sqp, riccati
 from gpmpc_tpu_torch.utils.config import (MPCOptions, SQPConfig,
                                           resolve_solver_opts)
@@ -134,6 +137,7 @@ class MPC:
                  include_noise_cov: bool = True,
                  cov_updates: int = 2,
                  online_capacity: Optional[int] = None,
+                 online_policy: str = "saturate",
                  device=None,
                  dtype=None):
         if lam is not None or lam_state is not None:
@@ -141,8 +145,6 @@ class MPC:
                         "ROADMAP slice F item 3")
         if terminal_constraint is not None:
             _not_ported("terminal_constraint", "ROADMAP slice F item 3")
-        if online_capacity is not None:
-            _not_ported("the online GP (online_capacity)", "ROADMAP slice D")
         dm = discrete_method.lower()
         if dm not in ("gp", "rk4", "exact", "hybrid"):
             raise ValueError(f"unknown discrete_method {discrete_method!r}")
@@ -295,6 +297,26 @@ class MPC:
             k_fb=self.K_fb, noise_cov=noise_cov, model_r=self.model.R,
             bd=self.Bd, post=gp.post if gp is not None else None,
             norm=gp.norm if gp is not None else None)
+
+        # online (adaptive) GP: with ``online_capacity`` the closed loop
+        # conditions the posterior on every observed transition; its solves
+        # see it through online_gp.as_gp_posterior, whose variance is the
+        # explicit-inverse form (the online posterior keeps no factor)
+        self.online_capacity = online_capacity
+        self.online_post = None
+        if online_capacity is not None:
+            if gp is None or dm not in ("gp", "hybrid"):
+                raise ValueError("online_capacity requires a GP-based "
+                                 "discrete_method")
+            if online_policy not in ("saturate", "fifo"):
+                raise ValueError("online_policy must be 'saturate' or "
+                                 f"'fifo'; got {online_policy!r}")
+            self.online_policy = online_policy
+            self.online_post0, _ = online_gp.from_gp(gp, online_capacity)
+            # hybrid: the GP models the residual Bd^+ (x+ - rk4(x, u)), so
+            # an observed transition is mapped into that space
+            self._bd_pinv = (torch.linalg.pinv(self.Bd) if dm == "hybrid"
+                             else None)
 
         self.options = MPCOptions(
             gp_method=self.gp_method, discrete_method=dm,
@@ -562,10 +584,12 @@ class MPC:
     # ------------------------------------------------------------ closed loop
 
     def _closed_loop(self, x0, ref_windows, u0_guess, con_pars, noise_w,
-                     consts, n_steps, noise):
+                     consts, n_steps, noise, opost=None):
         """The receding-horizon loop: solve, apply u0* to the plant, shift,
         repeat.  ``ref_windows`` is (n_steps, Nt+1, Nx), ``con_pars``
-        (n_steps, num_con_par)."""
+        (n_steps, num_con_par).  With an online posterior ``opost`` each
+        solve reads it and each observed transition conditions it; returns
+        it last."""
         kw = dict(dtype=self.dtype, device=self.device)
         u_prev = torch.zeros(self.Nu, **kw)
         warm = self._init_warm(self._augment_x0(x0, u_prev), ref_windows[0],
@@ -582,8 +606,11 @@ class MPC:
         x = x0
         xs, us, sig1s, infos = [], [], [], []
         for k in range(n_steps):
+            consts_k = (consts if opost is None else consts._replace(
+                post=online_gp.as_gp_posterior(opost)))
             warm, u_cmd, sigmas, info = self._solve_step(
-                warm, x, ref_windows[k], u_prev, sigma0, con_pars[k], consts)
+                warm, x, ref_windows[k], u_prev, sigma0, con_pars[k],
+                consts_k)
             # physical actuator saturation (box and rate window)
             u_cmd = self._saturate(u_cmd, u_prev, consts)
             x_next = self.model.integrate(x, u_cmd)
@@ -591,6 +618,16 @@ class MPC:
                 x_next = x_next + noise_w[k]
             if self.model.clip_negative:
                 x_next = torch.clamp(x_next, min=0.0)
+            if opost is not None:
+                # condition on the transition observed (noise included), in
+                # the GP's own space: the raw next state in gp mode, the
+                # model residual through Bd in hybrid mode
+                y_obs = (self._bd_pinv @ (x_next - self.model.rk4(x, u_cmd))
+                         if self._bd_pinv is not None else x_next)
+                opost = online_gp.condition(
+                    opost, consts.norm, torch.cat([x, u_cmd]), y_obs,
+                    kernel=self._gp_cfg.kernel, policy=self.online_policy,
+                    mean_func=self._gp_cfg.mean_func)
             xs.append(x)
             us.append(u_cmd)
             sig1s.append(sigmas[1, :self.Nx, :self.Nx])
@@ -598,7 +635,8 @@ class MPC:
             x, u_prev = x_next, u_cmd
         xs.append(x)
         info = StepInfo(*(torch.stack(v) for v in zip(*infos)))
-        return torch.stack(xs), torch.stack(us), torch.stack(sig1s), info
+        return (torch.stack(xs), torch.stack(us), torch.stack(sig1s), info,
+                opost)
 
     def _prep_ref_windows(self, x_sp, n_steps):
         """(Nx,) setpoint -> per-step preview windows (n_steps, Nt+1, Nx)."""
@@ -650,12 +688,15 @@ class MPC:
         elif noise:
             noise_w = self._tensor(noise_w)
 
+        opost = (self.online_post0 if self.online_capacity is not None
+                 else None)
         t_start = time.perf_counter()
-        xs, us, sig1s, infos = self._closed_loop(
+        xs, us, sig1s, infos, opost = self._closed_loop(
             x0, ref_windows, u0_guess, con_pars, noise_w, self.consts,
-            n_steps, noise)
+            n_steps, noise, opost)
         x_sim = xs.cpu().numpy()                      # waits for the device
         wall = time.perf_counter() - t_start
+        self.online_post = opost
         self._last_run = {
             "x_sim": x_sim, "u_sim": us.cpu().numpy(),
             "sigmas": sig1s.cpu().numpy(),
@@ -663,6 +704,7 @@ class MPC:
             "x_sp": ref_windows[:, 0, :].cpu().numpy(),
             "wall_time_total": wall,
             "wall_time_per_step": wall / max(n_steps, 1),
+            "gp_points": (int(opost.count) if opost is not None else None),
         }
         return xs, us
 

@@ -27,11 +27,16 @@ state in registers, its square roots by one MUFU.RSQ each and the main
 path's n_sub = 10 compiled in.  The source files say more.
 
 The wrappers: on a CPU tensor they run the plain version; on a CUDA tensor
-they launch the kernel or raise.  There is no fallback.  The shared library
+they launch the kernel or raise.  There is no fallback.  Under a
+``torch.func`` transform (the batched study's ``vmap`` over rollouts) a
+CUDA call goes through a custom operator (``gpmpc::riccati_sweep``,
+``gpmpc::rk4_substeps``) whose vmap rule launches the kernel once for the
+whole batch; on CPU tensors the plain versions vmap as they are.  The shared library
 is built with ``nvcc`` from ``csrc/*.cu`` at first use into the package's
 own ``build/`` directory (one compiler process per source, all at once,
 then one link; rebuilt when a source changes) and bound with ``ctypes``.
-``LAUNCHES`` counts kernel launches, one per wrapper call that launched.
+``LAUNCHES`` counts kernel launches, one per launch (a vmapped call of a
+whole batch is one).
 ``check_riccati_sweep`` and ``check_rk4_substeps`` hold a kernel against
 its plain version on the card, for the tests and the smoke script alike.
 """
@@ -235,17 +240,43 @@ def riccati_sweep_reference(a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx,
             torch.stack(gains, dim=-3), torch.stack(ffs, dim=-2), dec)
 
 
+def _functorch_wrapped(*tensors) -> bool:
+    """Whether any tensor is wrapped by a ``torch.func`` transform (a
+    ``vmap`` batch): then it has no ``data_ptr`` to hand to a kernel."""
+    return any(torch._C._functorch.is_functorch_wrapped_tensor(t)
+               for t in tensors)
+
+
+def _to_front(info, in_dims, args):
+    """The arguments of a vmapped custom operator with the vmapped dim in
+    front, unbatched ones expanded to the batch, all contiguous."""
+    return [(a.movedim(d, 0) if d is not None
+             else a.expand((info.batch_size,) + a.shape)).contiguous()
+            for a, d in zip(args, in_dims)]
+
+
 def riccati_sweep(a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x, dx0,
                   reg):
     """K1 wrapper: the plain version for CPU tensors, the CUDA kernel for
     CUDA tensors.  Same signature and outputs as
     :func:`riccati_sweep_reference`; on CUDA every argument, ``reg`` and
-    ``dx0`` included, must be a contiguous float32 tensor on the card."""
+    ``dx0`` included, must be a contiguous float32 tensor on the card.
+    Under ``torch.func.vmap`` on the card the call goes through the custom
+    operator ``gpmpc::riccati_sweep``, whose vmap rule makes one batched
+    launch for the whole batch."""
+    args = (a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x, dx0, reg)
     if a.device.type == "cpu":
-        return riccati_sweep_reference(a, b, c, q_xx, q_uu, q_xu, q_x, q_u,
-                                       qf_xx, qf_x, dx0, reg)
+        return riccati_sweep_reference(*args)
     if a.device.type != "cuda":
         raise ValueError(f"riccati_sweep: no kernel for device {a.device}")
+    if _functorch_wrapped(*args):
+        return tuple(riccati_sweep_op(*args))
+    return _riccati_sweep_launch(*args)
+
+
+def _riccati_sweep_launch(a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x,
+                          dx0, reg):
+    """Launch K1 on plain CUDA tensors (one problem, or a leading batch)."""
     batched = a.ndim == 4
     nt, nx, nu = b.shape[-3:]
     bsz = a.shape[0] if batched else 1
@@ -279,6 +310,31 @@ def riccati_sweep(a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x, dx0,
     return dx, du, gains, ffs, dec
 
 
+@torch.library.custom_op("gpmpc::riccati_sweep", mutates_args=())
+def riccati_sweep_op(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                     q_xx: torch.Tensor, q_uu: torch.Tensor,
+                     q_xu: torch.Tensor, q_x: torch.Tensor,
+                     q_u: torch.Tensor, qf_xx: torch.Tensor,
+                     qf_x: torch.Tensor, dx0: torch.Tensor,
+                     reg: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor, torch.Tensor]:
+    """K1 as a custom operator, the form :func:`riccati_sweep` takes under
+    ``torch.func.vmap`` on the card: the kernel for CUDA tensors, the plain
+    version for CPU tensors (where the vmap rule can be tested)."""
+    args = (a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x, dx0, reg)
+    if a.device.type == "cpu":
+        return tuple(t.clone() for t in riccati_sweep_reference(*args))
+    return _riccati_sweep_launch(*args)
+
+
+@riccati_sweep_op.register_vmap
+def _riccati_sweep_vmap(info, in_dims, *args):
+    """One call (one K1 launch on the card) for the whole batch: the
+    vmapped dim moved to the front, unbatched arguments expanded."""
+    return riccati_sweep_op(*_to_front(info, in_dims, args)), (0,) * 5
+
+
 # ----------------------------------------------------------------- K2: RK4
 
 def kernel_ode_id(ode):
@@ -303,7 +359,9 @@ def rk4_substeps(ode, x, u, h: float, n_sub: int):
     """K2 wrapper: the plain version for CPU tensors, the CUDA kernel for
     CUDA tensors.  x (nx,) or (B, nx), u (nu,) or (B, nu); on CUDA both
     contiguous float32 on the card and ``ode`` one with a compiled functor
-    (:data:`CUDA_ODES`)."""
+    (:data:`CUDA_ODES`).  Under ``torch.func.vmap`` on the card the call
+    goes through the custom operator ``gpmpc::rk4_substeps``, whose vmap
+    rule makes one batched launch."""
     if x.device.type == "cpu":
         return rk4_substeps_reference(ode, x, u, h, n_sub)
     if x.device.type != "cuda":
@@ -314,6 +372,13 @@ def rk4_substeps(ode, x, u, h: float, n_sub: int):
             f"rk4_substeps: no CUDA functor for ODE {ode!r}; the kernel "
             f"compiles its ODEs in (have {sorted(CUDA_ODES)}; the quadrotor "
             "ODE is ROADMAP slice F item 10)")
+    if _functorch_wrapped(x, u):
+        return rk4_substeps_op(x, u, spec[0], float(h), int(n_sub))
+    return _rk4_substeps_launch(spec, x, u, h, n_sub)
+
+
+def _rk4_substeps_launch(spec, x, u, h: float, n_sub: int):
+    """Launch K2 on plain CUDA tensors for the functor ``spec``."""
     ode_id, nx, nu = spec
     batched = x.ndim == 2
     bsz = x.shape[0] if batched else 1
@@ -329,6 +394,36 @@ def rk4_substeps(ode, x, u, h: float, n_sub: int):
     _raise_on_error("rk4_substeps", code)
     LAUNCHES["rk4_substeps"] += 1
     return out
+
+
+def _spec_of_id(ode_id: int):
+    """``(ode_id, nx, nu)`` and the ODE name of a compiled functor id."""
+    for name, spec in CUDA_ODES.items():
+        if spec[0] == ode_id:
+            return name, spec
+    raise ValueError(f"rk4_substeps: no functor with ode_id {ode_id}")
+
+
+@torch.library.custom_op("gpmpc::rk4_substeps", mutates_args=())
+def rk4_substeps_op(x: torch.Tensor, u: torch.Tensor, ode_id: int, h: float,
+                    n_sub: int) -> torch.Tensor:
+    """K2 as a custom operator over the compiled functor ``ode_id``, the
+    form :func:`rk4_substeps` takes under ``torch.func.vmap`` on the card:
+    the kernel for CUDA tensors, the plain version (the port's ODE of that
+    name) for CPU tensors."""
+    name, spec = _spec_of_id(ode_id)
+    if x.device.type == "cpu":
+        from gpmpc_tpu_torch import systems
+        return rk4_substeps_reference(getattr(systems, f"{name}_ode"),
+                                      x, u, h, n_sub).clone()
+    return _rk4_substeps_launch(spec, x, u, h, n_sub)
+
+
+@rk4_substeps_op.register_vmap
+def _rk4_substeps_vmap(info, in_dims, x, u, ode_id, h, n_sub):
+    """One call (one K2 launch on the card) for the whole batch."""
+    xb, ub = _to_front(info, in_dims[:2], (x, u))
+    return rk4_substeps_op(xb, ub, ode_id, h, n_sub), 0
 
 
 # ------------------------------------------ kernels against plain versions

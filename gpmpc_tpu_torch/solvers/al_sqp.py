@@ -165,7 +165,18 @@ def _merit(prob, state, params, mu, nu_pen, w_viol=0.0):
 #: left would be masked no-ops (the same iterate, bit for bit), and on the
 #: CPU no device waits on the host.  False runs the card's masked budget on
 #: the CPU too (tests hold the two equal, and the masked loop against JAX).
+#: A batch of problems under ``torch.func.vmap`` (the batched study) always
+#: runs the masked budget: each problem is done at its own step.
 CPU_EARLY_EXIT = True
+
+
+def _exit_early(done: torch.Tensor) -> bool:
+    """Whether the inner loop may leave now: a plain CPU flag that is set
+    (never a tensor under a ``torch.func`` transform, whose value differs
+    from problem to problem)."""
+    return (CPU_EARLY_EXIT and done.device.type == "cpu"
+            and not torch._C._functorch.is_functorch_wrapped_tensor(done)
+            and bool(done))
 
 
 def _in_dtype(dtype, *ts):
@@ -328,7 +339,7 @@ def solve(prob: TrajectoryProblem, params: Any, init: SolverState,
             nu_p = torch.where(active, nu_n, nu_p)
             iters = iters + active.to(torch.int32)
             done = done | done_n
-            if CPU_EARLY_EXIT and device.type == "cpu" and bool(done):
+            if _exit_early(done):
                 break
 
         # multiplier update: lam <- max(0, lam + mu g)

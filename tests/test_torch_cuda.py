@@ -412,3 +412,79 @@ def test_training_and_validation_on_the_card_count_their_launches(dev):
                                    verbose=False)
     assert ck.LAUNCHES["gp_predict_batch"] == 1
     assert np.all(np.isfinite(mnlp)) and np.all(smse < 0.1)
+
+
+def _study(dev, fused, b):
+    """Bench config 5's study (the fixture GP, capacity 128, Nt=8, the
+    al1 x mi3 x ls4 budget) on the card, f32; with ``fused`` the KKT sweep
+    kernel and the fused plant.  Returns the study, x0s and 2 steps of
+    noise."""
+    from benchmarks.bench_spec import DT, MODEL_R
+    from gpmpc_tpu_torch import Model
+    from gpmpc_tpu_torch.models.convert import gp_from_fixture
+    from gpmpc_tpu_torch.parallel import BatchedStudy
+
+    model = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT, R=MODEL_R,
+                  clip_negative=True, integrator_substeps=10,
+                  fused_integrator=fused, device=dev)
+    gp = gp_from_fixture(device=dev, optimizer_opts=dict(jitter=1e-5,
+                                                         min_noise=1e-4))
+    budget = dict(al_iters=1, max_iters=3, ls_steps=4, fused_kkt=fused)
+    study = BatchedStudy(model, gp, horizon=8 * DT,
+                         Q=np.diag([10.0, 10.0, 0.1, 0.1]),
+                         R=0.01 * np.eye(2), ulb=[0.0, 0.0], uub=[8.0, 8.0],
+                         capacity=128, solver_opts=budget)
+    rng = np.random.default_rng(0)
+    x0s = np.array([8.0, 9.0, 1.0, 1.0]) + 0.5 * rng.uniform(size=(b, 4))
+    noise = 0.01 * rng.standard_normal((b, 2, 4))
+    return study, x0s, noise
+
+
+#: the study's setpoint (bench.py:432)
+XSP = np.array([12.4, 12.7, 1.8, 1.4])
+
+
+def test_study_step_on_the_card_batches_its_kernels(dev):
+    """One study step at B=64 with ``fused_kkt`` and the fused plant: one
+    K1 launch per inner SQP step (3) and one K2 launch for all 64 rollouts,
+    and the next states within 1e-3 (relative to 1 + |x|) of the same step
+    with the plain batched KKT sweep and plant (f32 rounding of the kernels
+    can flip a line-search choice); the second step too."""
+    fused, x0s, noise = _study(dev, True, 64)
+    plain, _, _ = _study(dev, False, 64)
+    ck.reset_launches()
+    got = fused.run(x0s, XSP, 1, noise_ws=noise[:, :1])
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"riccati_sweep": 3, "rk4_substeps": 1,
+                           "se_ard_gram": 0, "cholesky": 0,
+                           "gp_predict_batch": 0}
+    ref = plain.run(x0s, XSP, 1, noise_ws=noise[:, :1])
+    assert ck.LAUNCHES["riccati_sweep"] == 3
+    x, r = got.x_traj[:, -1].cpu(), ref.x_traj[:, -1].cpu()
+    assert bool(torch.all((x - r).abs() <= 1e-3 * (1.0 + r.abs())))
+    two = fused.run(x0s, XSP, 2, noise_ws=noise)
+    assert ck.LAUNCHES["riccati_sweep"] == 3 + 6
+    assert ck.LAUNCHES["rk4_substeps"] == 1 + 2
+    assert bool(torch.all(torch.isfinite(two.x_traj)))
+
+
+def test_riccati_vmap_rule_launches_once_on_the_card(dev):
+    """The K1 wrapper under ``torch.func.vmap`` on CUDA tensors: one launch
+    for the batch of 16 (the vmap rule of ``gpmpc::riccati_sweep``), equal
+    to the kernel's batched call; K2 the same."""
+    from torch.func import vmap
+    args = ck.stage_qp_inputs(8, 4, 2, 3, batch=16, device=dev)
+    reg = torch.full((16,), 1e-6, device=dev)
+    ck.reset_launches()
+    got = vmap(ck.riccati_sweep, in_dims=(0,) * 10 + (None, 0))(
+        *args[:10], args[10][0], reg)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["riccati_sweep"] == 1
+    ref = ck.riccati_sweep(*args[:10], args[10][0].expand(16, 4)
+                           .contiguous(), reg)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    x, u = ck.rk4_inputs(16, 3, dev)
+    y = vmap(lambda a, b: ck.rk4_substeps(four_tank_ode, a, b, 0.3, 10))(x, u)
+    assert ck.LAUNCHES["rk4_substeps"] == 1
+    assert torch.equal(y, ck.rk4_substeps(four_tank_ode, x, u, 0.3, 10))

@@ -96,15 +96,20 @@ def test_closed_loop_explicit_noise_matches_jax_x64():
 
 def test_unported_options_raise():
     """Every option still unported raises and names its ROADMAP item: soft
-    constraints, the terminal constraint, the online GP, UT/GH
-    propagation, solve_mc and reference windows."""
+    constraints, the terminal constraint, UT/GH propagation, solve_mc and
+    reference windows.  The online GP is ported (slice D): its capacity
+    is checked against the training set instead."""
     m = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT, device="cpu")
     g = gp_from_fixture(n=10, device="cpu")
     for kw in (dict(lam=1.0), dict(lam_state=1.0),
-               dict(terminal_constraint=1.0), dict(online_capacity=5),
+               dict(terminal_constraint=1.0),
                dict(gp_method="UT"), dict(gp_method="GH")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MPC(horizon=3 * DT, model=m, gp=g, device="cpu", **kw)
+    with pytest.raises(ValueError, match="capacity 5 < training size 10"):
+        MPC(horizon=3 * DT, model=m, gp=g, device="cpu", online_capacity=5)
+    assert MPC(horizon=3 * DT, model=m, gp=g, device="cpu",
+               online_capacity=16).online_post0.inv_k.shape == (4, 16, 16)
     mpc = MPC(horizon=3 * DT, model=m, gp=g, feedback=False, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mpc.solve_mc(X0, DT, XSP, 2)

@@ -16,9 +16,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_pulls_in_no_jax():
     """The port imports torch and never jax or gpmpc_tpu (whose __init__
-    imports jax)."""
+    imports jax), the batched study's package included."""
     code = (
         "import sys, pkgutil, importlib, gpmpc_tpu_torch\n"
+        "import gpmpc_tpu_torch.parallel\n"
+        "from gpmpc_tpu_torch.parallel import BatchedStudy, online_gp\n"
+        "assert 'gpmpc_tpu_torch.parallel.batched' in sys.modules\n"
         "for m in pkgutil.walk_packages(gpmpc_tpu_torch.__path__, "
         "'gpmpc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
