@@ -93,8 +93,26 @@ script exits non-zero before its last line):
      step and K2 1, each for all 1024 rollouts, its mean cost within
      STUDY_COST_RTOL of (a)'s; (c) save_study, load_study (bitwise) and a
      resumed run on the card.
-Phases 12-14 run before phase 11, whose JSON rows carry their launch
-counts (K1 at (1024, 8, 4, 2) and K2 at B=1024 get rows of their own).
+ 15. slice F, part 1, at the main path's full width (the fixture GP,
+     Nt=20, percentile 0.95, feedback, cov_updates=1, RTI, the fused
+     plant, f32): (a) UT and (b) GH at order 3 (the 729-point tensor
+     grid), each a 30-step closed loop from X0: launch counts exact (K3
+     once per stage per covariance pass, K1 4 and K2 1 a step), finite,
+     at the setpoint, the first four steps replayed on the CPU, the last
+     step's stage 5 propagated on the card with no host sync and held
+     against the CPU, K3 on its sigma points against its plain version,
+     ms per step by CUDA events and a three-step profile beside the TA
+     step's; (c) cubature5 at D = 8 (numpy-seeded GP, N = 100, Ny = 6) on
+     the card with no host sync against the CPU in f64, Sigma_y PSD; (d)
+     the Matérn-5/2 and -3/2 fits with the fixture's recipe: one K5 and no
+     K4 per evaluation, three K5 per posterior, each dim's NLL (f64, CPU)
+     within 0.1 of the port's f64 CPU fit; (e) a 30-step Matérn-5/2 TA
+     loop with the card-fitted GP; (f) a 10-step loop with soft state
+     boxes, lam with the terminal constraint (an empty terminal block) and
+     an (M, Nx) ramp reference, every step replayed on the CPU.
+Phases 12-15 run before phase 11, whose JSON rows carry their launch
+counts (K1 at (1024, 8, 4, 2) and K2 at B=1024 get rows of their own, as
+do K3 at the UT and GH sigma points and K5 under the Matérn-5/2 fit).
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with the kernels' rows, and {"ok": true, "device": {...}}.
 
@@ -120,7 +138,8 @@ repository K2's chain in SM cycles;
 ``python3 chip_smoke.py --k1 [OTHER_SRC]`` runs phase 3's K1 and K2 checks
 and phase 11's K1 lines alone, and with OTHER_SRC is ``--compare k1``;
 ``python3 chip_smoke.py --study`` runs phases 1-2 and 14 and the study's
-kernel rows alone;
+kernel rows alone; ``python3 chip_smoke.py --slice-f`` phases 1-2 and 15
+and their kernel rows;
 ``python3 chip_smoke.py --build-times`` times the kernels' build, one
 ``nvcc`` over all sources against one per source at once.
 The script imports no JAX.
@@ -363,22 +382,24 @@ def build_plant(dev):
                  fused_integrator=True, device=dev, dtype=torch.float32)
 
 
-def build_slice(dev, solver_opts, gp=None):
+def build_slice(dev, solver_opts, gp=None, gp_method="TA", **mpc_kw):
     """The main path's controller, with the pinned fixture GP unless ``gp``
-    is given."""
+    is given, propagating by ``gp_method``; ``mpc_kw`` adds MPC options
+    (phase 15's soft and terminal constraints)."""
     from benchmarks.bench_spec import NT, Q_W, R_W, ULB, UUB, XLB, XSP, XUB
     from gpmpc_tpu_torch import MPC
     from gpmpc_tpu_torch.models.convert import gp_from_fixture
 
     model = build_plant(dev)
     if gp is None:
-        gp = gp_from_fixture(device=dev, dtype=torch.float32, gp_method="TA",
-                             optimizer_opts=GP_OPTS)
-    return MPC(horizon=NT * model.dt, model=model, gp=gp, gp_method="TA",
-               discrete_method="gp", Q=Q_W, R=R_W, ulb=ULB, uub=UUB,
-               xlb=XLB, xub=XUB, percentile=0.95, feedback=True,
-               cov_updates=1, op_x=XSP, op_u=np.array([3.0, 3.0]),
-               solver_opts=solver_opts, device=dev)
+        gp = gp_from_fixture(device=dev, dtype=torch.float32,
+                             gp_method=gp_method, optimizer_opts=GP_OPTS)
+    return MPC(horizon=NT * model.dt, model=model, gp=gp,
+               gp_method=gp_method, discrete_method="gp", Q=Q_W, R=R_W,
+               ulb=ULB, uub=UUB, xlb=XLB, xub=XUB, percentile=0.95,
+               feedback=True, cov_updates=1, op_x=XSP,
+               op_u=np.array([3.0, 3.0]), solver_opts=solver_opts,
+               device=dev, **mpc_kw)
 
 
 def to_cpu(v):
@@ -779,10 +800,10 @@ def k5_path(gc, n):
     return "one-block" if n <= gc.CHOL_ONE_BLOCK_MAX_N else "blocked"
 
 
-def fixture_nll_f64(hyper):
-    """NLL per dim of the log hypers ``(log_ell, log_sf2, log_sn2)`` on the
-    fixture's normalized training set, in f64 on the CPU through the plain
-    versions."""
+def fixture_nll_f64(hyper, kernel="se"):
+    """NLL per dim of the log hypers ``(log_ell, log_sf2, log_sn2)`` of the
+    ``kernel`` family on the fixture's normalized training set, in f64 on
+    the CPU through the plain versions."""
     from gpmpc_tpu_torch.models import gp_core
     from gpmpc_tpu_torch.models.convert import FIXTURE
     from gpmpc_tpu_torch.utils.config import GPConfig
@@ -795,7 +816,8 @@ def fixture_nll_f64(hyper):
     h = [torch.as_tensor(np.asarray(v.cpu() if torch.is_tensor(v) else v),
                          **f64) for v in hyper]
     return gp_core.nll_batch(*h, torch.zeros((4, 0), **f64), xn, yn.mT,
-                             GPConfig(**GP_OPTS), "zero").numpy()
+                             GPConfig(kernel=kernel, **GP_OPTS),
+                             "zero").numpy()
 
 
 def train_on_card(ck, dev, name, recipe):
@@ -906,12 +928,12 @@ def car_metric(xs):
 class StepRecorder:
     """Wraps a controller's ``_solve_step`` while ``MPC.solve`` runs: keeps
     each loop step's inputs (warm start, state, last input, constraint
-    parameters), the last step's output state, and a CUDA event at the
-    start of each step.  The cold-start preparation (which
-    passes ``cfg``) is not recorded."""
+    parameters; its reference window in ``refs``), the last step's output
+    state, and a CUDA event at the start of each step.  The cold-start
+    preparation (which passes ``cfg``) is not recorded."""
 
     def __init__(self, mpc):
-        self.calls, self.events, self.last = [], [], None
+        self.calls, self.refs, self.events, self.last = [], [], [], None
         inner = mpc._solve_step
 
         def solve_step(warm, x0, x_sp, u_prev, sigma0, con_par, consts,
@@ -921,6 +943,7 @@ class StepRecorder:
                 ev.record()
                 self.events.append(ev)
                 self.calls.append((warm, x0, u_prev, con_par))
+                self.refs.append(x_sp)
             out = inner(warm, x0, x_sp, u_prev, sigma0, con_par, consts,
                         cfg=cfg)
             if cfg is None:
@@ -1618,6 +1641,483 @@ def study_kernel_rows(ck, dev, card, launches, res_a, sources):
     return rows
 
 
+# ------------------------------------------------------------------ phase 15
+
+#: phase 15 (slice F, part 1): the steps of the UT, GH and Matérn closed
+#: loops and how many of the first are replayed on the CPU, the soft and
+#: terminal constraints' loop (every step replayed), the stage of the last
+#: step whose propagation is held card against CPU, and the cubature5 GP
+#: (numpy-seeded, the quadrotor's hybrid input and output widths D = 8,
+#: Ny = 6 at the fixture's N = 100)
+F_STEPS = 30
+F_REPLAY = 4
+F_SOFT_STEPS = 10
+F_STAGE = 5
+CUB_N, CUB_D, CUB_NY = 100, 8, 6
+#: phase 15 (f)'s options: the state boxes and the terminal constraint
+#: softened, ||x_N - x_ref||^2 <= 4 as a penalty (no terminal AL row)
+F_SOFT = dict(lam_state=1e3, lam=100.0, terminal_constraint=4.0)
+#: bounds of a propagation's outputs on the card against the same
+#: propagation on the CPU, relative to each output's largest entry: mu_y
+#: within K3's mean tolerance (2e-4); Sigma_y and C within 1e-2, since
+#: they are weighted sums of the points' deviations mus - mu_y, ~0.1 of
+#: mus, which carry K3's errors ~10x (first reading 1.1e-3 and 1.8e-3 at
+#: a UT stage, H100 80GB HBM3 at 700 W; a wrong point, weight or root is
+#: off by O(1))
+F_PROP_TOL = (2e-4, 1e-2, 1e-2)
+
+
+def replay_steps(mpc, rec, xs, steps, build):
+    """Per-step check of a loop on the card against the CPU, as
+    :func:`replay_against_cpu` bounds it: at each of ``steps``, solve the
+    step on the CPU (``build(cpu)``'s controller with the card's constants)
+    from the card's recorded state, warm start, last input and reference
+    window, step the CPU plant, and hold the card's next state within
+    rtol 1e-2 in the transient (the first TRANSIENT_STEPS) and 1e-3
+    after.  Returns the worst (transient, tracking) differences."""
+    from gpmpc_tpu_torch.solvers.al_sqp import SolverState
+    cpu = build(torch.device("cpu"))
+    cpu.consts = to_cpu(mpc.consts)
+    worst = [0.0, 0.0]
+    for k in steps:
+        warm, x, u_prev, _ = rec.calls[k]
+        u_c, _, _, _ = cpu.solve_step(
+            x.cpu(), rec.refs[k].cpu(),
+            warm=SolverState(*(t.cpu() for t in warm)), u_prev=u_prev.cpu())
+        x_c = cpu.model.integrate(x.cpu(), u_c).clamp(min=0.0)
+        rel = float((torch.as_tensor(xs[k + 1]) - x_c).abs().div(
+            x_c.abs()).max())
+        phase = int(k >= TRANSIENT_STEPS)
+        worst[phase] = max(worst[phase], rel)
+    if worst[0] > 1e-2 or worst[1] > 1e-3:
+        raise AssertionError(f"card and CPU steps disagree: {worst}")
+    return worst
+
+
+def rti_step_fn(mpc, x, u, warm):
+    """One RTI control step of ``mpc`` (solve_step + plant step) from
+    state ``x``, last input ``u`` and warm start ``warm``; each call
+    advances them."""
+    from benchmarks.bench_spec import XSP
+    dev = mpc.device
+    state = {"x": torch.as_tensor(x, device=dev), "warm": warm,
+             "u": torch.as_tensor(u, device=dev)}
+
+    def step():
+        u_, w, _, _ = mpc.solve_step(state["x"], XSP, warm=state["warm"],
+                                     u_prev=state["u"])
+        state.update(u=u_, warm=w, x=mpc.model.integrate(state["x"], u_))
+
+    return step
+
+
+def step_numbers(step, card, tag):
+    """ms per control step by CUDA events over 10 steps after 3 of warm-up
+    (as phase 6 times the TA step), and a torch.profiler trace of three
+    steps, device activity only (the same for every scheme compared)."""
+    ms = cuda_time_ms(step, reps=10)
+    prof = profile_steps(step, cpu_ops=False)
+    log(f"[slice F] {tag} RTI control step: {ms:.3f} ms/step (CUDA events,"
+        f" 10 steps after 3); profile (device activity only): "
+        f"{prof['kernels_per_step']:.0f} device kernels, "
+        f"{prof['device_ms_per_step']:.3f} ms device time, "
+        f"{prof['wall_ms_per_step']:.3f} ms wall a step; device busy "
+        f"{100 * prof['busy_share']:.2f}% on {card}")
+    return ms, prof
+
+
+def k3_row(gc, args, launches, err, card, name):
+    """K3's JSON row at ``args``: event ms over 200 calls, device ms per
+    launch, the plain version's ms and the bound."""
+    ny, b, n, d = (args[2].shape[0], args[0].shape[0], args[1].shape[0],
+                   args[0].shape[1])
+    mu, ks = gc.gp_predict_batch(*args)
+    ms = cuda_time_ms(lambda: gc.gp_predict_batch(*args), reps=200)
+    dev_ms, _, note = device_time_ms(lambda: gc.gp_predict_batch(*args))
+    plain = cuda_time_ms(lambda: gc.gp_predict_batch_reference(*args),
+                         reps=50)
+    bd = bound(nbytes(*args, mu, ks), ny * b * n * (3 * d + 5))
+    log(f"[time] gp_predict_batch[{name}] (Ny,B,N,D)=({ny},{b},{n},{d}) on "
+        f"the loop's sigma points: kernel {ms:.4f} ms, device "
+        f"{fmt_ms(dev_ms)}{note} per launch, plain torch on the card "
+        f"{plain:.4f} ms, bound {bd[0]:.3e} ms ({bd[1]}); {launches} "
+        f"launches in the loop; max|err| k* {err:.3e} on {card}")
+    return {"name": f"gp_predict_batch[{name}]", "route": "cuda",
+            "source": "gpmpc_tpu_torch/csrc/gp_predict_batch.cu",
+            "replaces": "gpmpc_tpu/ops/pallas_kernels.py:459",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "device_ms": dev_ms, "bound_ms": bd[0],
+            "bound_by": bd[1], "library_ms": None}
+
+
+def sigma_point_loop(ck, gc, dev, card, method):
+    """Phase 15 (a) UT and (b) GH (order 3: the 3^6 = 729-point tensor
+    grid): the main path with ``method`` propagation, an F_STEPS-step
+    closed loop from X0 through MPC.solve.  Exact launch counts (K1
+    al_iters x max_iters and K2 once a step, K3 once per stage per
+    covariance pass of every solve, the cold start's included); finite,
+    the tracked tanks at their setpoint; the first F_REPLAY steps replayed
+    on the CPU; the last step's stage F_STAGE propagated on the card (no
+    host sync, under torch.cuda.set_sync_debug_mode("error")) and on the
+    CPU from the same inputs, within F_PROP_TOL; K3 on that stage's sigma
+    points against its plain version.  Returns the K3 row, ms per step and
+    the profile."""
+    from benchmarks.bench_spec import DT, X0, XSP
+    mpc = build_slice(dev, RTI, gp_method=method)
+    rec = StepRecorder(mpc)
+    props = []
+    inner = mpc._propagator
+
+    def prop(post, norm, cfg, z, sigma_z):
+        props.append((z, sigma_z))
+        return inner(post, norm, cfg, z, sigma_z)
+
+    mpc._propagator = prop
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    xs, us = mpc.solve(X0, F_STEPS * DT, XSP, noise=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mpc._propagator = inner
+    launches = dict(ck.LAUNCHES)
+    cfg, init = mpc.sqp_cfg, mpc.init_sqp_cfg
+    per_solve = max(mpc.cov_updates, 1) * mpc.Nt      # K3: once a stage
+    solves = F_STEPS + int(init != cfg)               # + the cold start
+    expect = {"riccati_sweep": F_STEPS * cfg.al_iters * cfg.max_iters
+              + (init.al_iters * init.max_iters if init.fused_kkt and
+                 init != cfg else 0),
+              "rk4_substeps": F_STEPS, "se_ard_gram": 0, "cholesky": 0,
+              "gp_predict_batch": solves * per_solve}
+    log(f"[slice F] ({method}) {F_STEPS}-step closed loop (fixture GP, "
+        f"{method}, Nt={mpc.Nt}, RTI, fused plant, f32): {wall:.3f} s "
+        f"(cold start included); launches {launches}, expected {expect} "
+        f"(K3 {per_solve} per control step: {mpc.Nt} stages x "
+        f"{max(mpc.cov_updates, 1)} covariance pass; {solves} solves)")
+    if launches != expect:
+        raise AssertionError(f"{method} launch counts {launches} != "
+                             f"{expect}")
+    if len(props) != solves * per_solve:
+        raise AssertionError(f"{len(props)} propagations, expected "
+                             f"{solves * per_solve}")
+    xs, us = xs.cpu().numpy(), us.cpu().numpy()
+    if not (np.all(np.isfinite(xs)) and np.all(np.isfinite(us))
+            and np.all(np.isfinite(mpc.last_run["sigmas"]))):
+        raise AssertionError(f"non-finite {method} closed loop")
+    miss = float(np.abs(xs[-1, :2] - XSP[:2]).max())
+    ev = rec.events
+    step_ms = [ev[k].elapsed_time(ev[k + 1]) for k in range(4, len(ev) - 1)]
+    log(f"[slice F] ({method}) final state {xs[-1].tolist()}, "
+        f"{miss:.4f} from the setpoint of the tracked tanks (<= 0.5); "
+        f"converged {int(mpc.last_run['converged'].sum())}/{F_STEPS}; loop "
+        f"step by CUDA events between step starts 4..{len(ev) - 1}: mean "
+        f"{np.mean(step_ms):.3f} ms, median {np.median(step_ms):.3f} ms on "
+        f"{card}")
+    if miss > 0.5:
+        raise AssertionError(f"the {method} loop misses the setpoint")
+    t0 = time.perf_counter()
+    worst = replay_steps(mpc, rec, xs, range(F_REPLAY),
+                         lambda d: build_slice(d, RTI, gp_method=method))
+    log(f"[slice F] ({method}) steps 0-{F_REPLAY - 1} replayed on the CPU "
+        f"({time.perf_counter() - t0:.1f} s): max relative next-state "
+        f"difference {worst[0]:.3e} (rtol 1e-2, the transient)")
+    # the last step's stage F_STAGE: card (no host sync) against the CPU
+    z, sigma_z = props[-per_solve + F_STAGE]
+    c0 = mpc.consts
+    k3_args = []
+    kernel = gc.gp_predict_batch
+
+    def recorded(*args):
+        k3_args.append(args)
+        return kernel(*args)
+
+    gc.gp_predict_batch = recorded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = inner(c0.post, c0.norm, mpc._gp_cfg, z, sigma_z)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        gc.gp_predict_batch = kernel
+    torch.cuda.synchronize()
+    ref = inner(to_cpu(c0.post), to_cpu(c0.norm), mpc._gp_cfg, z.cpu(),
+                sigma_z.cpu())
+    gaps = [float((o.cpu() - r).abs().max() / r.abs().max())
+            for o, r in zip(out, ref)]
+    log(f"[slice F] ({method}) stage {F_STAGE} of the last step, propagated"
+        f" on the card with no host sync (set_sync_debug_mode('error')) and"
+        f" on the CPU: max |diff| / max |ref| mu {gaps[0]:.3e}, Sigma_y "
+        f"{gaps[1]:.3e}, C {gaps[2]:.3e} (<= {F_PROP_TOL}); K3 launches in "
+        f"it {len(k3_args)}")
+    if len(k3_args) != 1 or any(g > t for g, t in zip(gaps, F_PROP_TOL)):
+        raise AssertionError(f"the {method} propagation on the card is off "
+                             f"the CPU's")
+    err = gc.check_gp_predict_batch(*k3_args[0])
+    row = k3_row(gc, k3_args[0], launches["gp_predict_batch"], err, card,
+                 method.lower())
+    ms, prof = step_numbers(rti_step_fn(mpc, xs[-1], us[-1], rec.last), card,
+                            method)
+    return row, ms, prof
+
+
+def cubature5_check(ck, dev, card):
+    """Phase 15 (c): propagate_gh with the cubature5 rule at D = 8 on a GP
+    made by gp_from_numpy from numpy-seeded data (N = 100, Ny = 6), on the
+    card under torch.cuda.set_sync_debug_mode("error") (its PSD floor is
+    fixed Jacobi sweeps: no host sync), one K3 launch, against the port in
+    f64 on the CPU within F_PROP_TOL, Sigma_y PSD.  For information, how
+    many host syncs torch.linalg.eigh makes on the same Sigma_y (the JAX
+    package floors with eigh)."""
+    import warnings
+    from gpmpc_tpu_torch.models.convert import gp_from_numpy
+    from gpmpc_tpu_torch.models.propagate import propagate_gh
+
+    rng = np.random.default_rng(15)
+    x = rng.uniform(-2, 2, (CUB_N, CUB_D))
+    y = np.stack([np.sin(x[:, i]) * x[:, (i + 3) % CUB_D] + 0.1 * x[:, i - 1]
+                  for i in range(CUB_NY)], axis=1)
+    hyp = dict(log_ell=0.3 * rng.standard_normal((CUB_NY, CUB_D)) + 0.5,
+               log_sf2=0.2 * rng.standard_normal(CUB_NY),
+               log_sn2=np.full(CUB_NY, -6.0))
+    g = gp_from_numpy(x, y, **hyp, device=dev, dtype=torch.float32,
+                      optimizer_opts=GP_OPTS)
+    g64 = gp_from_numpy(x, y, **hyp, device="cpu", dtype=torch.float64,
+                        optimizer_opts=GP_OPTS)
+    a = 0.3 * rng.standard_normal((CUB_D, CUB_D))
+    mu, cov = rng.uniform(-1, 1, CUB_D), a @ a.T
+    args = [torch.tensor(v, dtype=torch.float32, device=dev)
+            for v in (mu, cov)]
+
+    def run():
+        return propagate_gh(g.post, g.norm, g.cfg, *args, grid="cubature5")
+
+    run()                       # the rule's and the sweeps' index tensors
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    ref = propagate_gh(g64.post, g64.norm, g64.cfg, torch.tensor(mu),
+                       torch.tensor(cov), grid="cubature5")
+    gaps = [float((o.cpu().double() - r).abs().max() / r.abs().max())
+            for o, r in zip(out, ref)]
+    ev = float(torch.linalg.eigvalsh(out[1].cpu().double()).min())
+    scale = float(out[1].abs().max())
+    ms = cuda_time_ms(run, reps=20)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            torch.linalg.eigh(out[1])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    log(f"[slice F] (cubature5) D={CUB_D}, Ny={CUB_NY}, N={CUB_N}, "
+        f"{2 * CUB_D * CUB_D + 1} points: no host sync on the card; "
+        f"launches {launches}; card f32 against CPU f64: max |diff| / max "
+        f"|ref| mu {gaps[0]:.3e}, Sigma_y {gaps[1]:.3e}, C {gaps[2]:.3e} (<= "
+        f"{F_PROP_TOL}); min eigenvalue of Sigma_y {ev:.3e} (scale "
+        f"{scale:.3e}); {ms:.3f} ms a propagation (CUDA events, 20 calls); "
+        f"torch.linalg.eigh on the same Sigma_y: {syncs} host sync "
+        f"warning(s) (information) on {card}")
+    if launches["gp_predict_batch"] != 1 or ev < -1e-6 * scale or any(
+            g > t for g, t in zip(gaps, F_PROP_TOL)):
+        raise AssertionError("cubature5 on the card is off the CPU's")
+
+
+def matern_fit(ck, dev, card, kernel):
+    """Phase 15 (d): GP(tank_X, tank_Y, kernel=kernel) trained on the card
+    with the fixture's recipe (multistart=1, max_iters=100, GP_OPTS):
+    exact launch counts (one K5 and no K4 per objective evaluation, three
+    K5 for the posterior); each dim's NLL re-evaluated in f64 on the CPU
+    at the card's hypers within 0.1 of the port's f64 CPU fit with the
+    same recipe.  Returns the GP and its launches."""
+    from gpmpc_tpu_torch import GP
+    from gpmpc_tpu_torch.models import gp_core
+    from gpmpc_tpu_torch.models.convert import FIXTURE
+    from gpmpc_tpu_torch.utils.config import GPConfig
+
+    f = np.load(FIXTURE)
+    recipe = dict(multistart=1, max_iters=100)
+    ck.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gp = GP(f["tank_X"], f["tank_Y"], kernel=kernel, mean_func="zero",
+            gp_method="TA", optimizer_opts=GP_OPTS, device=dev,
+            dtype=torch.float32, **recipe)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    expect = {"riccati_sweep": 0, "rk4_substeps": 0, "se_ard_gram": 0,
+              "cholesky": gp.n_evals + 3, "gp_predict_batch": 0}
+    log(f"[slice F] ({kernel} fit) fixture recipe {recipe} on the card: "
+        f"{wall:.3f} s wall, {gp.n_evals} batched objective evaluations "
+        f"({1e3 * wall / gp.n_evals:.3f} ms each); launches {launches}")
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+    nll = fixture_nll_f64(gp.hyper[:3], kernel)
+    f64 = dict(dtype=torch.float64)
+    x, y = (torch.tensor(f[k], **f64) for k in ("tank_X", "tank_Y"))
+    t0 = time.perf_counter()
+    _, ref, _ = gp_core.fit((x - x.mean(0)) / x.std(0, correction=0),
+                            (y - y.mean(0)) / y.std(0, correction=0),
+                            GPConfig(kernel=kernel, **recipe, **GP_OPTS),
+                            torch.Generator().manual_seed(0))
+    ref = ref.numpy()
+    gap = np.abs(nll - ref)
+    log(f"[slice F] ({kernel} fit) NLL per dim (f64 on the CPU at the "
+        f"card's hypers) {nll.tolist()}, the port's f64 CPU fit "
+        f"{ref.tolist()} ({time.perf_counter() - t0:.1f} s), max gap "
+        f"{gap.max():.4f} (<= 0.1)")
+    if not (np.all(np.isfinite(nll)) and gap.max() <= 0.1):
+        raise AssertionError(f"the {kernel} fit on the card is off the "
+                             f"CPU's")
+    return gp, launches
+
+
+def k5_matern_row(gc, gp, launches, card):
+    """K5's JSON row at the Matérn fit's shape, on the Gram of the card's
+    fitted hypers: held against its plain version, event ms over 200
+    calls, device ms per launch, plain and cholesky_ex ms, the bound."""
+    from gpmpc_tpu_torch.models import gp_core
+    from gpmpc_tpu_torch.ops.kernels import kernel_gram
+    h, cfg = gp.hyper, gp.cfg
+    k = kernel_gram(cfg.kernel, gp.Xn, torch.exp(h.log_ell),
+                    torch.exp(h.log_sf2), gp_core._noise_var(h.log_sn2, cfg),
+                    jitter=gp_core._jitter_floor(cfg, gp.Xn.dtype))
+    p, n = k.shape[0], k.shape[-1]
+    err = gc.check_cholesky(k)
+    ms = cuda_time_ms(lambda: gc.cholesky(k), reps=200)
+    dev_ms, _, note = device_time_ms(lambda: gc.cholesky(k))
+    plain = cuda_time_ms(lambda: gc.cholesky_reference(k), reps=50)
+    lib = cuda_time_ms(lambda: torch.linalg.cholesky_ex(k), reps=50)
+    bd = cholesky_bound(p, n)
+    log(f"[time] cholesky[{cfg.kernel}] (P={p}, N={n}) on the fit's Gram: "
+        f"kernel {ms:.4f} ms, device {fmt_ms(dev_ms)}{note} per launch, "
+        f"plain {plain:.4f} ms, cholesky_ex {lib:.4f} ms, bound "
+        f"{bd[0]:.3e} ms ({bd[1]}); {launches['cholesky']} launches in the "
+        f"fit; max|err| {err:.3e} on {card}")
+    return {"name": f"cholesky[{cfg.kernel}]", "route": "cuda",
+            "source": "gpmpc_tpu_torch/csrc/cholesky.cu",
+            "replaces": "gpmpc_tpu/ops/pallas_kernels.py:206",
+            "launches": launches["cholesky"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "device_ms": dev_ms, "bound_ms": bd[0],
+            "bound_by": bd[1], "library_ms": lib}
+
+
+def plain_loop(ck, mpc, n_steps, x_sp, tag):
+    """A closed loop through MPC.solve with exact K1 and K2 counts (no
+    other kernel) and finite values; returns its states and inputs."""
+    from benchmarks.bench_spec import DT, X0
+    cfg = mpc.sqp_cfg
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    xs, us = mpc.solve(X0, n_steps * DT, x_sp, noise=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    expect = {"riccati_sweep": n_steps * cfg.al_iters * cfg.max_iters,
+              "rk4_substeps": n_steps, "se_ard_gram": 0, "cholesky": 0,
+              "gp_predict_batch": 0}
+    xs, us = xs.cpu().numpy(), us.cpu().numpy()
+    log(f"[slice F] ({tag}) {n_steps}-step closed loop: {wall:.3f} s (cold "
+        f"start included); launches {launches}, expected {expect}; final "
+        f"state {xs[-1].tolist()}")
+    if launches != expect:
+        raise AssertionError(f"{tag} launch counts {launches} != {expect}")
+    if not (np.all(np.isfinite(xs)) and np.all(np.isfinite(us))):
+        raise AssertionError(f"non-finite {tag} closed loop")
+    return xs, us
+
+
+def soft_reference(n_rows):
+    """Phase 15 (f)'s reference trajectory: a ramp from X0 to XSP over 8
+    steps, held there."""
+    from benchmarks.bench_spec import X0, XSP
+    s = np.clip(np.arange(n_rows) / 8.0, 0.0, 1.0)[:, None]
+    return X0 + s * (XSP - X0)
+
+
+def slice_f_phase(ck, gc, dev, card, ta_step=None):
+    """Phase 15: (a) UT, (b) GH, (c) cubature5, (d) the Matérn fits, (e) a
+    Matérn-5/2 TA loop, (f) soft and terminal constraints with a reference
+    trajectory.  ``ta_step`` is phase 6's TA control step, timed and
+    profiled here as UT's and GH's are; without it (``--slice-f``) a
+    3-step TA loop makes one.  Returns phase 11's rows of slice F."""
+    from benchmarks.bench_spec import DT, X0, XSP
+    t_phase = time.perf_counter()
+    rows, steps = [], {}
+    for method in ("UT", "GH"):
+        row, ms, prof = sigma_point_loop(ck, gc, dev, card, method)
+        rows.append(row)
+        steps[method] = (ms, prof)
+    if ta_step is None:
+        mpc = build_slice(dev, RTI)
+        rec = StepRecorder(mpc)
+        xs, us = plain_loop(ck, mpc, 3, XSP, "TA, for the step's time")
+        ta_step = rti_step_fn(mpc, xs[-1], us[-1], rec.last)
+    steps["TA"] = ta = step_numbers(ta_step, card, "TA")
+    log("[slice F] RTI control step, ms (CUDA events) / device kernels / "
+        "busy share: " + "; ".join(
+            f"{m} {v[0]:.3f} / {v[1]['kernels_per_step']:.0f} / "
+            f"{100 * v[1]['busy_share']:.2f}%" for m, v in steps.items())
+        + f"; UT/TA {steps['UT'][0] / ta[0]:.3f}, GH/TA "
+        f"{steps['GH'][0] / ta[0]:.3f} on {card}")
+    cubature5_check(ck, dev, card)
+    gps = {}
+    for kernel in ("matern52", "matern32"):
+        gps[kernel], launches = matern_fit(ck, dev, card, kernel)
+        if kernel == "matern52":
+            rows.append(k5_matern_row(gc, gps[kernel], launches, card))
+    xs, _ = plain_loop(ck, build_slice(dev, RTI, gp=gps["matern52"]),
+                       F_STEPS, XSP, "Matérn-5/2 TA, the card-fitted GP")
+    miss = float(np.abs(xs[-1, :2] - XSP[:2]).max())
+    log(f"[slice F] (Matérn-5/2 TA) {miss:.4f} from the setpoint of the "
+        f"tracked tanks (<= 0.5)")
+    if miss > 0.5:
+        raise AssertionError("the Matérn-5/2 loop misses the setpoint")
+    ref = soft_reference(F_SOFT_STEPS + 20)
+    mpc = build_slice(dev, RTI, **F_SOFT)
+    if (mpc.problem.n_ineq, mpc.problem.n_term_ineq) != (4, 0):
+        raise AssertionError("soft boxes and terminal constraint: rows "
+                             f"{mpc.problem.n_ineq}, "
+                             f"{mpc.problem.n_term_ineq}")
+    rec = StepRecorder(mpc)
+    xs, us = plain_loop(ck, mpc, F_SOFT_STEPS, ref,
+                        f"soft boxes and terminal constraint {F_SOFT}, "
+                        f"a ramp reference ({ref.shape[0]}, 4)")
+    t0 = time.perf_counter()
+    worst = replay_steps(mpc, rec, xs, range(F_SOFT_STEPS),
+                         lambda d: build_slice(d, RTI, **F_SOFT))
+    log(f"[slice F] (soft) every step replayed on the CPU from its "
+        f"(Nt+1, Nx) window ({time.perf_counter() - t0:.1f} s): max "
+        f"relative next-state difference {worst[0]:.3e} in the transient "
+        f"(rtol 1e-2), {worst[1]:.3e} after it (rtol 1e-3); tracking error "
+        f"at the end {np.abs(xs[-1, :2] - ref[F_SOFT_STEPS, :2]).max():.4f}")
+    log(f"[slice F] phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def slice_f_alone():
+    """Phases 1-2 and 15, and phase 15's kernel rows, alone."""
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    from gpmpc_tpu_torch.ops import gp_cuda as gc
+    card = card_line()
+    dev = torch.device("cuda")
+    log(f"[card] nvidia-smi: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    ck.build_library()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    rows = slice_f_phase(ck, gc, dev, card)
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
 def kernel_times(ck, gc, four_tank_ode, dev, card):
     """Phase 11: each kernel's time beside its plain version's, the library
     call's (K5), its device time per launch (torch.profiler) and its
@@ -2141,6 +2641,8 @@ def main(argv):
         return k5_paths()
     if "--study" in argv:
         return study_alone()
+    if "--slice-f" in argv:
+        return slice_f_alone()
     if "--k1" in argv:
         i = argv.index("--k1") + 1
         return k1_alone(argv[i] if i < len(argv) else None)
@@ -2218,15 +2720,9 @@ def main(argv):
         f"{time.perf_counter() - t0:.1f} s)")
 
     # 6. timings on the card
-    x = torch.as_tensor(xs_np[-1], device=dev)
-    u0, warm, _, _ = mpc.solve_step(x, XSP, warm=None)
-    state = {"x": x, "u0": u0, "warm": warm}
-
-    def rti_step():
-        u, w, _, _ = mpc.solve_step(state["x"], XSP, warm=state["warm"],
-                                    u_prev=state["u0"])
-        state.update(u0=u, warm=w, x=mpc.model.integrate(state["x"], u))
-
+    u0, warm, _, _ = mpc.solve_step(
+        torch.as_tensor(xs_np[-1], device=dev), XSP, warm=None)
+    rti_step = rti_step_fn(mpc, xs_np[-1], u0, warm)
     step_ms = cuda_time_ms(rti_step, reps=10)
     log(f"[time] RTI control step (solve_step + plant step), CUDA events "
         f"after warm-up: {step_ms:.3f} ms/step on {card}")
@@ -2274,6 +2770,10 @@ def main(argv):
     # 14. the batched study
     study_launches, study_res = study_phase(ck, dev, card)
 
+    # 15. slice F, part 1: UT, GH, cubature5, the Matérn fits and loop,
+    # soft and terminal constraints with a reference trajectory
+    slice_f_rows = slice_f_phase(ck, gc, dev, card, ta_step=rti_step)
+
     # 11. kernel times beside their bounds
     times = kernel_times(ck, gc, four_tank_ode, dev, card)
     car_times = car_kernel_times(ck, gc, dev, card)
@@ -2317,6 +2817,7 @@ def main(argv):
                      "bound_by": r["bound"][1], "library_ms": None})
     rows += study_kernel_rows(ck, dev, card, study_launches, study_res,
                               sources)
+    rows += slice_f_rows
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,10 @@ def gp_from_numpy(X, Y, log_ell, log_sf2, log_sn2, mean_w=None, *,
                   device=None, dtype=None, **gp_kwargs) -> GP:
     """A :class:`GP` from numpy arrays: X (N, D), Y (N, Ny), log_ell
     (Ny, D), log_sf2 (Ny,), log_sn2 (Ny,), mean_w (Ny, F) (zeros (Ny, 0)
-    when None, i.e. the zero mean)."""
+    when None, i.e. the zero mean).  ``gp_kwargs`` go to :class:`GP`:
+    ``kernel=`` carries a JAX GP's kernel family (a Matérn GP's hypers
+    mean nothing under another kernel), ``gh_order=``/``gh_grid=`` its GH
+    quadrature, ``gp_method=``, ``mean_func=``, ``optimizer_opts=``."""
     ny = np.shape(log_sf2)[0]
     if mean_w is None:
         mean_w = np.zeros((ny, 0))

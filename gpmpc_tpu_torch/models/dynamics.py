@@ -5,7 +5,7 @@ continuous-time ODE ``ode(x, u) -> dx/dt`` (any function of torch tensors)
 into fixed-step RK4 maps, their Jacobians, rollouts and training data.
 Random draws come from a ``torch.Generator`` where the JAX package takes a
 ``jax.random`` key (other numbers from the same seed).  The adaptive DOPRI5
-integrator and DAE (``alg``) elimination are ROADMAP slice F item 5.
+integrator and DAE (``alg``) elimination are ROADMAP §1 item 6.4.
 """
 
 from __future__ import annotations
@@ -77,15 +77,15 @@ class Model:
                     f"{sorted(cuda_kernels.CUDA_ODES)}: "
                     "systems.four_tank_ode or systems.car_ode passed "
                     "directly, not wrapped); other ODEs are ROADMAP work "
-                    "(the quadrotor's K2 functor, slice F item 10)")
+                    "(the quadrotor's K2 functor, §1 item 6.10)")
         if integrator == "adaptive":
             raise NotImplementedError(
-                "integrator='adaptive' is not ported yet (ROADMAP slice F "
-                "item 5)")
+                "integrator='adaptive' is not ported yet (ROADMAP §1 item "
+                "6.4)")
         if alg is not None:
             raise NotImplementedError(
-                "DAE (alg) systems are not ported yet (ROADMAP slice F "
-                "item 5)")
+                "DAE (alg) systems are not ported yet (ROADMAP §1 item "
+                "6.4)")
         self.integrator = integrator
         self.R = (torch.zeros((self.Nx, self.Nx), dtype=dtype,
                               device=self.device) if R is None

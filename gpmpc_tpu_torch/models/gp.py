@@ -6,12 +6,13 @@ batched L-BFGS on the Cholesky NLL, :func:`gp_core.fit`) unless they are
 given (``hyper=`` or :meth:`GP.load_model`), precomputes the per-dim
 factorizations, selects the propagation scheme, predicts, validates on
 held-out data and saves to the JAX package's ``.npz`` format.  Sparse
-(inducing-point) GPs are ROADMAP slice F item 8.
+(inducing-point) GPs are ROADMAP §1 item 6.7.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -33,7 +34,9 @@ def mean_fn_functional(post: gp_core.GPPosterior, norm: Normalization,
 
 
 class GP:
-    """Multi-output GP regressor: one independent SE-ARD GP per output dim.
+    """Multi-output GP regressor: one independent GP per output dim, of
+    the kernel family ``kernel`` (``"se"``, ``"matern52"`` or
+    ``"matern32"``).
 
     ``device`` (default: the CUDA card; pass ``device="cpu"`` for the CPU)
     and ``dtype`` place every tensor the GP holds; the training data and
@@ -41,7 +44,10 @@ class GP:
     ``hyper`` the GP trains at construction (``train=True``): ``multistart``
     starts per output dim, at most ``max_iters`` L-BFGS iterations each,
     the perturbed starts drawn from ``generator`` (default: a
-    ``torch.Generator`` on the GP's device seeded with ``seed``)."""
+    ``torch.Generator`` on the GP's device seeded with ``seed``).
+    ``gh_order`` and ``gh_grid`` are the Gauss-Hermite quadrature's knobs,
+    read only with ``gp_method='GH'`` (``models/propagate.py::
+    propagate_gh``)."""
 
     def __init__(self,
                  X,
@@ -59,6 +65,8 @@ class GP:
                  inducing: Optional[int] = None,
                  mesh=None,
                  kernel: str = "se",
+                 gh_order: int = 3,
+                 gh_grid: str = "auto",
                  device=None,
                  dtype=torch.float32):
         self.device = resolve_device(device)
@@ -68,17 +76,21 @@ class GP:
         if X.ndim != 2 or Y.ndim != 2 or X.shape[0] != Y.shape[0]:
             raise ValueError("X must be (N, D) and Y (N, Ny) with equal N")
         if kernel not in KERNELS:
-            raise NotImplementedError(
-                f"kernel {kernel!r} is not ported yet (ROADMAP slice F item "
-                f"2); supported: {KERNELS}")
+            raise ValueError(f"unknown kernel {kernel!r}; "
+                             f"supported: {KERNELS}")
         if inducing is not None:
             raise NotImplementedError(
                 "sparse (inducing-point) GPs are not ported yet (ROADMAP "
-                "slice F item 8)")
+                "§1 item 6.7)")
         if mesh is not None:
             raise NotImplementedError(
                 "GP(mesh=): sharding the training grid over devices is not "
-                "ported yet (ROADMAP slice F item 10, torch.distributed)")
+                "ported yet (ROADMAP §1 item 6.9, torch.distributed)")
+        if gh_grid not in ("auto", "tensor", "cubature5"):
+            raise ValueError(f"gh_grid must be 'auto'|'tensor'|'cubature5';"
+                             f" got {gh_grid!r}")
+        self.gh_order = int(gh_order)
+        self.gh_grid = gh_grid
         self.X_raw = X
         self.Y_raw = Y
         self.N, self.D = X.shape
@@ -148,9 +160,12 @@ class GP:
         if self.gp_method == "EM" and self.cfg.kernel != "se":
             raise ValueError(
                 "exact moment matching (EM) requires kernel='se' — the "
-                "PILCO closed forms are SE-specific; use ME/TA with "
+                "PILCO closed forms are SE-specific; use ME/TA/UT/GH with "
                 f"kernel={self.cfg.kernel!r}")
         prop = get_propagator(self.gp_method)
+        if self.gp_method == "GH":
+            prop = functools.partial(prop, order=self.gh_order,
+                                     grid=self.gh_grid)
         cfg = self.cfg
 
         def moment_map(mu_z, cov_z):
@@ -198,14 +213,15 @@ class GP:
     def validate(self, X_test, Y_test, verbose: bool = True
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Held-out metrics per output dim: SMSE, MNLP and RMSE (numpy), as
-        the JAX package's ``validate``; the predictions are one batched
-        :func:`gp_core.predict_batch` (one K3 launch on the card)."""
+        the JAX package's ``validate``; the predictions are one
+        :func:`gp_core.predict_points` (one K3 launch on the card for an
+        SE GP)."""
         z = self._t(X_test)
         y = np.asarray(Y_test.cpu() if torch.is_tensor(Y_test) else Y_test,
                        dtype=np.float64)
         cfg = dataclasses.replace(self.cfg, predict_includes_noise=True)
         norm = self.norm
-        mu_n, var_n = gp_core.predict_batch(
+        mu_n, var_n = gp_core.predict_points(
             self.post, (z - norm.z_mean) / norm.z_std, cfg)
         mu = (norm.y_mean + norm.y_std * mu_n).cpu().double().numpy()
         var = torch.clamp(norm.y_std ** 2 * var_n, min=1e-12)
@@ -242,7 +258,7 @@ class GP:
         if "inducing" in z and int(z["inducing"]):
             raise NotImplementedError(
                 "sparse (inducing-point) GPs are not ported yet "
-                "(ROADMAP slice F item 8)")
+                "(ROADMAP §1 item 6.7)")
         hyper = gp_core.GPHypers(log_ell=z["log_ell"], log_sf2=z["log_sf2"],
                                  log_sn2=z["log_sn2"], mean_w=z["mean_w"])
         return cls(z["X"], z["Y"], mean_func=str(z["mean_func"]),

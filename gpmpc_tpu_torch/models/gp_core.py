@@ -12,8 +12,10 @@ Every function here carries a leading problem dim where the JAX package
 maps or vmaps: one NLL evaluation of the whole (multistart x Ny) training
 grid is one Gram (K4) and one Cholesky (K5) launch on the card, a
 posterior one K4 and three K5 launches, a batched prediction one K3
-launch.  Sparse GPs (``nll_fn=``/``extra_starts=`` of the JAX ``fit``) are
-ROADMAP slice F item 8.
+launch.  The kernel family is ``cfg.kernel``: a Matérn Gram is plain
+PyTorch (``ops/kernels.py``), so a Matérn NLL evaluation is one K5 launch
+and a Matérn posterior three, with no K4.  Sparse GPs (``nll_fn=``/
+``extra_starts=`` of the JAX ``fit``) are ROADMAP §1 item 6.7.
 """
 
 from __future__ import annotations
@@ -100,7 +102,8 @@ def nll_batch(log_ell: torch.Tensor, log_sf2: torch.Tensor,
     """Negative log marginal likelihood of P problems over one input set:
     log_ell (P, D), log_sf2 and log_sn2 (P,), mean_w (P, F), x (N, D),
     y (P, N) -> (P,).  One Gram and one Cholesky for all P; differentiable
-    through ``gp_cuda.SEARDGram`` and ``gp_cuda.Cholesky``."""
+    through ``gp_cuda.SEARDGram`` (a Matérn Gram through plain autograd)
+    and ``gp_cuda.Cholesky``."""
     n = x.shape[0]
     sf2 = torch.exp(log_sf2)
     sn2 = _noise_var(log_sn2, cfg)
@@ -173,13 +176,13 @@ def fit(x: torch.Tensor, y: torch.Tensor, cfg: GPConfig,
     The JAX package runs the (multistart x Ny) grid under ``lax.map``, one
     problem at a time, each through ``_run_lbfgs``; here the grid is one
     batch through :func:`gpmpc_tpu_torch.models.lbfgs.minimize`, so each
-    objective evaluation is one K4 and one K5 launch for all S*Ny
+    objective evaluation is one K4 (SE only) and one K5 launch for all S*Ny
     problems.  Non-finite final values count as +inf and each dim takes its
     best start."""
     if mesh is not None:
         raise NotImplementedError(
             "fit(mesh=): sharding the training grid over devices is not "
-            "ported yet (ROADMAP slice F item 10, torch.distributed)")
+            "ported yet (ROADMAP §1 item 6.9, torch.distributed)")
     n, d = x.shape
     ny = y.shape[1]
     s = cfg.multistart
@@ -240,11 +243,12 @@ def posterior(x: torch.Tensor, y: torch.Tensor, hypers: GPHypers,
 
 def predict_batch(post: GPPosterior, z: torch.Tensor, cfg: GPConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Deterministic-input predictive mean/variance at B points at once:
-    z (B, D) -> (mu (B, Ny), var (B, Ny)), what the JAX ``validate`` gets
-    from ``vmap(predict)``.  k* and k* alpha for every point and dim are one
-    K3 launch; the variance sf2 - ||L^-1 k*^T||^2 is one batched triangular
-    solve, as in :func:`predict`."""
+    """Deterministic-input predictive mean/variance of an SE posterior with
+    a Cholesky factor at B points at once: z (B, D) -> (mu (B, Ny), var (B,
+    Ny)), what the JAX package gets from ``vmap(predict)``.  k* and k*
+    alpha for every point and dim are one K3 launch; the variance sf2 -
+    ||L^-1 k*^T||^2 is one batched triangular solve, as in
+    :func:`predict`.  :func:`predict_points` picks this route."""
     h = post.hypers
     sf2 = torch.exp(h.log_sf2)
     mu, ks = gp_cuda.gp_predict_batch(
@@ -256,6 +260,20 @@ def predict_batch(post: GPPosterior, z: torch.Tensor, cfg: GPConfig
     if cfg.predict_includes_noise:
         var = var + _noise_var(h.log_sn2, cfg)[:, None]
     return mu.mT, torch.clamp(var, min=0.0).mT
+
+
+def predict_points(post: GPPosterior, z: torch.Tensor, cfg: GPConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Deterministic-input predictive mean/variance at B points: z (B, D)
+    -> (mu (B, Ny), var (B, Ny)), the JAX package's ``vmap(predict)``.
+    The route follows the posterior: an SE posterior with a Cholesky
+    factor goes through :func:`predict_batch` (one K3 launch on the card,
+    the variance in :func:`predict`'s form); a Matérn posterior, or an
+    :class:`ExplicitInversePosterior` (no factor), maps :func:`predict`
+    over the points, since K3 computes SE-ARD only."""
+    if cfg.kernel == "se" and not isinstance(post, ExplicitInversePosterior):
+        return predict_batch(post, z, cfg)
+    return vmap(lambda zz: predict(post, zz, cfg))(z)
 
 
 def predict_mean(post: GPPosterior, z: torch.Tensor, cfg: GPConfig

@@ -1,8 +1,7 @@
 """Uncertainty propagation through the GP dynamics model.
 
-Counterpart of ``gpmpc_tpu/models/propagate.py`` for three of its
-schemes.  Given GP input z ~ N(mu_z, Sigma_z) with z = [x; u] in raw
-space:
+Counterpart of ``gpmpc_tpu/models/propagate.py``.  Given GP input
+z ~ N(mu_z, Sigma_z) with z = [x; u] in raw space:
 
 * ME  (mean equivalent): mu = gp_mean(mu_z), Sigma = diag(gp_var(mu_z)).
 * TA  (first-order Taylor, Girard et al. 2003): mean as ME;
@@ -11,9 +10,16 @@ space:
 * EM  (exact moment matching, Candela/Girard/Rasmussen 2003; the PILCO
   forms): exact output mean and full output covariance for the SE-ARD
   kernel under a Gaussian input.
+* UT  (unscented transform, Ko and Fox 2009): 2D+1 sigma points of the
+  input Gaussian through the GP, its predictive variance folded in.
+* GH  (Gauss-Hermite tensor grid, or the degree-5 cubature of
+  McNamee and Stenger): quadrature of the exact moment integrals, any
+  kernel.
 
 Each returns ``(mu_y (Ny,), Sigma_y (Ny,Ny), C (D,Ny))`` with C = cov(z, y).
-UT and GH are ROADMAP slice F item 1.
+UT and GH predict at all their points at once through
+:func:`gp_core.predict_points`: one K3 launch on the card for an SE
+posterior with a Cholesky factor.
 """
 
 from __future__ import annotations
@@ -107,7 +113,7 @@ def propagate_em(post: gp_core.GPPosterior, norm: Normalization,
     ``Precision.HIGHEST``."""
     if cfg.kernel != "se":
         raise ValueError("exact moment matching is SE-specific "
-                         f"(kernel={cfg.kernel!r}); use ME/TA")
+                         f"(kernel={cfg.kernel!r}); use ME/TA/UT/GH")
     h = post.hypers
     x = post.x                                          # (N, D) normalized
     n, d = x.shape
@@ -178,17 +184,235 @@ def propagate_em(post: gp_core.GPPosterior, norm: Normalization,
     return mu, sigma, c
 
 
-PROPAGATORS = {"ME": propagate_me, "TA": propagate_ta, "EM": propagate_em}
+def _points_mean_var(post: gp_core.GPPosterior, norm: Normalization,
+                     cfg: GPConfig, pts: torch.Tensor):
+    """Raw-space predictive means and variances at P raw input points,
+    (P, D) -> ((P, Ny), (P, Ny)): the JAX package's ``vmap(_raw_mean_var)``
+    as one :func:`gp_core.predict_points` (one K3 launch on the card for
+    an SE posterior with a factor)."""
+    zn = (pts - norm.z_mean) / norm.z_std
+    mu_n, var_n = gp_core.predict_points(post, zn, cfg)
+    return norm.y_mean + norm.y_std * mu_n, (norm.y_std ** 2) * var_n
+
+
+#: the sigma points' root jitter, in ulps of the largest input variance
+ROOT_JITTER_ULPS = 64
+
+
+def _sigma_root(s: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of s + j I, s = (scaled) Sigma_z: the sigma
+    points' matrix square root.  The JAX package takes j = 1e-12 in f64
+    and 1e-8 in f32, which keeps the factor defined at Sigma_z = 0 (the
+    t = 0 stage of every rollout).  Here j is at least ROOT_JITTER_ULPS
+    ulps of the largest diagonal entry as well: with feedback Sigma_z is
+    singular (du = -K dx, rank Nx of Nx + Nu), and in f32 its rounding
+    puts eigenvalues ~eps ||Sigma_z|| below zero, past 1e-8, where the
+    factor's pivots divide by ~1e-15 (ROADMAP §3, "f32 sigma-point
+    root").  In f64 the relative term stays below 1e-12 on every input the
+    tests run, so the factor is the JAX package's bit for bit."""
+    d = s.shape[-1]
+    eps = torch.finfo(s.dtype).eps
+    floor = 1e-12 if s.dtype == torch.float64 else 1e-8
+    j = torch.clamp(ROOT_JITTER_ULPS * eps * torch.amax(torch.diagonal(s)),
+                    min=floor)
+    return chol_small(s + j * torch.eye(d, dtype=s.dtype, device=s.device))
+
+
+def propagate_ut(post: gp_core.GPPosterior, norm: Normalization,
+                 cfg: GPConfig, mu_z: torch.Tensor, cov_z: torch.Tensor,
+                 *, alpha: float = 1.0, beta: float = 2.0,
+                 kappa: float = 0.0
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Unscented-transform propagation: the 2D+1 sigma points of the input
+    Gaussian through the posterior mean, the GP's own predictive variance
+    folded in as the sigma-point-weighted process noise.  The default
+    scaling (alpha=1, kappa=0, beta=2) keeps every covariance weight
+    nonnegative, so Sigma_y is PSD by construction."""
+    d = mu_z.shape[0]
+    kw = dict(dtype=mu_z.dtype, device=mu_z.device)
+    lam = alpha * alpha * (d + kappa) - d
+    root = _sigma_root((d + lam) * cov_z)
+    offsets = torch.cat([torch.zeros((1, d), **kw), root.T, -root.T])
+    pts = mu_z[None, :] + offsets                            # (2D+1, D)
+    w_m = torch.cat([torch.full((1,), lam / (d + lam), **kw),
+                     torch.full((2 * d,), 0.5 / (d + lam), **kw)])
+    w_c = w_m.clone()
+    w_c[0] += 1.0 - alpha * alpha + beta
+    mus, vars_ = _points_mean_var(post, norm, cfg, pts)      # (2D+1, Ny)
+    mu = w_m @ mus
+    dev = mus - mu[None, :]
+    sigma = (dev * w_c[:, None]).T @ dev + torch.diag(w_m @ vars_)
+    c = (offsets * w_c[:, None]).T @ dev                     # (D, Ny)
+    return mu, sigma, c
+
+
+#: the tensor Gauss-Hermite grid's largest point count
+GH_MAX_POINTS = 20000
+
+
+def _tensor_gh_rule(d: int, order: int):
+    """Tensor-product Gauss-Hermite nodes (order**d, d) and weights for
+    N(0, I_d), numpy, as the JAX package builds them: all weights
+    positive, exact for polynomials up to per-dim degree 2 order - 1."""
+    n_pts = order ** d
+    if n_pts > GH_MAX_POINTS:
+        raise ValueError(
+            f"GH tensor grid has order**D = {order}**{d} = {n_pts} points "
+            f"(cap {GH_MAX_POINTS}); lower `order`, use gh_grid='cubature5' "
+            "(2 D^2 + 1 points), or gp_method='UT'")
+    # probabilists' Hermite: sum_i w_i f(x_i) ~ sqrt(2 pi) E[f(X)], X~N(0,1)
+    nodes_1d, w_1d = np.polynomial.hermite_e.hermegauss(order)
+    w_1d = w_1d / np.sqrt(2.0 * np.pi)                   # normalized: sum=1
+    grids = np.meshgrid(*([nodes_1d] * d), indexing="ij")
+    xi = np.stack([g.reshape(-1) for g in grids], axis=-1)      # (P, D)
+    wg = np.ones(n_pts)
+    for g in np.meshgrid(*([w_1d] * d), indexing="ij"):
+        wg = wg * g.reshape(-1)
+    return xi, wg
+
+
+def _cubature5_rule(d: int):
+    """Degree-5 fully symmetric cubature for N(0, I_d) in 2 d^2 + 1 points
+    (McNamee and Stenger 1967), numpy, as the JAX package builds it: the
+    origin, +-sqrt(d+2) e_i and sqrt((d+2)/2)(+-e_i +- e_j).  Exact for
+    every polynomial of total degree <= 5; its axial weight
+    (4-d)/(2(d+2)^2) is negative for d > 4, so the caller floors Sigma_y's
+    eigenvalues there."""
+    w0 = 2.0 / (d + 2.0)
+    w1 = (4.0 - d) / (2.0 * (d + 2.0) ** 2)
+    w2 = 1.0 / (d + 2.0) ** 2
+    pts = [np.zeros((1, d))]
+    wts = [np.full(1, w0)]
+    r1 = np.sqrt(d + 2.0)
+    eye = np.eye(d)
+    pts += [r1 * eye, -r1 * eye]
+    wts += [np.full(d, w1), np.full(d, w1)]
+    r2 = np.sqrt((d + 2.0) / 2.0)
+    iu, ju = np.triu_indices(d, k=1)
+    for sa, sb in ((1, 1), (1, -1), (-1, 1), (-1, -1)):
+        pts.append(r2 * (sa * eye[iu] + sb * eye[ju]))
+        wts.append(np.full(iu.shape[0], w2))
+    return np.concatenate(pts, axis=0), np.concatenate(wts)
+
+
+@functools.lru_cache(maxsize=None)
+def _gh_rule(d: int, order: int, cubature: bool, dtype: torch.dtype,
+             device: torch.device):
+    """A rule's nodes and weights as tensors on ``device``: built once, so
+    a stage's GH copies nothing to the card."""
+    xi, wg = _cubature5_rule(d) if cubature else _tensor_gh_rule(d, order)
+    return (torch.as_tensor(xi, dtype=dtype, device=device),
+            torch.as_tensor(wg, dtype=dtype, device=device))
+
+
+#: sweeps of the Jacobi eigensolver behind the cubature5 PSD floor: the
+#: cyclic method converges quadratically; on random symmetric matrices 7
+#: sweeps took Ny <= 10 and 8 took Ny = 12 to rounding in f64, so 10 leave
+#: a margin (tests/test_torch_propagate_ut_gh.py holds Ny = 4, 6 and 8
+#: against numpy's eigh)
+JACOBI_SWEEPS = 10
+
+
+@functools.lru_cache(maxsize=None)
+def _jacobi_rounds(n: int, device: torch.device):
+    """The round-robin order of the n(n-1)/2 index pairs: rounds of
+    disjoint pairs (p < q), each round one orthogonal rotation of the whole
+    matrix, as index tensors on ``device`` (the rows and columns of the
+    rotation's four entries per pair, and p and q)."""
+    m = n + n % 2
+    players = list(range(m))
+    rounds = []
+    for _ in range(m - 1):
+        pairs = [(min(a, b), max(a, b)) for a, b in
+                 zip(players[:m // 2], players[::-1][:m // 2])
+                 if a < n and b < n]
+        p = torch.tensor([a for a, _ in pairs], device=device)
+        q = torch.tensor([b for _, b in pairs], device=device)
+        rounds.append((p, q, torch.cat([p, q, p, q]),
+                       torch.cat([p, q, q, p])))
+        players = [players[0], players[-1]] + players[1:-1]
+    return rounds
+
+
+def psd_floor(sigma: torch.Tensor) -> torch.Tensor:
+    """V max(L, 0) V' of a symmetric (n, n) matrix with eigenvalues L and
+    eigenvectors V: what the JAX package takes through ``jnp.linalg.eigh``,
+    here by JACOBI_SWEEPS fixed sweeps of the cyclic Jacobi method in the
+    round-robin order, branch-free.  ``torch.linalg.eigh`` checks its
+    result on the host on a CUDA tensor; this reads nothing back, so a
+    solve step stays free of host syncs."""
+    n = sigma.shape[-1]
+    eye = torch.eye(n, dtype=sigma.dtype, device=sigma.device)
+    a, v = sigma, eye
+    rounds = _jacobi_rounds(n, sigma.device)
+    for _ in range(JACOBI_SWEEPS):
+        for p, q, rows, cols in rounds:
+            # the rotation that zeroes a[p, q] (Golub and Van Loan's
+            # sym.schur2); none where it is zero already
+            app, aqq, apq = a[p, p], a[q, q], a[p, q]
+            zero = apq == 0.0
+            tau = (aqq - app) / (2.0 * torch.where(zero, 1.0, apq))
+            t = torch.where(tau >= 0.0, 1.0, -1.0) / (
+                tau.abs() + torch.sqrt(1.0 + tau * tau))
+            t = torch.where(zero, 0.0, t)
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            s = t * c
+            j = eye.index_put((rows, cols), torch.cat([c, c, s, -s]))
+            a = j.mT @ a @ j
+            v = v @ j
+    evals = torch.diagonal(a)
+    return (v * torch.clamp(evals, min=0.0)) @ v.mT
+
+
+def propagate_gh(post: gp_core.GPPosterior, norm: Normalization,
+                 cfg: GPConfig, mu_z: torch.Tensor, cov_z: torch.Tensor,
+                 *, order: int = 3, grid: str = "auto"
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gauss-Hermite / cubature moment matching: quadrature of
+    mu_y = E[mu(z)], Sigma_y = Cov[mu(z)] + E[diag(var(z))] and
+    C = Cov[z, mu(z)] under z ~ N(mu_z, Sigma_z), for any kernel.
+
+    ``grid``: ``'tensor'``, the order**D Gauss-Hermite grid (all weights
+    positive, Sigma_y PSD by construction; at most GH_MAX_POINTS points);
+    ``'cubature5'``, the degree-5 cubature in 2 D^2 + 1 points, whose
+    negative axial weights for D > 4 make this floor Sigma_y's eigenvalues
+    at 0 (:func:`psd_floor`); ``'auto'``, the tensor grid while order**D
+    <= 1000, above that cubature5 when order <= 3 (an explicitly higher
+    order keeps the tensor grid and meets its cap)."""
+    d = mu_z.shape[0]
+    if grid not in ("auto", "tensor", "cubature5"):
+        raise ValueError(f"gh_grid must be 'auto'|'tensor'|'cubature5'; "
+                         f"got {grid!r}")
+    use_cub = (grid == "cubature5"
+               or (grid == "auto" and order <= 3 and order ** d > 1000))
+    xi, wg = _gh_rule(d, order, use_cub, mu_z.dtype, mu_z.device)
+    root = _sigma_root(cov_z)                                # lower
+    offsets = xi @ root.T                                    # (P, D)
+    pts = mu_z[None, :] + offsets
+    mus, vars_ = _points_mean_var(post, norm, cfg, pts)      # (P, Ny)
+    mu = wg @ mus
+    dev = mus - mu[None, :]
+    sigma = (dev * wg[:, None]).T @ dev + torch.diag(wg @ vars_)
+    if use_cub and d > 4:       # negative axial weights only for d > 4
+        sigma = psd_floor(0.5 * (sigma + sigma.T))
+    c = (offsets * wg[:, None]).T @ dev                      # (D, Ny)
+    return mu, sigma, c
+
+
+PROPAGATORS = {
+    "ME": propagate_me,
+    "TA": propagate_ta,
+    "EM": propagate_em,
+    "UT": propagate_ut,
+    "GH": propagate_gh,
+}
 
 
 def get_propagator(method: str):
-    """Select the propagation scheme ('ME' | 'TA' | 'EM')."""
-    m = method.upper()
-    if m in PROPAGATORS:
-        return PROPAGATORS[m]
-    if m in ("UT", "GH"):
-        raise NotImplementedError(
-            f"gp_method {method!r} is not ported yet (ROADMAP slice F item "
-            "1)")
-    raise ValueError(
-        f"unknown gp_method {method!r}; expected ME, TA, EM, UT, or GH")
+    """Select the propagation scheme ('ME' | 'TA' | 'EM' | 'UT' | 'GH')."""
+    try:
+        return PROPAGATORS[method.upper()]
+    except KeyError:
+        raise ValueError(
+            f"unknown gp_method {method!r}; expected ME, TA, EM, UT, or GH"
+        ) from None

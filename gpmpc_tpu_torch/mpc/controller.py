@@ -1,12 +1,17 @@
 """Receding-horizon GP-MPC controller.
 
 Counterpart of ``gpmpc_tpu/mpc/controller.py::MPC``: multiple-shooting NLP
-over the horizon, mean + covariance propagation (ME/TA/EM),
+over the horizon, mean + covariance propagation (ME/TA/EM/UT/GH),
 chance-constraint tightening, linear state feedback, expected quadratic /
 saturating costs, the delta-u penalty ``S`` and hard rate bounds
 ``dulb``/``duub`` (by augmenting the state with the previous input, so the
 NLP stays stage-separable and the Riccati sweep still factors it), user
-inequality constraints with per-solve parameters (``con_par``), and the
+inequality constraints with per-solve parameters (``con_par``), soft
+constraints (``lam_state`` softens the state boxes, ``lam`` the user
+constraints and the terminal constraint: quadratic slack penalties in the
+cost), the terminal constraint ||x_N - x_sp||^2 <= ``terminal_constraint``,
+reference trajectories (an (M, Nx) reference previewed over the horizon
+by ``solve``, an (Nt+1, Nx) window by ``solve_step``), the
 ``gp | rk4 | exact | hybrid`` discretizations, and online GP conditioning
 (``online_capacity``: the closed loop conditions the GP on every observed
 transition through :mod:`gpmpc_tpu_torch.parallel.online_gp`).
@@ -17,14 +22,13 @@ as a per-stage parameter (tightened bounds, trace cost terms).  The JAX
 ``lax.scan``s (covariance passes, covariance recursion, closed loop) are
 Python loops here; nothing inside a solve reads a tensor on the host.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): UT/GH propagation, soft constraints ``lam``/``lam_state``, the
-terminal constraint, reference trajectories (``x_sp`` other than one
-setpoint), and ``solve_mc``.
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+``solve_mc``.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 import warnings
 from typing import Callable, NamedTuple, Optional, Union
@@ -103,8 +107,7 @@ def _not_ported(what: str, item: str):
 class MPC:
     """Uncertainty-aware receding-horizon controller.
 
-    Same constructor surface as the JAX ``MPC`` plus ``device``; the
-    options listed in the module docstring raise ``NotImplementedError``.
+    Same constructor surface as the JAX ``MPC`` plus ``device``.
     ``inequality_constraints(x, cov, u, par) -> (num_con,)`` returns user
     constraint values (g <= 0), ``par`` a ``num_con_par``-vector given per
     solve (``solve(con_par_func=)``, ``solve_step(con_par=)``).
@@ -140,11 +143,6 @@ class MPC:
                  online_policy: str = "saturate",
                  device=None,
                  dtype=None):
-        if lam is not None or lam_state is not None:
-            _not_ported("soft constraints lam/lam_state",
-                        "ROADMAP slice F item 3")
-        if terminal_constraint is not None:
-            _not_ported("terminal_constraint", "ROADMAP slice F item 3")
         dm = discrete_method.lower()
         if dm not in ("gp", "rk4", "exact", "hybrid"):
             raise ValueError(f"unknown discrete_method {discrete_method!r}")
@@ -179,6 +177,10 @@ class MPC:
         self._gp_cfg = gp.cfg if gp is not None else None
         self._propagator = (get_propagator(self.gp_method)
                             if gp is not None else None)
+        if self._propagator is not None and self.gp_method == "GH":
+            # the GP's quadrature knobs (models/propagate.py::propagate_gh)
+            self._propagator = functools.partial(
+                self._propagator, order=gp.gh_order, grid=gp.gh_grid)
         self.cost_func = costFunc
         if not callable(costFunc) and costFunc not in ("quad", "sat"):
             raise ValueError(f"unknown costFunc {costFunc!r}")
@@ -214,6 +216,13 @@ class MPC:
         self.P = mat(P, self.Nx, 0.0) if P is not None else self.Q * 10.0
         self.R = mat(R, self.Nu, 0.01)
         self.S = mat(S, self.Nu, 0.0) if S is not None else None
+        # soft constraints: a quadratic slack penalty in the cost replaces
+        # the hard AL constraint group it softens; lam_state the
+        # (tightened) state boxes, lam the user constraints and the
+        # terminal constraint (hard AL handling without them)
+        self.lam = None if lam is None else float(lam)
+        self.lam_state = None if lam_state is None else float(lam_state)
+        self.terminal_constraint = terminal_constraint
         # hard input-rate bounds dulb <= u_t - u_{t-1} <= duub; with them or
         # the delta-u penalty the state carries the previous input, so the
         # NLP stays stage-separable (Riccati-factorable)
@@ -321,8 +330,9 @@ class MPC:
         self.options = MPCOptions(
             gp_method=self.gp_method, discrete_method=dm,
             cost_func=self.cost_func, feedback=self.feedback,
-            percentile=percentile, cov_updates=self.cov_updates,
-            num_con_par=self.num_con_par, solver=self.sqp_cfg)
+            percentile=percentile, terminal_constraint=terminal_constraint,
+            cov_updates=self.cov_updates, num_con_par=self.num_con_par,
+            solver=self.sqp_cfg)
         self._build_problem()
         self._last_run = None
 
@@ -402,6 +412,20 @@ class MPC:
 
     def _build_problem(self):
         nx, nu, nt = self.Nx, self.Nu, self.Nt
+        hard_state = self.lam_state is None  # soft: a penalty in the cost
+        hard_user = self.lam is None         # lam softens general constraints
+        hard_term = hard_user and self.terminal_constraint is not None
+
+        def state_box(x, mx, c0):
+            return [(x - (c0.xub - mx)) / c0.x_scale,
+                    ((c0.xlb + mx) - x) / c0.x_scale]
+
+        def state_penalty(x, mx, c0):
+            """lam_state times the squared scaled violation of the
+            (tightened) state box."""
+            viol = (torch.clamp(x - (c0.xub - mx), min=0.0)
+                    + torch.clamp((c0.xlb + mx) - x, min=0.0)) / c0.x_scale
+            return self.lam_state * torch.sum(viol * viol)
 
         def dynamics(xa, u, t, params: MPCParams):
             x, _ = self._split(xa)
@@ -418,48 +442,67 @@ class MPC:
             if self.aug:
                 dd = u - u_prev
                 c = c + dd @ c0.s @ dd
+            if not hard_state:
+                c = c + state_penalty(x, params.margins_x[t], c0)
+            if not hard_user and self.user_ineq is not None:
+                g = self.user_ineq(x, params.sigmas[t], u, params.con_par)
+                viol = torch.clamp(g, min=0.0)
+                c = c + self.lam * torch.sum(viol * viol)
             return c
 
         def terminal_cost(xa, params: MPCParams):
+            c0 = params.consts
             x, _ = self._split(xa)
-            return self._stage_cost_value(x, params.sigmas[nt],
-                                          params.x_sp[nt], params.consts.p)
-
-        def state_box(x, mx, c0):
-            return [(x - (c0.xub - mx)) / c0.x_scale,
-                    ((c0.xlb + mx) - x) / c0.x_scale]
+            c = self._stage_cost_value(x, params.sigmas[nt], params.x_sp[nt],
+                                       c0.p)
+            if not hard_state:
+                c = c + state_penalty(x, params.margins_x[nt], c0)
+            if not hard_user and self.terminal_constraint is not None:
+                e = x - params.x_sp[nt]
+                viol = torch.clamp(e @ e - self.terminal_constraint, min=0.0)
+                c = c + self.lam * viol * viol
+            return c
 
         def stage_ineq(xa, u, t, params: MPCParams):
             c0 = params.consts
             x, u_prev = self._split(xa)
             mu_m = params.margins_u[t]
-            g = state_box(x, params.margins_x[t], c0) + [
-                (u - (c0.uub - mu_m)) / c0.u_scale,
-                ((c0.ulb + mu_m) - u) / c0.u_scale]
+            g = state_box(x, params.margins_x[t], c0) if hard_state else []
+            g += [(u - (c0.uub - mu_m)) / c0.u_scale,
+                  ((c0.ulb + mu_m) - u) / c0.u_scale]
             if self.has_du_bounds:
                 # hard rate bounds on du = u_t - u_{t-1}, untightened (the
                 # rate is commanded, not stochastic)
                 du = u - u_prev
                 g += [(du - c0.duub) / c0.u_scale,
                       (c0.dulb - du) / c0.u_scale]
-            if self.user_ineq is not None:
+            if hard_user and self.user_ineq is not None:
                 g.append(self.user_ineq(x, params.sigmas[t], u,
                                         params.con_par))
             return torch.cat(g)
 
         def terminal_ineq(xa, params: MPCParams):
             x, _ = self._split(xa)
-            return torch.cat(state_box(x, params.margins_x[nt],
-                                       params.consts))
+            g = (state_box(x, params.margins_x[nt], params.consts)
+                 if hard_state else [])
+            if hard_term:
+                # ||x_N - x_sp||^2 <= terminal_constraint
+                e = x - params.x_sp[nt]
+                g.append((e @ e - self.terminal_constraint)[None])
+            if not g:
+                return xa.new_zeros((0,))
+            return torch.cat(g)
 
+        n_state_con = 2 * nx if hard_state else 0
         n_du_con = 2 * nu if self.has_du_bounds else 0
+        n_user_con = self.num_user_con if hard_user else 0
         self.problem = al_sqp.TrajectoryProblem(
             nx=self.Nxa, nu=nu, horizon=nt,
             dynamics=dynamics, stage_cost=stage_cost,
             terminal_cost=terminal_cost,
             stage_ineq=stage_ineq, terminal_ineq=terminal_ineq,
-            n_ineq=2 * nx + 2 * nu + n_du_con + self.num_user_con,
-            n_term_ineq=2 * nx,
+            n_ineq=n_state_con + 2 * nu + n_du_con + n_user_con,
+            n_term_ineq=n_state_con + int(hard_term),
             u_guard=lambda p: (p.consts.u_guard_lo, p.consts.u_guard_hi))
 
     def _margins(self, sigmas, consts: MPCConsts):
@@ -488,21 +531,18 @@ class MPC:
         return torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v),
                                dtype=self.dtype, device=self.device)
 
-    def _setpoint(self, x_sp):
-        """A setpoint (Nx,) as a tensor; reference trajectories and
-        per-stage windows are ROADMAP slice F item 3."""
-        x_sp = self._tensor(x_sp)
-        if x_sp.ndim != 1:
-            _not_ported("reference trajectories / per-stage reference "
-                        "windows", "ROADMAP slice F item 3")
-        if x_sp.shape[0] != self.Nx:
-            raise ValueError(f"x_sp must be (Nx,)=({self.Nx},); got "
-                             f"{tuple(x_sp.shape)}")
-        return x_sp
-
     def _ref_window(self, x_sp):
-        """A setpoint (Nx,) broadcast to the (Nt+1, Nx) per-stage window."""
-        return self._setpoint(x_sp)[None, :].expand(self.Nt + 1, self.Nx)
+        """A reference as the (Nt+1, Nx) per-stage window the NLP reads: a
+        setpoint (Nx,) is broadcast; an (Nt+1, Nx) window (preview over
+        the horizon) passes through."""
+        x_sp = self._tensor(x_sp)
+        if x_sp.ndim == 1 and x_sp.shape[0] == self.Nx:
+            return x_sp[None, :].expand(self.Nt + 1, self.Nx)
+        if tuple(x_sp.shape) != (self.Nt + 1, self.Nx):
+            raise ValueError(
+                f"x_sp must be (Nx,) or (Nt+1, Nx)=({self.Nt + 1}, "
+                f"{self.Nx}); got {tuple(x_sp.shape)}")
+        return x_sp
 
     def _augment_x0(self, x0, u_prev):
         return torch.cat([x0, u_prev]) if self.aug else x0
@@ -639,9 +679,27 @@ class MPC:
                 opost)
 
     def _prep_ref_windows(self, x_sp, n_steps):
-        """(Nx,) setpoint -> per-step preview windows (n_steps, Nt+1, Nx)."""
-        return self._setpoint(x_sp)[None, None, :].expand(
-            n_steps, self.Nt + 1, self.Nx)
+        """A setpoint (Nx,) or a reference trajectory (M, Nx), M >=
+        n_steps, as per-step preview windows (n_steps, Nt+1, Nx): step k
+        previews rows k .. k+Nt, held at the last row past the end."""
+        x_sp = self._tensor(x_sp)
+        if x_sp.ndim == 1:
+            if x_sp.shape[0] != self.Nx:
+                raise ValueError(f"x_sp must be (Nx,)=({self.Nx},) or (M, "
+                                 f"Nx); got {tuple(x_sp.shape)}")
+            return x_sp[None, None, :].expand(n_steps, self.Nt + 1, self.Nx)
+        if x_sp.ndim != 2 or x_sp.shape[1] != self.Nx:
+            raise ValueError(
+                f"reference trajectory must be (M, Nx={self.Nx}); "
+                f"got {tuple(x_sp.shape)}")
+        if x_sp.shape[0] < n_steps:
+            raise ValueError(
+                f"reference trajectory needs >= n_steps={n_steps} rows; "
+                f"got {tuple(x_sp.shape)}")
+        idx = torch.clamp(torch.arange(n_steps)[:, None]
+                          + torch.arange(self.Nt + 1)[None, :],
+                          max=x_sp.shape[0] - 1).to(x_sp.device)
+        return x_sp[idx]                            # (n_steps, Nt+1, Nx)
 
     def _prep_con_pars(self, con_par_func, n_steps):
         """Per-step user-constraint parameters (n_steps, num_con_par),
@@ -659,14 +717,17 @@ class MPC:
                                              device=self.device))
 
     def solve_mc(self, *args, **kwargs):
-        _not_ported("MPC.solve_mc", "ROADMAP slice F item 6")
+        _not_ported("MPC.solve_mc", "ROADMAP §1 item 6.5")
 
     def solve(self, x0, sim_time, x_sp, u0=None, noise: bool = True,
               noise_w=None, generator: Optional[torch.Generator] = None,
               con_par_func: Optional[Callable] = None):
         """Closed-loop receding-horizon simulation.
 
-        ``x_sp`` is a fixed setpoint (Nx,); ``con_par_func(k)`` gives step
+        ``x_sp`` is a fixed setpoint (Nx,) or a reference trajectory (M,
+        Nx) with M >= the number of steps: step k's solve previews rows
+        k .. k+Nt (held at the last row past the end).  ``con_par_func(k)``
+        gives step
         k's user-constraint parameters (num_con_par,).  With
         ``noise=True`` the plant gets additive process noise ~ N(0,
         model.R): ``noise_w`` (n_steps, Nx) when given, else drawn from

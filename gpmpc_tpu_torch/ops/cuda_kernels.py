@@ -371,7 +371,7 @@ def rk4_substeps(ode, x, u, h: float, n_sub: int):
         raise ValueError(
             f"rk4_substeps: no CUDA functor for ODE {ode!r}; the kernel "
             f"compiles its ODEs in (have {sorted(CUDA_ODES)}; the quadrotor "
-            "ODE is ROADMAP slice F item 10)")
+            "ODE is ROADMAP §1 item 6.10)")
     if _functorch_wrapped(x, u):
         return rk4_substeps_op(x, u, spec[0], float(h), int(n_sub))
     return _rk4_substeps_launch(spec, x, u, h, n_sub)

@@ -332,11 +332,19 @@ def gp_predict_batch_tiles_reference(z, x, ell, sf2, alpha,
 def gp_predict_batch(z, x, ell, sf2, alpha):
     """K3 wrapper: the plain version for CPU tensors, the CUDA kernel for
     CUDA tensors.  Arguments as :func:`gp_predict_batch_reference`; on
-    CUDA all contiguous float32 on the card, any D."""
+    CUDA all contiguous float32 on the card, any D.  K3 has no derivative
+    and no batching rule: under a ``torch.func`` transform a CUDA call
+    raises (the control path calls it in the covariance pass, outside
+    every transform)."""
     if z.device.type == "cpu":
         return gp_predict_batch_reference(z, x, ell, sf2, alpha)
     if z.device.type != "cuda":
         raise ValueError(f"gp_predict_batch: no kernel for device {z.device}")
+    if ck._functorch_wrapped(z, x, ell, sf2, alpha):
+        raise RuntimeError(
+            "gp_predict_batch: K3 has no torch.func rule (no derivative, no "
+            "vmap batching; a vmapped caller such as MPC.solve_mc needs a "
+            "custom operator with a vmap rule, ROADMAP §1 item 6.5)")
     (b, d), n, ny = z.shape, x.shape[0], ell.shape[0]
     ck._check_cuda("gp_predict_batch", (z, x, ell, sf2, alpha),
                    dict(z=(b, d), x=(n, d), ell=(ny, d), sf2=(ny,),

@@ -2,7 +2,7 @@
 
 Counterpart of ``gpmpc_tpu/parallel/``: :class:`BatchedStudy` and the
 online posterior (:mod:`online_gp`).  The multi-device module
-``distributed.py`` is ROADMAP slice F item 9."""
+``distributed.py`` is ROADMAP §1 item 6.9."""
 
 from gpmpc_tpu_torch.parallel import online_gp
 from gpmpc_tpu_torch.parallel.batched import (BatchedStudy, StudyResult,

@@ -17,7 +17,7 @@ package's vmapped ``while_loop`` computes lane by lane.
 
 Each rollout carries its own :class:`~online_gp.OnlinePosterior`, so the
 B posteriors part as the rollouts explore.  Not ported: ``mesh=`` (ROADMAP
-slice F item 9), ``chunk=`` and ``solve_precision=`` (ROADMAP "Not
+§1 item 6.9), ``chunk=`` and ``solve_precision=`` (ROADMAP "Not
 ported"); each raises ``NotImplementedError``.
 """
 
@@ -126,7 +126,7 @@ class BatchedStudy:
                         "ROADMAP 'Not ported': the single TF32 flag, which "
                         "stays off, replaces it")
         if mesh is not None:
-            _not_ported("BatchedStudy(mesh=)", "ROADMAP slice F item 9")
+            _not_ported("BatchedStudy(mesh=)", "ROADMAP §1 item 6.9")
         if chunk is not None:
             _not_ported("BatchedStudy(chunk=)",
                         "ROADMAP 'Not ported': a TPU vmap-tiling workaround")

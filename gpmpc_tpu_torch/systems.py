@@ -3,7 +3,7 @@
 Counterpart of ``gpmpc_tpu/systems.py``: the four-tank process, the
 kinematic car with its ellipse obstacles, and the car's bench constants
 (training box, obstacles, start and goal).  The planar quadrotor is
-ROADMAP slice F item 10.
+ROADMAP §1 item 6.10.
 """
 
 from __future__ import annotations

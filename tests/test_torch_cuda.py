@@ -488,3 +488,154 @@ def test_riccati_vmap_rule_launches_once_on_the_card(dev):
     y = vmap(lambda a, b: ck.rk4_substeps(four_tank_ode, a, b, 0.3, 10))(x, u)
     assert ck.LAUNCHES["rk4_substeps"] == 1
     assert torch.equal(y, ck.rk4_substeps(four_tank_ode, x, u, 0.3, 10))
+
+
+# ------------------------------------------------- slice F, part 1
+
+#: (Ny, B, N, D) of K3 on the control path: the fixture GP's UT sigma
+#: points (2D + 1 = 13) and its order-3 GH tensor grid (3^6 = 729)
+SIGMA_POINT_SHAPES = [(4, 13, 100, 6), (4, 729, 100, 6)]
+
+
+@pytest.mark.parametrize("ny,b,n,d", SIGMA_POINT_SHAPES)
+def test_predict_kernel_at_the_sigma_point_shapes(dev, ny, b, n, d):
+    before = ck.LAUNCHES["gp_predict_batch"]
+    gp_cuda.check_gp_predict_batch(*gp_cuda.predict_inputs(n, d, b, ny, b,
+                                                           device=dev))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["gp_predict_batch"] == before + 1
+
+
+def _to_cpu(v):
+    """Tensors, and (named) tuples of them, moved to the CPU."""
+    if torch.is_tensor(v):
+        return v.cpu()
+    return type(v)(*map(_to_cpu, v)) if hasattr(v, "_fields") else v
+
+
+def _sigma_point_mpc(dev, method, **kw):
+    """The fixture GP (N=100) at Nt=5 with UT or GH propagation, tightening
+    and feedback, f32 on the card, fused KKT and plant."""
+    from benchmarks.bench_spec import (DT, MODEL_R, Q_W, R_W, ULB, UUB, XLB,
+                                       XSP, XUB)
+    from gpmpc_tpu_torch import MPC, Model
+    from gpmpc_tpu_torch.models.convert import gp_from_fixture
+
+    m = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT, R=MODEL_R,
+              clip_negative=True, integrator_substeps=10,
+              fused_integrator=True, device=dev)
+    g = gp_from_fixture(device=dev, gp_method=method,
+                        optimizer_opts=dict(jitter=1e-5, min_noise=1e-4))
+    return MPC(horizon=5 * DT, model=m, gp=g, gp_method=method, Q=Q_W,
+               R=R_W, ulb=ULB, uub=UUB, xlb=XLB, xub=XUB, percentile=0.95,
+               feedback=True, cov_updates=1, op_x=XSP,
+               op_u=np.array([3.0, 3.0]),
+               solver_opts=dict(al_iters=2, max_iters=2, fused_kkt=True),
+               init_solver_opts=dict(al_iters=1, max_iters=3,
+                                     fused_kkt=True), device=dev, **kw)
+
+
+@pytest.mark.parametrize("method", ["UT", "GH"])
+def test_sigma_point_solve_step_launches_k3_once_a_stage(dev, method):
+    """A cold and a warm UT or GH solve_step on the card: K3 once per stage
+    per covariance pass (Nt = 5), K1 once per inner SQP step, no other
+    kernel; finite, and the step's covariances within 1e-2 of the same
+    propagation on the CPU from the card's posterior (chip_smoke.py's
+    F_PROP_TOL: K3's errors carried by the sigma points' deviations)."""
+    from benchmarks.bench_spec import X0, XSP
+
+    mpc = _sigma_point_mpc(dev, method)
+    ck.reset_launches()
+    u0, warm, sig, _ = mpc.solve_step(X0, XSP)
+    x1 = mpc.model.integrate(torch.as_tensor(X0, dtype=torch.float32,
+                                             device=dev), u0)
+    u1, _, sig1, _ = mpc.solve_step(x1, XSP, warm=warm, u_prev=u0)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"riccati_sweep": 3 + 4, "rk4_substeps": 1,
+                           "se_ard_gram": 0, "cholesky": 0,
+                           "gp_predict_batch": 2 * 5}
+    assert bool(torch.all(torch.isfinite(sig1))) and \
+        bool(torch.all(torch.isfinite(u1)))
+    cpu = _sigma_point_mpc(torch.device("cpu"), method)
+    cpu.consts = _to_cpu(mpc.consts)
+    sig_c = cpu.propagate_covariances(warm.x.cpu(), warm.u.cpu(),
+                                      torch.zeros((4, 4)), cpu.consts)
+    sig_d = mpc.propagate_covariances(warm.x, warm.u,
+                                      torch.zeros((4, 4), device=dev),
+                                      mpc.consts)
+    torch.testing.assert_close(sig_d.cpu(), sig_c, rtol=0,
+                               atol=1e-2 * float(sig_c.abs().max()))
+
+
+def test_predict_kernel_raises_under_a_transform(dev):
+    """On a CUDA tensor K3's wrapper refuses a torch.func transform (it has
+    no derivative and no vmap rule) instead of running the plain
+    version."""
+    z, x, ell, sf2, alpha = gp_cuda.predict_inputs(100, 6, 13, 4, 0,
+                                                   device=dev)
+    for transform in (lambda f: torch.func.vmap(f),
+                      lambda f: torch.func.jacfwd(f)):
+        with pytest.raises(RuntimeError, match="torch.func"):
+            transform(lambda zz: gp_cuda.gp_predict_batch(
+                zz.reshape(-1, 6), x, ell, sf2, alpha)[0])(z)
+
+
+def test_cubature5_on_the_card_makes_no_host_sync(dev):
+    """propagate_gh with the cubature5 rule at D = 8 (its PSD floor by
+    fixed Jacobi sweeps) under torch.cuda.set_sync_debug_mode("error"): no
+    host sync; K3 launched once; Sigma_y PSD and within 1e-2 of the CPU's
+    f64 result (mu_y within 2e-4)."""
+    from gpmpc_tpu_torch.models.convert import gp_from_numpy
+    from gpmpc_tpu_torch.models.propagate import propagate_gh
+
+    rng = np.random.default_rng(8)
+    x = rng.uniform(-2, 2, (60, 8))
+    y = np.stack([np.sin(x[:, 0]) + x[:, 1], np.cos(x[:, 2]) * x[:, 3],
+                  x[:, 4] * x[:, 7]], axis=1)
+    hyp = dict(log_ell=0.3 * rng.standard_normal((3, 8)),
+               log_sf2=np.zeros(3), log_sn2=np.full(3, -4.0))
+    g = gp_from_numpy(x, y, **hyp, device=dev)
+    gc = gp_from_numpy(x, y, **hyp, device="cpu", dtype=torch.float64)
+    a = 0.3 * rng.standard_normal((8, 8))
+    mu, cov = rng.uniform(-1, 1, 8), a @ a.T
+    args = [torch.tensor(v, dtype=torch.float32, device=dev)
+            for v in (mu, cov)]
+    propagate_gh(g.post, g.norm, g.cfg, *args, grid="cubature5")   # warm
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = propagate_gh(g.post, g.norm, g.cfg, *args, grid="cubature5")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["gp_predict_batch"] == 1
+    ref = propagate_gh(gc.post, gc.norm, gc.cfg, torch.tensor(mu),
+                       torch.tensor(cov), grid="cubature5")
+    for o, r, tol in zip(out, ref, (2e-4, 1e-2, 1e-2)):
+        torch.testing.assert_close(o.cpu().double(), r, rtol=0,
+                                   atol=tol * float(r.abs().max()))
+    assert float(torch.linalg.eigvalsh(out[1].double()).min()) >= \
+        -1e-6 * float(out[1].abs().max())
+
+
+def test_matern_fit_on_the_card_launches_k5_only(dev):
+    """A Matérn-5/2 fit through the GP entry point: one K5 and no K4 per
+    objective evaluation (the Matérn Gram is plain PyTorch), three K5 for
+    the posterior, and no K3 in its validate (K3 is SE-only)."""
+    from gpmpc_tpu_torch import GP
+    from gpmpc_tpu_torch.models.convert import FIXTURE
+
+    f = np.load(FIXTURE)
+    ck.reset_launches()
+    gp = GP(f["tank_X"][:50], f["tank_Y"][:50], kernel="matern52",
+            multistart=2, max_iters=20,
+            optimizer_opts=dict(jitter=1e-5, min_noise=1e-4), device=dev)
+    assert ck.LAUNCHES == {"riccati_sweep": 0, "rk4_substeps": 0,
+                           "se_ard_gram": 0, "cholesky": gp.n_evals + 3,
+                           "gp_predict_batch": 0}
+    assert bool(torch.all(torch.isfinite(gp.nll)))
+    smse, mnlp, _ = gp.validate(f["tank_X"][50:], f["tank_Y"][50:],
+                                verbose=False)
+    assert ck.LAUNCHES["gp_predict_batch"] == 0
+    assert np.all(np.isfinite(mnlp)) and np.all(smse < 0.1)

@@ -95,28 +95,31 @@ def test_closed_loop_explicit_noise_matches_jax_x64():
 
 
 def test_unported_options_raise():
-    """Every option still unported raises and names its ROADMAP item: soft
-    constraints, the terminal constraint, UT/GH propagation, solve_mc and
-    reference windows.  The online GP is ported (slice D): its capacity
-    is checked against the training set instead."""
+    """Every option still unported raises and names its ROADMAP item:
+    solve_mc.  Soft constraints, the terminal constraint, UT/GH
+    propagation and reference windows are ported (slice F part 1;
+    tests/test_torch_soft_constraints.py and
+    tests/test_torch_propagate_ut_gh.py hold them against JAX), and a
+    reference of the wrong shape raises ValueError.  The online GP is
+    ported (slice D): its capacity is checked against the training set
+    instead."""
     m = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT, device="cpu")
     g = gp_from_fixture(n=10, device="cpu")
     for kw in (dict(lam=1.0), dict(lam_state=1.0),
                dict(terminal_constraint=1.0),
                dict(gp_method="UT"), dict(gp_method="GH")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MPC(horizon=3 * DT, model=m, gp=g, device="cpu", **kw)
+        MPC(horizon=3 * DT, model=m, gp=g, device="cpu", **kw)
     with pytest.raises(ValueError, match="capacity 5 < training size 10"):
         MPC(horizon=3 * DT, model=m, gp=g, device="cpu", online_capacity=5)
     assert MPC(horizon=3 * DT, model=m, gp=g, device="cpu",
                online_capacity=16).online_post0.inv_k.shape == (4, 16, 16)
     mpc = MPC(horizon=3 * DT, model=m, gp=g, feedback=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6.5"):
         mpc.solve_mc(X0, DT, XSP, 2)
-    for call in (lambda r: mpc.solve(X0, 3 * DT, r, noise=False),
-                 lambda r: mpc.solve_step(X0, r)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call(np.tile(XSP, (4, 1)))
+    with pytest.raises(ValueError, match="n_steps"):
+        mpc.solve(X0, 5 * DT, np.tile(XSP, (4, 1)), noise=False)
+    with pytest.raises(ValueError, match=r"\(Nt\+1, Nx\)"):
+        mpc.solve_step(X0, np.tile(XSP, (3, 1)))
     with pytest.raises(ValueError, match="fused_kkt"):
         MPC(horizon=3 * DT, model=Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT,
                                         dtype=torch.float64, device="cpu"),

@@ -384,7 +384,7 @@ def test_converted_posterior_predicts_like_jax():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(solve_precision="default"), "Not ported"),
-    (dict(mesh=object()), "slice F item 9"),
+    (dict(mesh=object()), "item 6.9"),
     (dict(chunk=256), "Not ported")])
 def test_study_options_not_ported_raise(kw, item):
     _, tgp = _gp_pair(12)
