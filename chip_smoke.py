@@ -10,8 +10,10 @@ script exits non-zero before its last line):
      the three shapes of the JAX package's kernel test, at Nt=300 (across
      the kernel's shared-memory chunks) and at B=1024 (Nt=20, and the
      batched study's Nt=8), at the car's
-     (nx, nu) = (6, 2) with Nt=20 at B=1 and 64 and Nt=300, plus an
-     indefinite and a zero H_uu pivot at the default shapes and at (6, 2)
+     (nx, nu) = (6, 2) with Nt=20 at B=1 and 64 and Nt=300, at the
+     four-tank MHE's (4, 4) with Nt=5, Nt=20 at B=64 and Nt=300 (the
+     pre-built shapes, cuda_kernels.RICCATI_SHAPES), plus an indefinite
+     and a zero H_uu pivot at the default shapes, at (6, 2) and at (4, 4)
      (non-finite gains);
   4. K2 (RK4 substeps) against its plain version: one rollout, eight (one
      of them also at n_sub=7, the run-time loop, with a drained tank on
@@ -23,8 +25,8 @@ script exits non-zero before its last line):
      from X0 to XSP; launch counts exact, values finite, the tracked
      tanks at their setpoint; each control step of the loop against the
      same step on the CPU (replay_against_cpu); realized cost over the
-     first ANCHOR_STEPS = 3 steps against the converged (al4 x mi20)
-     budget's (cut from 30 steps to make room for the car);
+     first ANCHOR_STEPS = 2 steps against the converged (al4 x mi20)
+     budget's (cut from 30 steps to make room for the later phases);
   6. per-step time, a torch.profiler trace of three control steps (device
      kernels and device time per step, the device's busy share);
   7. K4 (SE-ARD Gram), K5 (Cholesky) and K3 (batched GP predict) against
@@ -46,8 +48,8 @@ script exits non-zero before its last line):
      (generate_training_data, one K2 launch), validate of the card-trained
      and the fixture GP (one K3 launch each), the trained GP's SMSE within
      1.5x the fixture GP's on every dim;
- 10. the card-trained GP in the 30-step RTI loop from X0: finite, at the
-     setpoint, realized cost within 10% of phase 5's;
+ 10. the card-trained GP in a 20-step RTI loop from X0: finite, at the
+     setpoint, realized cost within 10% of phase 5's over the same steps;
  11. kernel, device (torch.profiler), plain-version and library-call
      times of all five kernels at their paths' shapes beside each one's
      bound, K5 also at N = 500 to 2048, with the card's name and power
@@ -67,12 +69,12 @@ script exits non-zero before its last line):
      car fixture GP (N=80, D=6, Ny=4), EM propagation, the hybrid
      discretization, the delta-u penalty, two ellipse obstacles as user
      constraints with per-solve parameters, Nt=20, the RTI preset, f32; a
-     40-step closed loop from x0 through MPC.solve: launch counts exact,
+     30-step closed loop from x0 through MPC.solve: launch counts exact,
      values finite, px past the second obstacle, the clearance (min
      ellipse metric, floor 0.9; bench.py's 0.995 reported), ten steps
      replayed on the CPU (the first four and the three nearest each
      obstacle), ms per control step by CUDA events, a torch.profiler
-     trace of three steps (device activity only);
+     trace of one step (device activity only);
  13. the car's validation: 200 held-out points in its training box,
      targets integrate - rk4 through the fused plant (one K2 Car launch),
      the fixture GP's validate (one K3 launch), SMSE within 1.5x of the
@@ -96,7 +98,7 @@ script exits non-zero before its last line):
  15. slice F, part 1, at the main path's full width (the fixture GP,
      Nt=20, percentile 0.95, feedback, cov_updates=1, RTI, the fused
      plant, f32): (a) UT and (b) GH at order 3 (the 729-point tensor
-     grid), each a 30-step closed loop from X0: launch counts exact (K3
+     grid), each a 12-step closed loop from X0: launch counts exact (K3
      once per stage per covariance pass, K1 4 and K2 1 a step), finite,
      at the setpoint, the first four steps replayed on the CPU, the last
      step's stage 5 propagated on the card with no host sync and held
@@ -106,13 +108,37 @@ script exits non-zero before its last line):
      the card with no host sync against the CPU in f64, Sigma_y PSD; (d)
      the Matérn-5/2 and -3/2 fits with the fixture's recipe: one K5 and no
      K4 per evaluation, three K5 per posterior, each dim's NLL (f64, CPU)
-     within 0.1 of the port's f64 CPU fit; (e) a 30-step Matérn-5/2 TA
+     within 0.1 of the port's f64 CPU fit; (e) a 12-step Matérn-5/2 TA
      loop with the card-fitted GP; (f) a 10-step loop with soft state
      boxes, lam with the terminal constraint (an empty terminal block) and
      an (M, Nx) ramp reference, every step replayed on the CPU.
-Phases 12-15 run before phase 11, whose JSON rows carry their launch
+ 16. slice F, part 2a, in f32 on the card: (a) the output-feedback
+     golden's configuration (tests/golden_configs.py, run_mhe_golden) on
+     the fixture GP: simulate_output_feedback for 8 steps with the
+     golden's noise, the MHE (window 4, two levels measured, GP
+     dynamics, the filtered arrival cost; al2 x mi5) through K1 at (4, 4),
+     the TA MPC (Nt = 5, RTI after a fused al2 x mi10 cold start) through
+     K1 at (4, 2), the fused plant through K2: launch counts exact by
+     shape, states and estimates finite, every step's MHE window and MPC
+     solve replayed on the CPU, one more MHE step with no host sync, the
+     estimate error per step, ms per MHE and per MPC step; (b) K1 built at
+     its first launch at (3, 3): the linear MHE of tests/test_mhe.py
+     filtering 12 measurements (exact launches, against the CPU), K1 at
+     (3, 3) and (4, 4) against the plain version at B = 1 and under vmap
+     at B = 64, a zero and an indefinite pivot at both, pairs past the
+     lane limits raising before any launch, the build's seconds; (c) the
+     quadrotor golden's configuration (run_quad_golden): its residual GP
+     fitted on the card on 40 points drawn in its box (exact K4 and K5
+     launches), validated on 200 fresh points (one K3; SMSE per dim), 10
+     hybrid solve_steps on the 1.3 kg plant through K1 at (6, 2) (exact
+     launches, every step replayed on the CPU), the same loop with the
+     nominal model alone, the final position errors and each model's
+     one-step prediction error on the heavy plant's transitions.
+Phases 12-16 run before phase 11, whose JSON rows carry their launch
 counts (K1 at (1024, 8, 4, 2) and K2 at B=1024 get rows of their own, as
-do K3 at the UT and GH sigma points and K5 under the Matérn-5/2 fit).
+do K3 at the UT and GH sigma points, K5 under the Matérn-5/2 fit, and K1
+at (4, 4) under the MHE, at (3, 3) built on demand and at (6, 2) under the
+quadrotor).
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with the kernels' rows, and {"ok": true, "device": {...}}.
 
@@ -131,7 +157,8 @@ each other (the crossover ``gp_cuda`` sets);
 (another version of that kernel's source with the same C interface, e.g.
 the parent commit's, written out with ``git show``) into its own library,
 checks it against the plain version, and times it in turns with the
-repository's kernel (other, repo, repo, other) at phase 11's shapes; for
+repository's kernel (other, repo, repo, other) at phase 11's shapes (for
+k1 also each pre-built (nx, nu) of both builds, bitwise); for
 k2 it also writes both builds' SASS (cuobjdump) under the build
 directory, counts the K2 kernels' instructions by opcode and reads the
 repository K2's chain in SM cycles;
@@ -139,7 +166,8 @@ repository K2's chain in SM cycles;
 and phase 11's K1 lines alone, and with OTHER_SRC is ``--compare k1``;
 ``python3 chip_smoke.py --study`` runs phases 1-2 and 14 and the study's
 kernel rows alone; ``python3 chip_smoke.py --slice-f`` phases 1-2 and 15
-and their kernel rows;
+and their kernel rows; ``python3 chip_smoke.py --slice-f2`` phases 1-2
+and 16 and their kernel rows;
 ``python3 chip_smoke.py --build-times`` times the kernels' build, one
 ``nvcc`` over all sources against one per source at once.
 The script imports no JAX.
@@ -158,8 +186,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_STEPS = 30
 #: steps of phase 5's converged (al4 x mi20) anchor, compared with the
 #: first ANCHOR_STEPS of the RTI loop: cut from N_STEPS to make room for
-#: the car's phases within the smoke's time
-ANCHOR_STEPS = 3
+#: the car's phases within the smoke's time (3 until phase 16 came)
+ANCHOR_STEPS = 2
+#: steps of phase 10's loop with the card-trained GP (the main path is
+#: within 0.01 of its setpoint by step 10; 30 until the smoke passed 900 s
+#: with phase 16)
+TRAINED_STEPS = 20
 RTI = dict(al_iters=2, max_iters=2, ls_steps=8, penalty_init=1e3,
            fused_kkt=True)
 CONVERGED = dict(al_iters=4, max_iters=20, fused_kkt=True)
@@ -169,13 +201,17 @@ GP_OPTS = dict(jitter=1e-5, min_noise=1e-4)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 #: the car bench (bench config 4): control period, the closed loop's steps
-#: (both obstacles are behind the car by step ~30), the steps replayed on
-#: the CPU besides the first ones, and the clearance floor of this smoke
+#: (the second obstacle's far edge, px = 13.5, is passed by step ~25; 40
+#: until the smoke passed 900 s with phase 16), the steps replayed on the
+#: CPU besides the first ones, and the clearance floor of this smoke
 #: (below the JAX package's own f64 reading, 0.946, far above a loop that
 #: drives through an obstacle, ~0.1-0.5); bench.py's gate is 0.995
 CAR_DT = 0.1
-CAR_STEPS = 40
+CAR_STEPS = 30
 CAR_NEAREST = 3
+#: car steps under torch.profiler (three until the smoke passed 900 s:
+#: ~20 s of wall a profiled car step)
+CAR_PROFILED = 1
 CAR_CLEARANCE_FLOOR = 0.9
 CAR_BENCH_GATE = 0.995
 #: bound of the car replay's next-state difference, card vs CPU, per step
@@ -340,10 +376,18 @@ def check_kernels(ck, four_tank_ode, dev):
         log(f"[K1] B={batch or 1}, (Nt,nx,nu)=({nt},6,2) max|err| {err:.3e}")
         if (nt, batch) == (20, None):
             CAR_ERRS["riccati_sweep"] = err
+    # the four-tank MHE's (4, 4) (its NLP's input slot carries the 4
+    # process noises): its window's Nt=5, a batch, a horizon across the
+    # chunks
+    for nt, batch in [(5, None), (20, 64), (300, None)]:
+        err = ck.check_riccati_sweep(
+            ck.stage_qp_inputs(nt, 4, 4, nt + 4, batch, device=dev),
+            torch.full(() if batch is None else (batch,), 1e-6, device=dev))
+        log(f"[K1] B={batch or 1}, (Nt,nx,nu)=({nt},4,4) max|err| {err:.3e}")
     # bad pivots without regularization: non-finite gains, so ok=False
     # upstream
     for kind in ("indefinite", "zero"):
-        for shape in (None, (20, 6, 2)):
+        for shape in (None, (20, 6, 2), (5, 4, 4)):
             ck.check_riccati_sweep_bad_pivot(kind, device=dev, shape=shape)
             torch.cuda.synchronize()
             log(f"[K1] {kind} H_uu pivot at (Nt,nx,nu)="
@@ -998,7 +1042,7 @@ def car_loop(ck, dev, card):
     per inner SQP step, no K2: the plant is unfused), finite values, px
     past the second obstacle, the clearance, ten steps replayed on the CPU
     (:func:`car_replay`), ms per control step by CUDA events and a
-    torch.profiler trace of three steps (device activity only: with the
+    torch.profiler trace of CAR_PROFILED steps (device activity only: with the
     CPU ops, reading back a car step's trace took minutes).  Returns the
     loop's launches."""
     from gpmpc_tpu_torch.systems import CAR_OBSTACLES, CAR_X0, CAR_XSP
@@ -1077,14 +1121,14 @@ def car_loop(ck, dev, card):
                                     u_prev=state["u"], con_par=con_par)
         state.update(u=u, warm=w, x=mpc.model.integrate(state["x"], u))
 
-    prof = profile_steps(step, cpu_ops=False)
+    prof = profile_steps(step, n=CAR_PROFILED, cpu_ops=False)
     log(f"[profile] per car control step: {prof['kernels_per_step']:.0f} "
         f"device kernels, {prof['device_ms_per_step']:.3f} ms device time, "
         f"{prof['wall_ms_per_step']:.3f} ms wall under the profiler; device "
         f"busy {100 * prof['busy_share']:.2f}% on {card}")
     for name, count, us_ in prof["top"]:
-        log(f"[profile]   {name:60s} {count:6d} launches/3 steps "
-            f"{us_:9.1f} us/step")
+        log(f"[profile]   {name:60s} {count:6d} launches/{CAR_PROFILED} "
+            f"step(s) {us_:9.1f} us/step")
     return launches
 
 
@@ -1649,7 +1693,7 @@ def study_kernel_rows(ck, dev, card, launches, res_a, sources):
 #: step whose propagation is held card against CPU, and the cubature5 GP
 #: (numpy-seeded, the quadrotor's hybrid input and output widths D = 8,
 #: Ny = 6 at the fixture's N = 100)
-F_STEPS = 30
+F_STEPS = 12
 F_REPLAY = 4
 F_SOFT_STEPS = 10
 F_STAGE = 5
@@ -2118,6 +2162,542 @@ def slice_f_alone():
     return 0
 
 
+# ------------------------------------------------------------ phase 16
+
+#: phase 16 (a): tests/golden_configs.py's output-feedback configuration
+#: (run_mhe_golden) at its widths on the fixture GP, f32 on the card, with
+#: budgets that fit the smoke (the golden runs the converged defaults in
+#: f64): the MHE window al2 x mi5, the MPC the main path's RTI budget
+#: after a fused al2 x mi10 cold start; the golden's start, prior,
+#: setpoint and noise (numpy, seed 23)
+OFB_STEPS = 8
+OFB_X0 = np.array([8.0, 9.0, 1.0, 1.0])
+OFB_XBAR = OFB_X0 + np.array([0.5, -0.5, 0.2, 0.2])
+OFB_XSP = np.array([12.4, 12.7, 1.8, 1.4])
+OFB_MHE_OPTS = dict(al_iters=2, max_iters=5, fused_kkt=True)
+OFB_MPC_INIT = dict(al_iters=2, max_iters=10, fused_kkt=True)
+#: phase 16 (b): the linear 3-state MHE of tests/test_mhe.py (its NLP is
+#: K1 at (3, 3), built at first use): window 2, LIN_STEPS measurements
+LIN_STEPS = 12
+LIN_MHE_OPTS = dict(al_iters=1, max_iters=3, fused_kkt=True)
+#: phase 16 (c): tests/golden_configs.py's quadrotor (run_quad_golden):
+#: control period, steps, the training box, start and setpoint; the
+#: in-loop budget is the "rti" preset cut to 6 inner steps (the golden
+#: runs the converged defaults in f64; at the preset's 12, 10 steps of
+#: both loops took 56 s on an H100 80GB HBM3 at 700 W)
+QUAD_DT = 0.05
+QUAD_OPTS = dict(al_iters=2, max_iters=6, penalty_init=100.0,
+                 penalty_mult=30.0, merit_viol=10.0, fused_kkt=True)
+QUAD_STEPS = 10
+QUAD_X_LO = np.array([-2.0, 0.0, -0.4, -1.5, -1.5, -1.0])
+QUAD_X_HI = np.array([3.0, 3.0, 0.4, 1.5, 1.5, 1.0])
+QUAD_X0 = np.array([0.0, 1.0, 0.0, 0.0, 0.0, 0.0])
+QUAD_XSP = np.array([1.5, 2.0, 0.0, 0.0, 0.0, 0.0])
+
+
+def build_tank_ofb(dev, gp=None):
+    """Phase 16 (a)'s plant, estimator and controller on ``dev``: the
+    fused four-tank plant (R = 1e-3 I), the fixture GP (or ``gp``), the
+    MHE (window 4, the lower two levels measured, GP dynamics, the
+    filtered arrival cost, estimates >= 0) and the TA MPC with tightening
+    and feedback at Nt = 5, both with fused_kkt."""
+    from gpmpc_tpu_torch import MHE, MPC, Model
+    from gpmpc_tpu_torch.models.convert import gp_from_fixture
+    from gpmpc_tpu_torch.systems import four_tank_ode
+
+    model = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=3.0,
+                  R=np.diag([1e-3] * 4), clip_negative=True,
+                  integrator_substeps=10, fused_integrator=True, device=dev,
+                  dtype=torch.float32)
+    if gp is None:
+        gp = gp_from_fixture(device=dev, dtype=torch.float32,
+                             gp_method="TA", optimizer_opts=GP_OPTS)
+    c = torch.tensor([[1.0, 0, 0, 0], [0, 1.0, 0, 0]], device=dev)
+    mhe = MHE(model, gp, window=4, Q_noise=model.R,
+              R_meas=np.diag([2.5e-3, 2.5e-3]), P_arrival=np.diag([0.5] * 4),
+              h=lambda x: c @ x, xlb=[0.0] * 4, discrete_method="gp",
+              arrival_update=True, solver_opts=OFB_MHE_OPTS)
+    mpc = MPC(horizon=5 * 3.0, model=model, gp=gp, gp_method="TA",
+              discrete_method="gp", Q=np.diag([10.0, 10.0, 0.1, 0.1]),
+              R=0.01 * np.eye(2), ulb=[0.0, 0.0], uub=[8.0, 8.0],
+              xlb=[0.5, 0.5, 0.1, 0.1], xub=[14.0, 25.0, 8.0, 8.0],
+              percentile=0.95, feedback=True, cov_updates=2,
+              solver_opts=RTI, init_solver_opts=OFB_MPC_INIT, device=dev)
+    return mhe, mpc
+
+
+class CallRecorder:
+    """Wraps ``obj.<name>`` while a loop runs: keeps each call's arguments
+    and result, and CUDA events around it (``.ms()``: ms per call)."""
+
+    def __init__(self, obj, name):
+        self.calls, self.outs, self.events = [], [], []
+        inner = getattr(obj, name)
+
+        def call(*args, **kw):
+            if kw.get("cfg") is not None:       # a cold start: not a step
+                return inner(*args, **kw)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = inner(*args, **kw)
+            ev[1].record()
+            self.calls.append(args)
+            self.outs.append(out)
+            self.events.append(ev)
+            return out
+
+        setattr(obj, name, call)
+
+    def ms(self):
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def ofb_loop(ck, dev, card):
+    """Phase 16 (a): simulate_output_feedback of the tank on the card,
+    OFB_STEPS steps: exact launch counts (K1 at (4, 4) al x mi a MHE step,
+    K1 at (4, 2) cov_updates x al x mi a control step and in the cold
+    start, K2 once a step), finite states and estimates, every step's MHE
+    window and MPC solve replayed on the CPU in f32 from the card's
+    inputs (estimate and next state within rtol 1e-2 over the first
+    TRANSIENT_STEPS steps, 1e-3 after), one more MHE step with no host
+    sync, the estimate error per step, ms per MHE and per MPC step by
+    CUDA events.  Returns K1 (4, 4)'s launches."""
+    from gpmpc_tpu_torch import simulate_output_feedback
+    mhe, mpc = build_tank_ofb(dev)
+    mrec = CallRecorder(mhe, "_step")
+    prec = CallRecorder(mpc, "_solve_step")
+    rng = np.random.default_rng(23)
+    noise_w = 0.01 * rng.standard_normal((OFB_STEPS, 4))
+    noise_v = 0.05 * rng.standard_normal((OFB_STEPS, 2))
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res = simulate_output_feedback(mpc, mhe, OFB_X0, OFB_XBAR,
+                                   OFB_STEPS * mpc.dt, OFB_XSP,
+                                   noise_w=noise_w, noise_v=noise_v)
+    wall = time.perf_counter() - t0
+    launches, by_shape = dict(ck.LAUNCHES), dict(ck.RICCATI_LAUNCHES)
+    m_cfg, cfg, init = mhe.sqp_cfg, mpc.sqp_cfg, mpc.init_sqp_cfg
+    passes = max(mpc.cov_updates, 1)
+    expect = {(4, 4): OFB_STEPS * m_cfg.al_iters * m_cfg.max_iters,
+              (4, 2): passes * (init.al_iters * init.max_iters
+                                + OFB_STEPS * cfg.al_iters * cfg.max_iters)}
+    expect_all = {"riccati_sweep": sum(expect.values()),
+                  "rk4_substeps": OFB_STEPS, "se_ard_gram": 0, "cholesky": 0,
+                  "gp_predict_batch": 0}
+    log(f"[slice F2] (a) output-feedback loop, {OFB_STEPS} steps (fixture "
+        f"GP, MHE window {mhe.M} al{m_cfg.al_iters} x mi{m_cfg.max_iters}, "
+        f"MPC Nt={mpc.Nt} RTI x {passes} covariance passes after an "
+        f"al{init.al_iters} x mi{init.max_iters} cold start, fused plant, "
+        f"f32): {wall:.3f} s; K1 launches by (nx, nu) {by_shape}, expected "
+        f"{expect}; all launches {launches}, expected {expect_all}")
+    if by_shape != expect or launches != expect_all:
+        raise AssertionError("output-feedback launch counts are off")
+    if not all(np.all(np.isfinite(v)) for v in (res.x_true, res.x_hat,
+                                                  res.u)):
+        raise AssertionError("non-finite output-feedback loop")
+    err = np.linalg.norm(res.x_hat - res.x_true[:-1], axis=1)
+    m_ms, p_ms = mrec.ms(), prec.ms()
+    log(f"[slice F2] (a) |x_hat - x| per step {np.round(err, 5).tolist()}; "
+        f"final state {res.x_true[-1].tolist()}, setpoint "
+        f"{OFB_XSP.tolist()}; MHE converged {int(res.mhe_converged.sum())}"
+        f"/{OFB_STEPS}, MPC {int(res.mpc_converged.sum())}/{OFB_STEPS}; "
+        f"ms per MHE step (CUDA events) mean {np.mean(m_ms):.3f}, median "
+        f"{np.median(m_ms):.3f}; per MPC step mean {np.mean(p_ms):.3f}, "
+        f"median {np.median(p_ms):.3f} on {card}")
+    t0 = time.perf_counter()
+    cpu_mhe, cpu_mpc = build_tank_ofb(torch.device("cpu"),
+                                      gp=to_cpu_gp(mpc.gp))
+    cpu_mhe.consts, cpu_mpc.consts = to_cpu(mhe.consts), to_cpu(mpc.consts)
+    sigma0 = torch.zeros(4, 4)
+    worst = [[0.0, 0.0], [0.0, 0.0]]          # [estimate, next state]
+    for k in range(OFB_STEPS):
+        state, y, u_prev = mrec.calls[k]
+        _, (x_hat_c, _) = cpu_mhe._step(to_cpu(state), y.cpu(),
+                                        u_prev.cpu())
+        rel_hat = float(((mrec.outs[k][1][0].cpu() - x_hat_c).abs()
+                         / x_hat_c.abs()).max())
+        warm, x_hat, x_sp, u_prev, _, con_par, _ = prec.calls[k]
+        _, u_c, _, _ = cpu_mpc._solve_step(
+            to_cpu(warm), x_hat.cpu(), x_sp.cpu(), u_prev.cpu(), sigma0,
+            con_par.cpu(), cpu_mpc.consts)
+        u_c = cpu_mpc._saturate(u_c, u_prev.cpu(), cpu_mpc.consts)
+        x_c = torch.clamp(cpu_mpc.model.integrate(
+            torch.tensor(res.x_true[k]), u_c)
+            + torch.tensor(noise_w[k], dtype=torch.float32), min=0.0)
+        rel = float((torch.tensor(res.x_true[k + 1]) - x_c).abs().div(
+            x_c.abs()).max())
+        phase = int(k >= TRANSIENT_STEPS)
+        worst[phase] = [max(worst[phase][0], rel_hat),
+                        max(worst[phase][1], rel)]
+    log(f"[slice F2] (a) every step replayed on the CPU in f32 from the "
+        f"card's inputs ({time.perf_counter() - t0:.1f} s): max relative "
+        f"difference of the estimate / the next state {worst[0][0]:.3e} / "
+        f"{worst[0][1]:.3e} in the first {TRANSIENT_STEPS} steps (rtol "
+        f"1e-2), {worst[1][0]:.3e} / {worst[1][1]:.3e} after (rtol 1e-3)")
+    if max(worst[0]) > 1e-2 or max(worst[1]) > 1e-3:
+        raise AssertionError("card and CPU output-feedback steps disagree")
+    # one more MHE step, with no host sync
+    state, y, u_prev = mrec.calls[-1]
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = mhe._step(state, y, u_prev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    k1 = dict(ck.RICCATI_LAUNCHES)
+    log(f"[slice F2] (a) one MHE step under set_sync_debug_mode('error'): "
+        f"no host sync; K1 launches {k1}")
+    if k1 != {(4, 4): m_cfg.al_iters * m_cfg.max_iters} or not bool(
+            torch.all(torch.isfinite(out[1][0]))):
+        raise AssertionError("the MHE step without host sync is off")
+    return expect[(4, 4)]
+
+
+def to_cpu_gp(gp):
+    """A CPU GP of ``gp``'s training set, hypers and options (its posterior
+    recomputed on the CPU: callers replace the constants they compare
+    with the card's)."""
+    from gpmpc_tpu_torch.models.convert import gp_from_numpy, \
+        hypers_to_numpy
+    return gp_from_numpy(gp.X_raw.cpu().numpy(), gp.Y_raw.cpu().numpy(),
+                         **hypers_to_numpy(gp.hyper), device="cpu",
+                         dtype=gp.dtype, gp_method=gp.gp_method,
+                         optimizer_opts=GP_OPTS)
+
+
+def linear_mhe(dev):
+    """Phase 16 (b)'s estimator: tests/test_mhe.py's stable linear 3-state
+    system (dt = 0.1, R = 1e-4 I), the first two states measured, window
+    2, rk4, fused_kkt: its NLP's KKT solve is K1 at (3, 3)."""
+    from gpmpc_tpu_torch import MHE, Model
+    a = torch.tensor([[-0.6, 0.3, 0.0], [0.0, -0.4, 0.2], [0.1, 0.0, -0.5]],
+                     device=dev)
+    b = torch.tensor([[0.5], [0.0], [0.3]], device=dev)
+    c = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], device=dev)
+    model = Model(Nx=3, Nu=1, ode=lambda x, u: a @ x + b @ u, dt=0.1,
+                  R=np.eye(3) * 1e-4, device=dev, dtype=torch.float32)
+    return MHE(model, window=2, Q_noise=1e-3 * np.eye(3),
+               R_meas=np.diag([4e-2, 1e-2]), P_arrival=0.5 * np.eye(3),
+               h=lambda x: c @ x, solver_opts=LIN_MHE_OPTS)
+
+
+def linear_record(n, seed=16):
+    """``n`` measurements of phase 16 (b)'s system from numpy draws (the
+    plant stepped by the model's RK4 map in f64 on the CPU, process noise
+    1e-3 I, measurement noise diag(4e-2, 1e-2)): x_true (n, 3), us (n-1,
+    1), ys (n, 2)."""
+    rng = np.random.default_rng(seed)
+    mhe = linear_mhe(torch.device("cpu"))
+    x = np.array([0.3, -0.2, 0.25])
+    xs, us = [x], rng.uniform(-1.0, 1.0, (n - 1, 1))
+    for k in range(n - 1):
+        x = mhe.model.rk4(torch.tensor(x, dtype=torch.float32),
+                          torch.tensor(us[k], dtype=torch.float32))
+        x = x.double().numpy() + rng.multivariate_normal(np.zeros(3),
+                                                         1e-3 * np.eye(3))
+        xs.append(x)
+    xs = np.stack(xs)
+    ys = xs[:, :2] + rng.multivariate_normal(np.zeros(2),
+                                             np.diag([4e-2, 1e-2]), size=n)
+    return xs, us, ys
+
+
+def k1_on_demand(ck, dev, card):
+    """Phase 16 (b): K1 at pairs not pre-built and at (4, 4): the linear
+    MHE filtering LIN_STEPS measurements on the card through K1 at (3, 3),
+    built at its first launch (exact launches; against the same filter on
+    the CPU within 1e-3 of 1 + |x|); K1 at (3, 3) and (4, 4) against the
+    plain version at B = 1 and under vmap at B = 64; a zero and an
+    indefinite H_uu pivot at both (non-finite gains); pairs past the lane
+    limits raising before any launch.  Returns (3, 3)'s path launches, its
+    build seconds and the max abs errors by pair."""
+    built_before = (3, 3) in ck.RICCATI_BUILDS
+    xs, us, ys = linear_record(LIN_STEPS)
+    mhe = linear_mhe(dev)
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    x_hat = mhe.run(np.zeros(3), ys, us)
+    wall = time.perf_counter() - t0
+    by_shape = dict(ck.RICCATI_LAUNCHES)
+    cfg = mhe.sqp_cfg
+    expect = {(3, 3): LIN_STEPS * cfg.al_iters * cfg.max_iters}
+    build = ck.RICCATI_BUILDS[(3, 3)]
+    ref = linear_mhe(torch.device("cpu")).run(np.zeros(3), ys, us)
+    gap = float(((x_hat.cpu() - ref).abs() / (1.0 + ref.abs())).max())
+    log(f"[slice F2] (b) linear MHE, {LIN_STEPS} measurements, window "
+        f"{mhe.M}, al{cfg.al_iters} x mi{cfg.max_iters}, f32: {wall:.3f} s "
+        f"(K1 at (3, 3) built at its first launch "
+        f"{'before this phase' if built_before else 'here'} in "
+        f"{build['seconds']:.2f} s -> {build['path']}); K1 launches "
+        f"{by_shape}, expected {expect}; against the CPU max |diff| / "
+        f"(1 + |x|) {gap:.3e} (<= 1e-3); RMS error against the truth "
+        f"{float(np.sqrt(np.mean((x_hat.cpu().numpy() - xs) ** 2))):.4f}")
+    for line in build["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build (3, 3)] {line.strip()}")
+    if by_shape != expect or gap > 1e-3:
+        raise AssertionError("the linear MHE through K1 at (3, 3) is off")
+    errs = {}
+    for nx, nu, nt in [(3, 3, 3), (4, 4, 5)]:
+        for batch in (None, 64):
+            args = ck.stage_qp_inputs(nt, nx, nu, nt + batch if batch else
+                                      nt, batch, device=dev)
+            reg = torch.full(() if batch is None else (batch,), 1e-6,
+                             device=dev)
+            before = ck.RICCATI_LAUNCHES.get((nx, nu), 0)
+            err = ck.check_riccati_sweep(args, reg, vmapped=batch is not None)
+            torch.cuda.synchronize()
+            if ck.RICCATI_LAUNCHES[(nx, nu)] != before + 1:
+                raise AssertionError("K1's check did not launch once")
+            log(f"[slice F2] (b) K1 ({nx}, {nu}) "
+                f"{'B=1' if batch is None else f'vmapped B={batch}'}, "
+                f"Nt={nt}: max|err| {err:.3e} against the plain version "
+                f"(one launch), layout {ck.riccati_layout(nx, nu)} (chunk, "
+                f"bytes a warp, warps a block)")
+            errs.setdefault((nx, nu), err)
+        for kind in ("zero", "indefinite"):
+            ck.check_riccati_sweep_bad_pivot(kind, device=dev,
+                                             shape=(8, nx, nu))
+            torch.cuda.synchronize()
+        log(f"[slice F2] (b) K1 ({nx}, {nu}): a zero and an indefinite H_uu "
+            f"pivot -> non-finite gains: ok")
+    for nx, nu in [(31, 2), (4, 33)]:
+        before = ck.LAUNCHES["riccati_sweep"]
+        try:
+            ck.riccati_sweep(*ck.stage_qp_inputs(4, nx, nu, 0, device=dev),
+                             torch.tensor(1e-6, device=dev))
+        except ValueError as e:
+            log(f"[slice F2] (b) K1 ({nx}, {nu}) raises before any launch: "
+                f"{e}")
+        else:
+            raise AssertionError(f"K1 ({nx}, {nu}) did not raise")
+        if ck.LAUNCHES["riccati_sweep"] != before:
+            raise AssertionError("an over-limit pair launched")
+    return expect[(3, 3)], build["seconds"], errs
+
+
+def quad_models(dev):
+    """The quadrotor golden's nominal model (QUAD_PARAMS) and true plant
+    (m = 1.3), f32, unfused (no K2 functor)."""
+    from gpmpc_tpu_torch import Model
+    from gpmpc_tpu_torch.systems import QUAD_PARAMS, planar_quadrotor_ode
+    heavy = dict(QUAD_PARAMS, m=1.3)
+    kw = dict(Nx=6, Nu=2, dt=QUAD_DT, R=np.diag([1e-8] * 6),
+              integrator_substeps=4, device=dev, dtype=torch.float32)
+    return (Model(ode=planar_quadrotor_ode, **kw),
+            Model(ode=lambda x, u: planar_quadrotor_ode(x, u, heavy), **kw))
+
+
+def build_quad(dev, gp, method):
+    """The quadrotor golden's controller on ``dev``: Nt = 8, TA, no
+    tightening or feedback, ``method`` 'hybrid' (the nominal model plus
+    ``gp``'s residual) or 'rk4' (the nominal model alone), QUAD_OPTS
+    after a "robust" cold start (K1 at (6, 2))."""
+    from gpmpc_tpu_torch import MPC
+    nominal, _ = quad_models(dev)
+    return MPC(horizon=8 * QUAD_DT, model=nominal,
+               gp=gp if method == "hybrid" else None, gp_method="TA",
+               discrete_method=method,
+               Q=np.diag([10.0, 30.0, 2.0, 1.0, 1.0, 0.2]),
+               R=0.02 * np.eye(2), ulb=[0.0, 0.0], uub=[10.0, 10.0],
+               xlb=[-5.0, 0.2, -1.0, -5.0, -5.0, -6.0],
+               xub=[5.0, 5.0, 1.0, 5.0, 5.0, 6.0], feedback=False,
+               percentile=None, cov_updates=1, solver_opts=QUAD_OPTS,
+               init_solver_opts="robust", device=dev)
+
+
+def quad_data(dev, n, seed):
+    """``n`` points uniform in the quadrotor golden's box (thrusts in
+    [2, 9]) from a generator on ``dev`` seeded ``seed``, and their
+    residual targets plant step - nominal RK4 step."""
+    nominal, plant = quad_models(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(dtype=torch.float32, device=dev)
+    lo, hi = (torch.tensor(v, **kw) for v in (QUAD_X_LO, QUAD_X_HI))
+    x = lo + (hi - lo) * torch.rand((n, 6), generator=g, **kw)
+    u = 2.0 + 7.0 * torch.rand((n, 2), generator=g, **kw)
+    return (torch.cat([x, u], dim=1),
+            plant.integrate(x, u) - nominal.rk4(x, u))
+
+
+def quad_loop(ck, mpc, dev, tag):
+    """QUAD_STEPS solve_steps of ``mpc`` on the true plant from hover at
+    QUAD_X0: exact K1 (6, 2) launches (the cold start's al x mi, then the
+    RTI budget's a step), finite; returns the states, the inputs and each
+    step's (state, warm start, last input)."""
+    _, plant = quad_models(dev)
+    init, cfg = mpc.init_sqp_cfg, mpc.sqp_cfg
+    ck.reset_launches()
+    x = torch.as_tensor(QUAD_X0, dtype=torch.float32, device=dev)
+    warm, u_prev, rec = None, None, []
+    xs, us = [x], []
+    t0 = time.perf_counter()
+    for _ in range(QUAD_STEPS):
+        rec.append((x, warm, u_prev))
+        u_prev, warm, _, _ = mpc.solve_step(x, QUAD_XSP, warm=warm,
+                                            u_prev=u_prev)
+        x = plant.integrate(x, u_prev)
+        xs.append(x)
+        us.append(u_prev)
+    xs = torch.stack(xs).cpu().numpy()
+    wall = time.perf_counter() - t0
+    by_shape = dict(ck.RICCATI_LAUNCHES)
+    expect = {(6, 2): init.al_iters * init.max_iters
+              + (QUAD_STEPS - 1) * cfg.al_iters * cfg.max_iters}
+    log(f"[slice F2] (c) quadrotor, {tag}: {QUAD_STEPS} solve_steps "
+        f"({wall:.3f} s, cold start al{init.al_iters} x mi{init.max_iters}, "
+        f"then al{cfg.al_iters} x mi{cfg.max_iters}); K1 launches "
+        f"{by_shape}, expected {expect}; final state {xs[-1].tolist()}")
+    if by_shape != expect or ck.LAUNCHES["rk4_substeps"] != 0:
+        raise AssertionError(f"quadrotor ({tag}) launch counts are off")
+    if not np.all(np.isfinite(xs)):
+        raise AssertionError(f"non-finite quadrotor loop ({tag})")
+    return xs, torch.stack(us).cpu().numpy(), rec, expect[(6, 2)]
+
+
+def quad_phase(ck, dev, card):
+    """Phase 16 (c): the quadrotor's hybrid mismatch on the card: the
+    residual GP fitted on 40 points drawn in the golden's box (exact K4
+    and K5 launches), validated on 200 fresh points (one K3 launch, SMSE
+    per dim), QUAD_STEPS hybrid solve_steps on the 1.3 kg plant with every
+    step replayed on the CPU in f32 (next state within 1e-2 of 1 + |x| in
+    the first TRANSIENT_STEPS steps, 1e-3 after), and the same loop with
+    the nominal model alone ('rk4'); the final position error of both.
+    Returns K1 (6, 2)'s launches in the hybrid loop."""
+    from gpmpc_tpu_torch import GP
+    x, y = quad_data(dev, 40, 0)
+    ck.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gp = GP(x, y, mean_func="zero", gp_method="TA", multistart=2,
+            max_iters=150, seed=1, optimizer_opts=GP_OPTS, device=dev,
+            dtype=torch.float32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    expect = {"riccati_sweep": 0, "rk4_substeps": 0,
+              "se_ard_gram": gp.n_evals + 1, "cholesky": gp.n_evals + 3,
+              "gp_predict_batch": 0}
+    log(f"[slice F2] (c) residual GP (40 points, D=8, Ny=6) fitted on the "
+        f"card: {wall:.3f} s, {gp.n_evals} batched evaluations; launches "
+        f"{launches}, expected {expect}")
+    if launches != expect:
+        raise AssertionError("quadrotor GP fit launch counts are off")
+    xt, yt = quad_data(dev, 200, 1)
+    ck.reset_launches()
+    smse, _, _ = gp.validate(xt, yt, verbose=False)
+    log(f"[slice F2] (c) residual GP SMSE per output dim on 200 fresh "
+        f"points {np.round(smse, 5).tolist()}; K3 launches "
+        f"{ck.LAUNCHES['gp_predict_batch']} (expected 1)")
+    if ck.LAUNCHES["gp_predict_batch"] != 1 or not np.all(
+            np.isfinite(smse)):
+        raise AssertionError("quadrotor GP validation is off")
+    mpc = build_quad(dev, gp, "hybrid")
+    xs, us, rec, k1 = quad_loop(ck, mpc, dev, "hybrid, the fitted residual")
+    xs_n, _, _, _ = quad_loop(ck, build_quad(dev, None, "rk4"), dev,
+                              "rk4, the nominal model alone")
+    t0 = time.perf_counter()
+    cpu = build_quad(torch.device("cpu"), to_cpu_gp(gp), "hybrid")
+    cpu.consts = to_cpu(mpc.consts)
+    _, plant = quad_models(torch.device("cpu"))
+    worst = [0.0, 0.0]
+    for k, (x_k, warm, u_prev) in enumerate(rec):
+        u_c, _, _, _ = cpu.solve_step(x_k.cpu(), QUAD_XSP,
+                                      warm=to_cpu(warm),
+                                      u_prev=to_cpu(u_prev))
+        x_c = plant.integrate(x_k.cpu(), u_c).numpy()
+        rel = float(np.max(np.abs(xs[k + 1] - x_c) / (1.0 + np.abs(x_c))))
+        phase = int(k >= TRANSIENT_STEPS)
+        worst[phase] = max(worst[phase], rel)
+    miss = [float(np.linalg.norm(v[-1, :2] - QUAD_XSP[:2]))
+            for v in (xs, xs_n)]
+    # how well each model predicts the heavy plant's realized transitions
+    kw = dict(dtype=torch.float32, device=dev)
+    pred = [max(float((f(torch.tensor(xs[k], **kw), torch.tensor(us[k], **kw))
+                       - torch.tensor(xs[k + 1], **kw)).abs().max())
+                for k in range(QUAD_STEPS))
+            for f in (lambda a, b: mpc._mean_dynamics(a, b, mpc.consts),
+                      mpc.model.rk4)]
+    log(f"[slice F2] (c) hybrid steps replayed on the CPU in f32 "
+        f"({time.perf_counter() - t0:.1f} s): max |diff| / (1 + |x|) of the "
+        f"next state {worst[0]:.3e} in the first {TRANSIENT_STEPS} steps "
+        f"(<= 1e-2), {worst[1]:.3e} after (<= 1e-3)")
+    log(f"[slice F2] (c) position error |(px, pz) - x_sp| after "
+        f"{QUAD_STEPS} steps: hybrid {miss[0]:.5f}, nominal rk4 "
+        f"{miss[1]:.5f}; px hybrid {xs[-1, 0]:.5f}, rk4 {xs_n[-1, 0]:.5f}; "
+        f"pz hybrid {xs[-1, 1]:.5f}, rk4 {xs_n[-1, 1]:.5f} (from "
+        f"{QUAD_X0[:2].tolist()}, towards {QUAD_XSP[:2].tolist()}); one-step "
+        f"prediction of the 1.3 kg plant's realized transitions, max |error|:"
+        f" hybrid model {pred[0]:.3e}, nominal model {pred[1]:.3e} on "
+        f"{card}")
+    if worst[0] > 1e-2 or worst[1] > 1e-3:
+        raise AssertionError("card and CPU quadrotor steps disagree")
+    return k1
+
+
+def k1_row(ck, name, nt, nx, nu, launches, err, card, **extra):
+    """K1's JSON row at (Nt, nx, nu), one problem: event ms over 200
+    calls, device ms per launch over 200, the plain version's ms and the
+    bound."""
+    q = ck.stage_qp_inputs(nt, nx, nu, nt + nx, device=torch.device("cuda"))
+    reg = torch.tensor(1e-6, device=q[0].device)
+    out = ck.riccati_sweep(*q, reg)
+    ms = cuda_time_ms(lambda: ck.riccati_sweep(*q, reg), reps=200)
+    dev_ms, _, note = device_time_ms(lambda: ck.riccati_sweep(*q, reg))
+    plain = cuda_time_ms(lambda: ck.riccati_sweep_reference(*q, reg),
+                         reps=20)
+    bd = bound(nbytes(*q, reg, *out), riccati_flops(nt, nx, nu))
+    log(f"[time] riccati_sweep ({nx}, {nu}) at Nt={nt}, B=1: kernel "
+        f"{ms:.4f} ms, device {fmt_ms(dev_ms)}{note} per launch, plain "
+        f"{plain:.4f} ms, bound {bd[0]:.3e} ms ({bd[1]}); {launches} "
+        f"launches on its path; max|err| {err:.3e} on {card}")
+    return {"name": name, "route": "cuda",
+            "source": "gpmpc_tpu_torch/csrc/riccati_sweep.cu",
+            "replaces": "gpmpc_tpu/ops/pallas_kernels.py:394",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "device_ms": dev_ms, "bound_ms": bd[0],
+            "bound_by": bd[1], "library_ms": None, **extra}
+
+
+def slice_f2_phase(ck, dev, card):
+    """Phase 16: (a) the tank's output-feedback loop (MHE + MPC, K1 at (4,
+    4) and (4, 2), K2), (b) K1 built on demand, (c) the quadrotor's hybrid
+    mismatch.  Returns its JSON rows."""
+    t_phase = time.perf_counter()
+    n44 = ofb_loop(ck, dev, card)
+    n33, build_s, errs = k1_on_demand(ck, dev, card)
+    n62 = quad_phase(ck, dev, card)
+    err62 = ck.check_riccati_sweep(ck.stage_qp_inputs(8, 6, 2, 14,
+                                                      device=dev),
+                                   torch.tensor(1e-6, device=dev))
+    rows = [k1_row(ck, "riccati_sweep[4,4,mhe]", 5, 4, 4, n44,
+                   errs[(4, 4)], card),
+            k1_row(ck, "riccati_sweep[3,3,on_demand]", 3, 3, 3, n33,
+                   errs[(3, 3)], card, build_s=build_s),
+            k1_row(ck, "riccati_sweep[6,2,quadrotor]", 8, 6, 2, n62, err62,
+                   card)]
+    log(f"[slice F2] phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def slice_f2_alone():
+    """Phases 1-2 and 16, and phase 16's kernel rows, alone."""
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    card = card_line()
+    dev = torch.device("cuda")
+    log(f"[card] nvidia-smi: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    ck.build_library()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    rows = slice_f2_phase(ck, dev, card)
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
 def kernel_times(ck, gc, four_tank_ode, dev, card):
     """Phase 11: each kernel's time beside its plain version's, the library
     call's (K5), its device time per launch (torch.profiler) and its
@@ -2545,6 +3125,7 @@ def compare(kernel, other_src):
                       ck.stage_qp_inputs(20, 4, 2, 0, device=dev),
                       torch.tensor(1e-6, device=dev))
         shape = "(Nt,nx,nu)=(20,4,2)"
+        k1_bitwise(ck, dev, through)
 
         def times(name):
             k1_times(ck, dev, card, sweep=lambda *a: through(
@@ -2583,6 +3164,31 @@ def compare(kernel, other_src):
         log(f"[{kernel} other] timing {name}")
         times(name)
     return 0
+
+
+def k1_bitwise(ck, dev, through):
+    """--compare k1: at each pre-built (nx, nu) that the other build also
+    instantiates, one problem at Nt = 20 and a batch of 64 at Nt = 70
+    (across three chunks), the other build's outputs against the
+    repository's, bitwise."""
+    for nx, nu in ck.RICCATI_SHAPES:
+        for nt, batch in ((20, None), (70, 64)):
+            args = ck.stage_qp_inputs(nt, nx, nu, nt + nx, batch, device=dev)
+            reg = torch.full(() if batch is None else (batch,), 1e-6,
+                             device=dev)
+            try:
+                other = through("other", ck.riccati_sweep, *args, reg)
+            except RuntimeError as e:
+                log(f"[k1 other] ({nx}, {nu}): not in the other build ({e})")
+                break
+            repo = through("repo", ck.riccati_sweep, *args, reg)
+            same = all(torch.equal(a, b) for a, b in zip(other, repo))
+            log(f"[k1 other] ({nx}, {nu}), Nt={nt}, B={batch or 1}: outputs "
+                f"{'bitwise equal' if same else 'DIFFER'} to the "
+                f"repository's build")
+            if not same:
+                raise AssertionError(f"K1 ({nx}, {nu}) differs from the "
+                                     f"other build")
 
 
 def k1_alone(other_src=None):
@@ -2641,6 +3247,8 @@ def main(argv):
         return k5_paths()
     if "--study" in argv:
         return study_alone()
+    if "--slice-f2" in argv:
+        return slice_f2_alone()
     if "--slice-f" in argv:
         return slice_f_alone()
     if "--k1" in argv:
@@ -2707,7 +3315,6 @@ def main(argv):
 
     replay_against_cpu(dev)
 
-    cost_rti = closed_loop_cost(xs_np, us_np, XSP)
     t0 = time.perf_counter()
     xs_c, us_c = build_slice(dev, CONVERGED).solve(X0, ANCHOR_STEPS * DT,
                                                    XSP, noise=False)
@@ -2748,19 +3355,21 @@ def main(argv):
                   dict(multistart=2, max_iters=200, seed=1))
     val_launches = validate_on_card(ck, dev, gp)
     t0 = time.perf_counter()
-    xs_t, us_t = build_slice(dev, RTI, gp=gp).solve(X0, N_STEPS * DT, XSP,
-                                                    noise=False)
+    xs_t, us_t = build_slice(dev, RTI, gp=gp).solve(X0, TRAINED_STEPS * DT,
+                                                    XSP, noise=False)
     xs_t, us_t = xs_t.cpu().numpy(), us_t.cpu().numpy()
     if not (np.all(np.isfinite(xs_t)) and np.all(np.isfinite(us_t))):
         raise AssertionError("non-finite loop with the card-trained GP")
     miss = float(np.abs(xs_t[-1, :2] - XSP[:2]).max())
     cost_t = closed_loop_cost(xs_t, us_t, XSP)
-    log(f"[trained] {N_STEPS}-step RTI loop with the card-trained GP "
+    cost_f = closed_loop_cost(xs_np[:TRAINED_STEPS + 1],
+                              us_np[:TRAINED_STEPS], XSP)
+    log(f"[trained] {TRAINED_STEPS}-step RTI loop with the card-trained GP "
         f"({time.perf_counter() - t0:.1f} s): ends {miss:.4f} from the "
         f"setpoint of the tracked tanks (<= 0.5), realized cost "
-        f"{cost_t:.4f} against {cost_rti:.4f} with the fixture GP (ratio "
-        f"{cost_t / cost_rti:.5f}, <= 1.1)")
-    if miss > 0.5 or cost_t > 1.1 * cost_rti:
+        f"{cost_t:.4f} against {cost_f:.4f} over the same steps with the "
+        f"fixture GP (ratio {cost_t / cost_f:.5f}, <= 1.1)")
+    if miss > 0.5 or cost_t > 1.1 * cost_f:
         raise AssertionError("the card-trained GP's closed loop misses")
 
     # 12. the car's closed loop, 13. the car's validation
@@ -2773,6 +3382,10 @@ def main(argv):
     # 15. slice F, part 1: UT, GH, cubature5, the Matérn fits and loop,
     # soft and terminal constraints with a reference trajectory
     slice_f_rows = slice_f_phase(ck, gc, dev, card, ta_step=rti_step)
+
+    # 16. slice F, part 2a: the tank's output-feedback loop, K1 built on
+    # demand, the quadrotor's hybrid mismatch
+    slice_f2_rows = slice_f2_phase(ck, dev, card)
 
     # 11. kernel times beside their bounds
     times = kernel_times(ck, gc, four_tank_ode, dev, card)
@@ -2817,7 +3430,7 @@ def main(argv):
                      "bound_by": r["bound"][1], "library_ms": None})
     rows += study_kernel_rows(ck, dev, card, study_launches, study_res,
                               sources)
-    rows += slice_f_rows
+    rows += slice_f_rows + slice_f2_rows
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

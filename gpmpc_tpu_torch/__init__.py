@@ -6,7 +6,7 @@ kernels rewritten as CUDA C++ kernels for Hopper (``csrc/``,
 ``ops/cuda_kernels.py``).  Every tensor lives on the ``device`` and in the
 ``dtype`` given to ``Model``, ``GP`` and ``MPC``.
 
-    from gpmpc_tpu_torch import Model, GP, MPC
+    from gpmpc_tpu_torch import Model, GP, MPC, MHE
 """
 
 import torch as _torch
@@ -21,7 +21,11 @@ _torch.backends.cudnn.allow_tf32 = False
 from gpmpc_tpu_torch.models.dynamics import Model  # noqa: E402
 from gpmpc_tpu_torch.models.gp import GP  # noqa: E402
 from gpmpc_tpu_torch.mpc.controller import MPC  # noqa: E402
+from gpmpc_tpu_torch.mpc.mhe import MHE  # noqa: E402
+from gpmpc_tpu_torch.mpc.output_feedback import (  # noqa: E402
+    OutputFeedbackResult, simulate_output_feedback)
 
 __version__ = "0.1.0"
 
-__all__ = ["Model", "GP", "MPC", "__version__"]
+__all__ = ["Model", "GP", "MPC", "MHE", "simulate_output_feedback",
+           "OutputFeedbackResult", "__version__"]

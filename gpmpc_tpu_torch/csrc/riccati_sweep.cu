@@ -27,7 +27,8 @@
 //   per lane maps the lane to its entries, so the warp runs one
 //   instruction stream.  The forward pass carries the state in every lane,
 //   so nothing is exchanged on its chain.
-// * The stage arrays go to shared memory in chunks of CHUNK stages, by
+// * The stage arrays go to shared memory in chunks of CHUNK stages (fewer
+//   where one warp's buffers would pass the card's shared memory), by
 //   16-byte cp.async copies (4-byte where a span is not 16-byte aligned),
 //   double-buffered: the backward pass walks the chunks from the last one
 //   down, with the copy of chunk k-1 in flight while chunk k is solved.
@@ -37,6 +38,12 @@
 //   buffers.  From the third chunk on it re-stages A, B, c and the gains it
 //   stored, one chunk ahead of use.  dx, du, gains and ffs leave in
 //   coalesced stores once per chunk, the predicted decrease once.
+//
+// The template takes any NX < 31 and NU <= 32 whose one warp fits the
+// block's shared memory (see chunk_for); ops/cuda_kernels.py builds the
+// shapes outside the C entry's list at first use, each into a library of
+// its own, from a unit that defines GPMPC_RICCATI_NX and GPMPC_RICCATI_NU
+// and includes this file.
 //
 // reg and dx0 are device pointers, so the caller never syncs the host.  A
 // non-PD pivot of H_uu + reg I gives NaN (rsqrt of a negative) and a zero
@@ -48,28 +55,32 @@
 
 namespace {
 
-// Stages per staged chunk.  Two chunk buffers of the quadrotor's stage
-// arrays (nx = 8, nu = 2: 182 floats a stage, 47 KB) still fit one warp's
-// shared memory.  ops/cuda_kernels.py mirrors it as RICCATI_CHUNK.
+// Stages per staged chunk, at most.  ops/cuda_kernels.py mirrors it as
+// RICCATI_CHUNK.
 constexpr int CHUNK = 32;
+
+// The most dynamic shared memory a block may opt in to on an H100
+// (227 KB).  ops/cuda_kernels.py mirrors it as RICCATI_SMEM_OPTIN.
+constexpr int SMEM_OPTIN = 232448;
 
 constexpr int pad4(int n) { return (n + 3) & ~3; }
 
-// One warp's shared memory, in floats.  Each staged array holds two chunk
-// buffers, [2 * CHUNK][its floats a stage], 16-byte aligned.
-template <int NX, int NU>
-struct Layout {
+// One warp's shared memory, in floats, at CH stages a chunk.  Each staged
+// array holds two chunk buffers, [2 * CH][its floats a stage], 16-byte
+// aligned (CH a multiple of 4).
+template <int NX, int NU, int CH>
+struct LayoutAt {
   static constexpr int XX = NX * NX, XU = NX * NU, UU = NU * NU;
-  static constexpr int S2 = 2 * CHUNK;
+  static constexpr int S2 = 2 * CH;
   static constexpr int A = 0, B = A + S2 * XX, C = B + S2 * XU,
                        QXX = C + S2 * NX, QUU = QXX + S2 * XX,
                        QXU = QUU + S2 * UU, QX = QXU + S2 * XU,
                        QU = QX + S2 * NX,
-                       G = QU + S2 * NU,   // gains [2 * CHUNK][NU][NX]
-                       F = G + S2 * XU,    // feedforwards [2 * CHUNK][NU]
-                       DU = F + S2 * NU,   // a chunk's du [CHUNK][NU]
-                       DX = DU + pad4(CHUNK * NU),  // [CHUNK + 1][NX]
-                       V = DX + pad4((CHUNK + 1) * NX), VX = V + XX,
+                       G = QU + S2 * NU,   // gains [2 * CH][NU][NX]
+                       F = G + S2 * XU,    // feedforwards [2 * CH][NU]
+                       DU = F + S2 * NU,   // a chunk's du [CH][NU]
+                       DX = DU + pad4(CH * NU),  // [CH + 1][NX]
+                       V = DX + pad4((CH + 1) * NX), VX = V + XX,
                        AV = VX + NX, BV = AV + XX, VC = BV + XU,
                        HXX = VC + NX, HXU = HXX + XX,
                        HX = HXU + XU, HU = HX + NX, ZERO = HU + NU,
@@ -78,6 +89,24 @@ struct Layout {
   // problems per block: up to 4 within 200 KB of shared memory
   static constexpr int FIT = (200 * 1024) / (FLOATS * 4);
   static constexpr int WARPS = FIT < 1 ? 1 : (FIT > 4 ? 4 : FIT);
+};
+
+// The chunk of an (NX, NU) warp: CHUNK, halved while one warp's buffers
+// pass SMEM_OPTIN, down to 4 stages (the least that keeps every chunk
+// buffer 16-byte aligned for cp.async).  At CHUNK one warp fits up to
+// (18, 2) or (11, 11); at 4 stages every NX < 31 with NU <= 32 fits (the
+// largest, (30, 32), in 202 KB).
+template <int NX, int NU, int CH = CHUNK>
+constexpr int chunk_for() {
+  if constexpr (CH > 4 && LayoutAt<NX, NU, CH>::FLOATS * 4 > SMEM_OPTIN)
+    return chunk_for<NX, NU, CH / 2>();
+  else
+    return CH;
+}
+
+template <int NX, int NU>
+struct Layout : LayoutAt<NX, NU, chunk_for<NX, NU>()> {
+  static constexpr int CH = chunk_for<NX, NU>();
 };
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -283,6 +312,9 @@ __global__ void __launch_bounds__(32 * Layout<NX, NU>::WARPS)
   constexpr int E2 = (L::XX + L::XU + NX + NU + 31) / 32;
   constexpr int E3 = (L::XX + NX + 31) / 32;
   static_assert(NX < 31, "lane 31 sums the predicted decrease");
+  static_assert(NU <= 32, "lane j keeps row j of a chunk's du");
+  static_assert(L::FLOATS * 4 <= SMEM_OPTIN,
+                "one warp's shared memory passes the H100's 227 KB");
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int p = blockIdx.x * L::WARPS + warp;
@@ -305,14 +337,14 @@ __global__ void __launch_bounds__(32 * Layout<NX, NU>::WARPS)
   du += P * T * NU;
   gains += P * T * L::XU;
   ffs += P * T * NU;
-  const int nchunks = (nt + CHUNK - 1) / CHUNK;
+  const int nchunks = (nt + L::CH - 1) / L::CH;
 
   // Copy chunk k into buffer k & 1 as one cp.async group: A, B, c and,
   // for the backward pass, the cost terms, else the gains and feedforwards
   // this warp stored.
   auto stage = [&](int k, bool backward) {
-    const int t0 = k * CHUNK, n = min(CHUNK, nt - t0);
-    const int s0 = (k & 1) * CHUNK;
+    const int t0 = k * L::CH, n = min(L::CH, nt - t0);
+    const int s0 = (k & 1) * L::CH;
     stage_span(sm + L::A + s0 * L::XX, a + t0 * L::XX, n * L::XX, lane);
     stage_span(sm + L::B + s0 * L::XU, b + t0 * L::XU, n * L::XU, lane);
     stage_span(sm + L::C + s0 * NX, c + t0 * NX, n * NX, lane);
@@ -361,8 +393,8 @@ __global__ void __launch_bounds__(32 * Layout<NX, NU>::WARPS)
       cp_async_wait<0>();
     }
     __syncwarp();
-    const int t0 = k * CHUNK, n = min(CHUNK, nt - t0);
-    const int s0 = (k & 1) * CHUNK;
+    const int t0 = k * L::CH, n = min(L::CH, nt - t0);
+    const int s0 = (k & 1) * L::CH;
     for (int s = n - 1; s >= 0; --s) {
       const int si = s0 + s;
       run_dots<NX>(sm, d1, si, r);
@@ -438,8 +470,8 @@ __global__ void __launch_bounds__(32 * Layout<NX, NU>::WARPS)
       cp_async_wait<0>();
     }
     __syncwarp();
-    const int t0 = k * CHUNK, n = min(CHUNK, nt - t0);
-    const int s0 = (k & 1) * CHUNK;
+    const int t0 = k * L::CH, n = min(L::CH, nt - t0);
+    const int s0 = (k & 1) * L::CH;
     for (int s = 0; s < n; ++s) {
       // every lane carries the whole state, so no exchange sits on the
       // chain; lanes < NX (< NU) keep the chunk's dx (du) rows for the
@@ -513,7 +545,9 @@ cudaError_t launch(const float* a, const float* b, const float* c,
 
 // C interface, loaded with ctypes.  Returns cudaErrorInvalidValue for an
 // (nx, nu) pair without an instantiation; the Python wrapper checks the
-// pair first.
+// pair first.  The main library instantiates the pairs of RICCATI_SHAPES
+// (ops/cuda_kernels.py); a unit built on demand for one other pair defines
+// GPMPC_RICCATI_NX and GPMPC_RICCATI_NU and instantiates that pair alone.
 extern "C" int gpmpc_riccati_sweep_f32(
     const float* a, const float* b, const float* c, const float* q_xx,
     const float* q_uu, const float* q_xu, const float* q_x, const float* q_u,
@@ -527,10 +561,15 @@ extern "C" int gpmpc_riccati_sweep_f32(
     return static_cast<int>(launch<NX_, NU_>(                               \
         a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x, dx0, reg, dx, du, \
         gains, ffs, dec, batch, nt, s));
+#ifdef GPMPC_RICCATI_NX
+  GPMPC_RICCATI_CASE(GPMPC_RICCATI_NX, GPMPC_RICCATI_NU)
+#else
   GPMPC_RICCATI_CASE(4, 2)
   GPMPC_RICCATI_CASE(5, 3)
   GPMPC_RICCATI_CASE(2, 1)
   GPMPC_RICCATI_CASE(6, 2)
+  GPMPC_RICCATI_CASE(4, 4)
+#endif
 #undef GPMPC_RICCATI_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

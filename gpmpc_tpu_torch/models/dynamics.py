@@ -77,7 +77,7 @@ class Model:
                     f"{sorted(cuda_kernels.CUDA_ODES)}: "
                     "systems.four_tank_ode or systems.car_ode passed "
                     "directly, not wrapped); other ODEs are ROADMAP work "
-                    "(the quadrotor's K2 functor, §1 item 6.10)")
+                    "(the quadrotor's K2 functor, §2 item 2)")
         if integrator == "adaptive":
             raise NotImplementedError(
                 "integrator='adaptive' is not ported yet (ROADMAP §1 item "

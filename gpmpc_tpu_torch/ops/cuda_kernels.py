@@ -35,6 +35,9 @@ whole batch; on CPU tensors the plain versions vmap as they are.  The shared lib
 is built with ``nvcc`` from ``csrc/*.cu`` at first use into the package's
 own ``build/`` directory (one compiler process per source, all at once,
 then one link; rebuilt when a source changes) and bound with ``ctypes``.
+It holds K1 at the (nx, nu) pairs of :data:`RICCATI_SHAPES`; K1 at any
+other pair the kernel admits (:func:`riccati_layout`) is built at its
+first launch into a library of its own (:func:`riccati_entry`).
 ``LAUNCHES`` counts kernel launches, one per launch (a vmapped call of a
 whole batch is one).
 ``check_riccati_sweep`` and ``check_rk4_substeps`` hold a kernel against
@@ -59,21 +62,30 @@ from gpmpc_tpu_torch.ops.chol import chol_small, tri_solve_small
 #: kernel launches by kernel name; a wrapper adds one where it launches
 LAUNCHES = {"riccati_sweep": 0, "rk4_substeps": 0, "se_ard_gram": 0,
             "cholesky": 0, "gp_predict_batch": 0}
+#: K1's launches by (nx, nu), counted with LAUNCHES["riccati_sweep"]
+RICCATI_LAUNCHES = {}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: (nx, nu) pairs the Riccati kernel is instantiated for: the four-tank
-#: main path, the JAX package's kernel-test shapes, and the car with the
-#: delta-u augmentation (nx = 4 states + the previous 2 inputs)
-RICCATI_SHAPES = ((4, 2), (5, 3), (2, 1), (6, 2))
+#: (nx, nu) pairs the main library instantiates the Riccati kernel for
+#: (and ``chip_smoke.py`` phase 3 holds): the four-tank main path, the JAX
+#: package's kernel-test shapes, the car with the delta-u augmentation (nx
+#: = 4 states + the previous 2 inputs; also the quadrotor's 6 states), and
+#: the four-tank MHE (its NLP's input slot carries the 4 process noises).
+#: Any other admitted pair is built at its first launch.
+RICCATI_SHAPES = ((4, 2), (5, 3), (2, 1), (6, 2), (4, 4))
 
-#: stages per shared-memory chunk of the Riccati kernel: the constant
-#: ``CHUNK`` of ``csrc/riccati_sweep.cu``, mirrored for tests that cross
-#: its chunk boundaries
+#: stages per shared-memory chunk of the Riccati kernel, at most: the
+#: constant ``CHUNK`` of ``csrc/riccati_sweep.cu``, mirrored for tests that
+#: cross its chunk boundaries
 RICCATI_CHUNK = 32
+
+#: the most dynamic shared memory one block may opt in to on an H100, in
+#: bytes (227 KB): ``SMEM_OPTIN`` of ``csrc/riccati_sweep.cu``
+RICCATI_SMEM_OPTIN = 232448
 
 #: ODE functors compiled into the RK4 kernel: id name -> (ode_id, nx, nu)
 CUDA_ODES = {"four_tank": (0, 4, 2), "car": (1, 4, 2)}
@@ -81,11 +93,15 @@ CUDA_ODES = {"four_tank": (0, 4, 2), "car": (1, 4, 2)}
 _lib = None
 #: what the last build did: seconds, library path, compiler output
 BUILD_INFO = {}
+#: K1's libraries built on demand, by (nx, nu): the library and what its
+#: build did (seconds, path, compiler output)
+RICCATI_BUILDS = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    RICCATI_LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -147,8 +163,7 @@ def build_library() -> ctypes.CDLL:
                 stale.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gpmpc_riccati_sweep_f32.argtypes = [ptr] * 17 + [i32] * 4 + [ptr]
-    lib.gpmpc_riccati_sweep_f32.restype = i32
+    _bind_riccati(lib)
     lib.gpmpc_rk4_substeps_f32.argtypes = [i32, ptr, ptr, ptr, i32, i32,
                                            ctypes.c_double, ptr]
     lib.gpmpc_rk4_substeps_f32.restype = i32
@@ -165,6 +180,110 @@ def build_library() -> ctypes.CDLL:
     BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(so), log=log)
     _lib = lib
     return lib
+
+
+def _bind_riccati(lib) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gpmpc_riccati_sweep_f32.argtypes = [ptr] * 17 + [i32] * 4 + [ptr]
+    lib.gpmpc_riccati_sweep_f32.restype = i32
+
+
+def _riccati_floats(nx: int, nu: int, chunk: int) -> int:
+    """Floats of one warp's shared memory at ``chunk`` stages a chunk: the
+    ``LayoutAt<NX, NU, CH>::FLOATS`` of ``csrc/riccati_sweep.cu``."""
+    def pad4(n):
+        return (n + 3) & ~3
+
+    xx, xu, uu = nx * nx, nx * nu, nu * nu
+    # A, B, c, the five cost terms, the gains and feedforwards: two chunks
+    staged = 2 * chunk * (xx + xu + nx + xx + uu + xu + nx + nu + xu + nu)
+    # a chunk's du and dx rows, then V, v_x, A'V, B'V, Vc, H_xx, H_xu,
+    # h_x, h_u and the ZERO and SINK cells
+    rows = pad4(chunk * nu) + pad4((chunk + 1) * nx)
+    stage = 3 * xx + 2 * xu + 3 * nx + nu + 2
+    return pad4(staged + rows + stage)
+
+
+def riccati_layout(nx: int, nu: int):
+    """K1's shared memory at (nx, nu), as ``csrc/riccati_sweep.cu`` lays it
+    out: (stages a chunk, bytes a warp, warps a block).  The chunk is
+    RICCATI_CHUNK, halved while one warp would pass RICCATI_SMEM_OPTIN,
+    down to 4; up to 4 warps share a block within 200 KB.  At 4 stages
+    every pair within the lane limits fits (the largest, (30, 32), in
+    206592 bytes), so those limits are the only ones: a pair past them
+    raises ``ValueError`` naming the limit."""
+    if not 1 <= nx < 31:
+        raise ValueError(f"riccati_sweep: nx={nx} is past the kernel's "
+                         f"limit 1 <= nx < 31 (lane 31 of a problem's warp "
+                         f"sums the predicted decrease)")
+    if not 1 <= nu <= 32:
+        raise ValueError(f"riccati_sweep: nu={nu} is past the kernel's "
+                         f"limit 1 <= nu <= 32 (lane j of a problem's warp "
+                         f"keeps row j of du)")
+    chunk = RICCATI_CHUNK
+    while chunk > 4 and 4 * _riccati_floats(nx, nu, chunk) > \
+            RICCATI_SMEM_OPTIN:
+        chunk //= 2
+    warp_bytes = 4 * _riccati_floats(nx, nu, chunk)
+    return chunk, warp_bytes, min(4, max(1, 200 * 1024 // warp_bytes))
+
+
+def riccati_unit_source(nx: int, nu: int) -> str:
+    """The compilation unit of K1 at (nx, nu) alone: ``csrc/riccati_sweep.cu``
+    with its C entry instantiated for that pair."""
+    return (f"// K1 at (nx, nu) = ({nx}, {nu}) alone, built at its first "
+            f"launch\n// by gpmpc_tpu_torch/ops/cuda_kernels.py.\n"
+            f"#define GPMPC_RICCATI_NX {nx}\n#define GPMPC_RICCATI_NU {nu}\n"
+            f'#include "riccati_sweep.cu"\n')
+
+
+def riccati_library_path(nx: int, nu: int) -> Path:
+    """Where K1's library for (nx, nu) is built: keyed by the pair and a
+    hash of the flags and ``csrc/riccati_sweep.cu``."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update((CSRC / "riccati_sweep.cu").read_bytes())
+    return BUILD_DIR / (f"libgpmpc_riccati_{nx}x{nu}_"
+                        f"{digest.hexdigest()[:16]}.so")
+
+
+def _build_riccati_shape(nx: int, nu: int) -> ctypes.CDLL:
+    """Build (if its source changed) and load K1's library for (nx, nu)."""
+    so = riccati_library_path(nx, nu)
+    t0 = time.perf_counter()
+    log = ""
+    if not so.exists():
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        unit = so.with_suffix(f".{os.getpid()}.cu")
+        unit.write_text(riccati_unit_source(nx, nu))
+        try:
+            log = _run_at_once([[nvcc, *NVCC_FLAGS, "-I", str(CSRC),
+                                 "-shared", "-o", str(tmp), str(unit)]])
+        finally:
+            unit.unlink(missing_ok=True)
+        os.replace(tmp, so)
+        for stale in BUILD_DIR.glob(f"libgpmpc_riccati_{nx}x{nu}_*.so"):
+            if stale != so:
+                stale.unlink(missing_ok=True)
+    lib = ctypes.CDLL(str(so))
+    _bind_riccati(lib)
+    RICCATI_BUILDS[(nx, nu)] = dict(lib=lib, seconds=time.perf_counter() - t0,
+                                    path=str(so), log=log)
+    return lib
+
+
+def riccati_entry(nx: int, nu: int):
+    """K1's C entry for (nx, nu), the one lookup of every launch: the main
+    library's for :data:`RICCATI_SHAPES`, else that of the pair's own
+    library, built at its first use.  A pair past the kernel's limits
+    raises ``ValueError`` (:func:`riccati_layout`) before any build."""
+    if (nx, nu) in RICCATI_SHAPES:
+        return build_library().gpmpc_riccati_sweep_f32
+    if (nx, nu) in RICCATI_BUILDS:
+        return RICCATI_BUILDS[(nx, nu)]["lib"].gpmpc_riccati_sweep_f32
+    riccati_layout(nx, nu)
+    return _build_riccati_shape(nx, nu).gpmpc_riccati_sweep_f32
 
 
 def _check_cuda(name, tensors, shapes):
@@ -280,9 +399,6 @@ def _riccati_sweep_launch(a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x,
     batched = a.ndim == 4
     nt, nx, nu = b.shape[-3:]
     bsz = a.shape[0] if batched else 1
-    if (nx, nu) not in RICCATI_SHAPES:
-        raise ValueError(f"riccati_sweep: no kernel instantiated for "
-                         f"(nx, nu)=({nx}, {nu}); have {RICCATI_SHAPES}")
     lead = (bsz,) if batched else ()
     shapes = dict(a=lead + (nt, nx, nx), b=lead + (nt, nx, nu),
                   c=lead + (nt, nx), q_xx=lead + (nt, nx, nx),
@@ -292,7 +408,7 @@ def _riccati_sweep_launch(a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x,
                   reg=lead)
     args = (a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x, dx0, reg)
     _check_cuda("riccati_sweep", args, shapes)
-    lib = build_library()
+    entry = riccati_entry(nx, nu)
     kw = dict(dtype=torch.float32, device=a.device)
     dx = torch.empty(lead + (nt + 1, nx), **kw)
     du = torch.empty(lead + (nt, nu), **kw)
@@ -301,12 +417,13 @@ def _riccati_sweep_launch(a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x,
     dec = torch.empty(lead, **kw)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        code = lib.gpmpc_riccati_sweep_f32(
+        code = entry(
             *(t.data_ptr() for t in args),
             *(t.data_ptr() for t in (dx, du, gains, ffs, dec)),
             bsz, nt, nx, nu, stream)
     _raise_on_error("riccati_sweep", code)
     LAUNCHES["riccati_sweep"] += 1
+    RICCATI_LAUNCHES[(nx, nu)] = RICCATI_LAUNCHES.get((nx, nu), 0) + 1
     return dx, du, gains, ffs, dec
 
 
@@ -370,8 +487,8 @@ def rk4_substeps(ode, x, u, h: float, n_sub: int):
     if spec is None:
         raise ValueError(
             f"rk4_substeps: no CUDA functor for ODE {ode!r}; the kernel "
-            f"compiles its ODEs in (have {sorted(CUDA_ODES)}; the quadrotor "
-            "ODE is ROADMAP §1 item 6.10)")
+            f"compiles its ODEs in (have {sorted(CUDA_ODES)}; a quadrotor "
+            "functor is ROADMAP §2 item 2)")
     if _functorch_wrapped(x, u):
         return rk4_substeps_op(x, u, spec[0], float(h), int(n_sub))
     return _rk4_substeps_launch(spec, x, u, h, n_sub)
@@ -484,13 +601,16 @@ def car_inputs(batch, seed, device=None):
     return torch.tensor(x, **kw), torch.tensor(u, **kw)
 
 
-def check_riccati_sweep(args, reg) -> float:
+def check_riccati_sweep(args, reg, vmapped: bool = False) -> float:
     """Launch K1 on CUDA tensors and its plain version on the same tensors;
     raise unless dx and du agree within 1e-5 x (1 + max|dx|), the gains and
     feedforwards within 2e-5 and the predicted decrease within rtol 1e-4
-    (atol 1e-6): the JAX package's kernel-test tolerances.  Returns the
-    largest absolute difference."""
-    got = riccati_sweep(*args, reg)
+    (atol 1e-6): the JAX package's kernel-test tolerances.  With
+    ``vmapped`` the batched arguments go through ``torch.func.vmap`` of
+    the wrapper (its custom operator's vmap rule).  Returns the largest
+    absolute difference."""
+    got = (torch.func.vmap(riccati_sweep)(*args, reg) if vmapped
+           else riccati_sweep(*args, reg))
     ref = riccati_sweep_reference(*args, reg)
     scale = float(ref[0].abs().max()) + 1.0
     errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]

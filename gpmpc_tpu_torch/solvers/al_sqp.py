@@ -17,7 +17,8 @@ The JAX version's ``lax.while_loop`` with early exit becomes a fixed budget
 of ``cfg.max_iters`` inner steps whose updates are masked with
 ``torch.where`` once the loop is done: the iterates and the iteration count
 are those of the JAX loop, and no solve on the card reads a tensor value
-on the host (no ``.item()``, no branch on data), so a step never waits for
+on the host (no ``.item()``, no branch on data) or copies one to the card
+(its scalars are made there by ``torch.full``), so a step never waits for
 the device.  On the CPU, where nothing runs ahead of the host, the loop
 leaves at its first done step instead (``CPU_EARLY_EXIT``).
 """
@@ -324,12 +325,12 @@ def solve(prob: TrajectoryProblem, params: Any, init: SolverState,
         return new_state, reg_new, small_step | stalled, nu_new
 
     state = init
-    mu = torch.tensor(cfg.penalty_init, **kw)
-    nu_p = torch.tensor(1e3, **kw)     # defect merit weight (adapted)
+    mu = torch.full((), cfg.penalty_init, **kw)
+    nu_p = torch.full((), 1e3, **kw)   # defect merit weight (adapted)
     iters = torch.zeros((), dtype=torch.int32, device=device)
     ts = _stage_ids(prob, init.x)
     for _ in range(cfg.al_iters):
-        reg = torch.tensor(cfg.reg_init, **kw)
+        reg = torch.full((), cfg.reg_init, **kw)
         done = torch.zeros((), dtype=torch.bool, device=device)
         for _ in range(cfg.max_iters):
             new_state, reg_n, done_n, nu_n = inner_step(state, reg, nu_p, mu)

@@ -1,9 +1,8 @@
 """Plant models shipped with the framework.
 
 Counterpart of ``gpmpc_tpu/systems.py``: the four-tank process, the
-kinematic car with its ellipse obstacles, and the car's bench constants
-(training box, obstacles, start and goal).  The planar quadrotor is
-ROADMAP §1 item 6.10.
+kinematic car with its ellipse obstacles, the car's bench constants
+(training box, obstacles, start and goal), and the planar quadrotor.
 """
 
 from __future__ import annotations
@@ -124,3 +123,35 @@ CAR_OBSTACLES = np.array([[6.0, 0.3, 1.5, 1.0],
                           [12.0, -0.6, 1.5, 1.2]])
 CAR_X0 = np.array([0.0, 0.0, 0.0, 2.0])
 CAR_XSP = np.array([18.0, 0.0, 0.0, 2.0])
+
+
+# --------------------------------------------------------- planar quadrotor
+
+#: Planar quadrotor (PVTOL) parameters: mass [kg], arm length [m], inertia
+#: [kg m^2], gravity [m/s^2].
+QUAD_PARAMS = dict(m=1.0, l=0.25, J=0.02, g=9.81)
+
+
+def planar_quadrotor_ode(x, u, p=None):
+    """Planar quadrotor / PVTOL: states [px, pz, theta, vx, vz, omega],
+    inputs [T1, T2] (rotor thrusts); elementwise over leading batch
+    dimensions of ``x`` (..., 6) and ``u`` (..., 2).
+
+        v̇x = -(T1+T2) sin(theta) / m
+        v̇z =  (T1+T2) cos(theta) / m - g
+        ω̇  =  l (T1 - T2) / J
+
+    The products and quotients go in the JAX version's order.  No CUDA
+    functor computes it (no ``cuda_ode`` tag): a fused quadrotor plant is
+    ROADMAP §2 item 2, and the quadrotor's plant integrates unfused."""
+    p = p or QUAD_PARAMS
+    theta, vx, vz, omega = x[..., 2], x[..., 3], x[..., 4], x[..., 5]
+    thrust = u[..., 0] + u[..., 1]
+    return torch.stack([
+        vx,
+        vz,
+        omega,
+        -thrust * torch.sin(theta) / p["m"],
+        thrust * torch.cos(theta) / p["m"] - p["g"],
+        p["l"] * (u[..., 0] - u[..., 1]) / p["J"],
+    ], dim=-1)

@@ -48,20 +48,69 @@ def test_riccati_kernel_matches_plain_version(dev, nt, nx, nu, batch):
     assert ck.LAUNCHES["riccati_sweep"] == before + 1
 
 
-@pytest.mark.parametrize("shape", [None, (20, 6, 2)])
+@pytest.mark.parametrize("shape", [None, (20, 6, 2), (5, 4, 4), (8, 3, 3)])
 def test_riccati_kernel_indefinite_gives_nan(dev, shape):
     ck.check_riccati_sweep_bad_pivot("indefinite", device=dev, shape=shape)
 
 
-@pytest.mark.parametrize("shape", [None, (20, 6, 2)])
+@pytest.mark.parametrize("shape", [None, (20, 6, 2), (5, 4, 4), (8, 3, 3)])
 def test_riccati_kernel_zero_pivot_gives_non_finite_gains(dev, shape):
     ck.check_riccati_sweep_bad_pivot("zero", device=dev, shape=shape)
 
 
 def test_riccati_kernel_refuses_an_uninstantiated_shape(dev):
-    args = ck.stage_qp_inputs(8, 3, 1, 0, device=dev)
-    with pytest.raises(ValueError, match="no kernel instantiated"):
-        ck.riccati_sweep(*args, torch.tensor(1e-6, device=dev))
+    """Every admitted (nx, nu) is instantiated (at its first launch if it is
+    not pre-built); a pair past the kernel's lane limits raises ValueError
+    before any build or launch."""
+    for nx, nu, limit in [(31, 2, "nx < 31"), (4, 33, "nu <= 32")]:
+        args = ck.stage_qp_inputs(8, nx, nu, 0, device=dev)
+        before = ck.LAUNCHES["riccati_sweep"]
+        with pytest.raises(ValueError, match=limit):
+            ck.riccati_sweep(*args, torch.tensor(1e-6, device=dev))
+        assert ck.LAUNCHES["riccati_sweep"] == before
+        assert (nx, nu) not in ck.RICCATI_BUILDS
+
+
+#: (nx, nu) of K1 beyond the car's: the four-tank MHE's pre-built (4, 4),
+#: and (3, 3) (the linear MHE tests' NLP) and (5, 1), built at first use
+K1_MORE_SHAPES = [(4, 4), (3, 3), (5, 1)]
+
+
+@pytest.mark.parametrize("nt", [5, 20, CH + 1])
+@pytest.mark.parametrize("batch", [None, 64])
+@pytest.mark.parametrize("nx,nu", K1_MORE_SHAPES)
+def test_riccati_kernel_at_more_shapes(dev, nx, nu, batch, nt):
+    """K1 at (4, 4) and at pairs not pre-built, one problem and a batch,
+    horizons inside and across a chunk: within the plain version's
+    tolerances, one launch; a pair not pre-built has its own library."""
+    args = ck.stage_qp_inputs(nt, nx, nu, nt + 7 * nx + nu, batch,
+                              device=dev)
+    reg = torch.full(() if batch is None else (batch,), 1e-6, device=dev)
+    before = ck.LAUNCHES["riccati_sweep"]
+    ck.check_riccati_sweep(args, reg)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["riccati_sweep"] == before + 1
+    if (nx, nu) not in ck.RICCATI_SHAPES:
+        assert ck.riccati_library_path(nx, nu).exists()
+        assert ck.RICCATI_BUILDS[(nx, nu)]["path"] == str(
+            ck.riccati_library_path(nx, nu))
+
+
+@pytest.mark.parametrize("nx,nu", K1_MORE_SHAPES)
+def test_riccati_vmap_rule_at_more_shapes(dev, nx, nu):
+    """Under ``torch.func.vmap`` K1 at these pairs goes through the custom
+    operator's vmap rule: one launch for a batch of 64, within the plain
+    version's tolerances, bitwise the batched call's."""
+    from torch.func import vmap
+    args = ck.stage_qp_inputs(8, nx, nu, 11, batch=64, device=dev)
+    reg = torch.full((64,), 1e-6, device=dev)
+    ck.reset_launches()
+    ck.check_riccati_sweep(args, reg, vmapped=True)
+    torch.cuda.synchronize()
+    assert ck.RICCATI_LAUNCHES == {(nx, nu): 1}
+    for g, r in zip(vmap(ck.riccati_sweep)(*args, reg),
+                    ck.riccati_sweep(*args, reg)):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("n_sub", [1, 7, 10])
@@ -639,3 +688,58 @@ def test_matern_fit_on_the_card_launches_k5_only(dev):
                                 verbose=False)
     assert ck.LAUNCHES["gp_predict_batch"] == 0
     assert np.all(np.isfinite(mnlp)) and np.all(smse < 0.1)
+
+
+# ------------------------------------------------- slice F, part 2a
+
+def _tank_mhe(dev, dtype=torch.float32):
+    """The four-tank MHE of the output-feedback golden's shape on the
+    fixture GP: window 4, two levels measured, GP dynamics, the filtered
+    arrival cost, fused_kkt (K1 at (4, 4))."""
+    from gpmpc_tpu_torch import MHE, Model
+    from gpmpc_tpu_torch.models.convert import gp_from_fixture
+    model = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=3.0,
+                  R=np.diag([1e-3] * 4), clip_negative=True,
+                  integrator_substeps=10, device=dev, dtype=dtype)
+    gp = gp_from_fixture(device=dev, dtype=dtype,
+                         optimizer_opts=dict(jitter=1e-5, min_noise=1e-4))
+    c = torch.tensor([[1.0, 0, 0, 0], [0, 1.0, 0, 0]], dtype=dtype,
+                     device=dev)
+    return MHE(model, gp, window=4, Q_noise=model.R,
+               R_meas=np.diag([2.5e-3, 2.5e-3]),
+               P_arrival=np.diag([0.5] * 4), h=lambda x: c @ x,
+               xlb=[0.0] * 4, discrete_method="gp", arrival_update=True,
+               solver_opts=dict(al_iters=2, max_iters=4, fused_kkt=True))
+
+
+def test_mhe_step_on_the_card_makes_no_host_sync(dev):
+    """One MHE filter step on the card (K1 at (4, 4) under fused_kkt, the
+    EKF arrival update) under torch.cuda.set_sync_debug_mode("error"):
+    no host sync; K1 launched al_iters x max_iters times; the estimate
+    within 1e-3 relative of the same step on the CPU."""
+    mhe = _tank_mhe(dev)
+    x0 = torch.tensor([8.0, 9.0, 1.0, 1.0], device=dev)
+    state = mhe.init_filter(x0 + 0.3, x0[:2])
+    u = torch.tensor([3.0, 3.0], device=dev)
+    for _ in range(mhe.M + 1):                # past the fill-in
+        state, _ = mhe._step(state, x0[:2], u)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, (x_hat, res) = mhe._step(state, x0[:2] + 0.01, u)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    cfg = mhe.sqp_cfg
+    assert ck.LAUNCHES["riccati_sweep"] == cfg.al_iters * cfg.max_iters
+    assert bool(torch.all(torch.isfinite(x_hat)))
+    def to_cpu(v):
+        if v is None or torch.is_tensor(v):
+            return v if v is None else v.cpu()
+        return type(v)(*(to_cpu(a) for a in v))
+
+    cpu = _tank_mhe(torch.device("cpu"))
+    cpu.consts = to_cpu(mhe.consts)
+    _, (x_ref, _) = cpu._step(to_cpu(state), (x0[:2] + 0.01).cpu(), u.cpu())
+    assert float(((x_hat.cpu() - x_ref).abs() / x_ref.abs()).max()) < 1e-3

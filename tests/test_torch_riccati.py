@@ -2,6 +2,8 @@
 LQR gain of gpmpc_tpu_torch against gpmpc_tpu on the same numpy inputs."""
 
 import re
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -10,10 +12,12 @@ import jax.numpy as jnp
 
 from gpmpc_tpu.ops.pallas_kernels import riccati_sweep_pallas
 from gpmpc_tpu.solvers import riccati as jric
+from gpmpc_tpu_torch.ops import cuda_kernels
 from gpmpc_tpu_torch.ops.cuda_kernels import (
-    CSRC, LAUNCHES, RICCATI_CHUNK, RICCATI_SHAPES,
-    check_riccati_sweep_bad_pivot,
-    riccati_sweep, riccati_sweep_reference)
+    CSRC, LAUNCHES, RICCATI_CHUNK, RICCATI_SHAPES, RICCATI_SMEM_OPTIN,
+    check_riccati_sweep_bad_pivot, riccati_entry, riccati_layout,
+    riccati_library_path, riccati_sweep, riccati_sweep_reference,
+    riccati_unit_source)
 from gpmpc_tpu_torch.solvers import riccati as tric
 
 
@@ -86,12 +90,96 @@ def test_riccati_chunk_mirrors_the_kernel_source():
     assert found == [str(RICCATI_CHUNK)]
 
 
-@pytest.mark.parametrize("shape", [None, (20, 6, 2)])
+def test_riccati_layout_mirrors_the_kernel_source():
+    """RICCATI_SMEM_OPTIN is SMEM_OPTIN of csrc/riccati_sweep.cu (the
+    H100's 227 KB), and riccati_layout gives the pre-built shapes the full
+    chunk and four warps a block, as the kernel's Layout does."""
+    src = (CSRC / "riccati_sweep.cu").read_text()
+    assert re.findall(r"constexpr int SMEM_OPTIN = (\d+);", src) == [
+        str(RICCATI_SMEM_OPTIN)]
+    assert RICCATI_SMEM_OPTIN == 227 * 1024
+    for nx, nu in RICCATI_SHAPES:
+        assert riccati_layout(nx, nu)[0] == RICCATI_CHUNK
+        assert riccati_layout(nx, nu)[2] == 4
+    # (4, 2): 19536 bytes a warp, summed field by field over the kernel's
+    # Layout at 32 stages (two chunks of 38 floats a stage, 64 + 20 rows)
+    assert riccati_layout(4, 2) == (32, 19536, 4)
+
+
+def test_riccati_layout_admits_every_shape_within_the_lane_limits():
+    """Every (nx, nu) with nx < 31 and nu <= 32 fits one warp's shared
+    memory once the chunk halves (down to 4 stages), so the lane limits
+    are the only limits: (18, 2) is the widest nu = 2 at the full chunk,
+    (19, 2) takes 16 stages and (30, 32) 4."""
+    for nx in range(1, 31):
+        for nu in range(1, 33):
+            chunk, warp_bytes, warps = riccati_layout(nx, nu)
+            assert chunk in (4, 8, 16, 32) and warps in (1, 2, 3, 4)
+            assert warp_bytes <= RICCATI_SMEM_OPTIN, (nx, nu)
+            if chunk < RICCATI_CHUNK:
+                assert 4 * cuda_kernels._riccati_floats(
+                    nx, nu, 2 * chunk) > RICCATI_SMEM_OPTIN, (nx, nu)
+    assert riccati_layout(18, 2)[0] == 32
+    assert riccati_layout(19, 2)[0] == 16
+    assert riccati_layout(30, 32) == (4, 206592, 1)
+
+
+@pytest.mark.parametrize("nx,nu,limit", [(31, 2, "nx < 31"),
+                                         (4, 33, "nu <= 32"),
+                                         (0, 1, "nx < 31")])
+def test_riccati_limits_raise_before_any_build(nx, nu, limit):
+    """A pair past the kernel's lane limits raises ValueError naming the
+    limit from the one lookup every launch goes through, before any build
+    (this machine has no nvcc: a build would raise RuntimeError)."""
+    with pytest.raises(ValueError, match=re.escape(limit)):
+        riccati_entry(nx, nu)
+    assert not riccati_library_path(max(nx, 1), nu).exists()
+
+
+def test_riccati_unit_instantiates_one_shape(tmp_path):
+    """The unit built on demand for (3, 3) defines the pair and includes
+    csrc/riccati_sweep.cu, whose C entry then instantiates that pair
+    alone (preprocessed here with the host compiler and a stand-in for
+    the CUDA header); its library is keyed by the pair and by the
+    source."""
+    unit = riccati_unit_source(3, 3)
+    code = [ln for ln in unit.splitlines() if not ln.startswith("//")]
+    assert code == ["#define GPMPC_RICCATI_NX 3", "#define GPMPC_RICCATI_NU 3",
+                    '#include "riccati_sweep.cu"']
+    src = (CSRC / "riccati_sweep.cu").read_text()
+    assert re.search(r"#ifdef GPMPC_RICCATI_NX\s+GPMPC_RICCATI_CASE\("
+                     r"GPMPC_RICCATI_NX, GPMPC_RICCATI_NU\)\s+#else", src)
+    (tmp_path / "cuda_runtime.h").write_text("")
+    (tmp_path / "unit.cu").write_text(unit)
+    cxx = shutil.which("g++") or shutil.which("cpp")
+    out = subprocess.run([cxx, "-E", "-P", "-x", "c++", "-I", str(CSRC),
+                          "-I", str(tmp_path), str(tmp_path / "unit.cu")],
+                         capture_output=True, text=True, check=True).stdout
+    entry = out[out.index('extern "C"'):]
+    assert re.findall(r"launch<(\d+), (\d+)>", entry) == [("3", "3")]
+    path = riccati_library_path(3, 3)
+    assert path.parent == cuda_kernels.BUILD_DIR
+    assert "3x3" in path.name and path != riccati_library_path(3, 4)
+
+
+def test_riccati_library_key_follows_the_source(tmp_path, monkeypatch):
+    """An edited csrc/riccati_sweep.cu gets another library name for the
+    same pair, so a stale build is never loaded."""
+    before = riccati_library_path(3, 3)
+    (tmp_path / "riccati_sweep.cu").write_text(
+        (CSRC / "riccati_sweep.cu").read_text() + "// edited\n")
+    monkeypatch.setattr(cuda_kernels, "CSRC", tmp_path)
+    after = riccati_library_path(3, 3)
+    assert after != before and after.name.startswith("libgpmpc_riccati_3x3_")
+
+
+@pytest.mark.parametrize("shape", [None, (20, 6, 2), (20, 4, 4)])
 @pytest.mark.parametrize("kind", ["indefinite", "zero"])
 def test_bad_pivot_cases_give_non_finite_gains_on_cpu(kind, shape):
-    """The bad-pivot cases the card checks K1 with, at their default shapes
-    and at the car's (6, 2): its plain version gives non-finite gains for
-    an indefinite and for a zero H_uu pivot too."""
+    """The bad-pivot cases the card checks K1 with, at their default shapes,
+    at the car's (6, 2) and at the four-tank MHE's (4, 4): its plain
+    version gives non-finite gains for an indefinite and for a zero H_uu
+    pivot too."""
     check_riccati_sweep_bad_pivot(kind, device="cpu", shape=shape)
     with pytest.raises(ValueError, match="unknown"):
         check_riccati_sweep_bad_pivot("other", device="cpu")
