@@ -426,15 +426,17 @@ def build_plant(dev):
                  fused_integrator=True, device=dev, dtype=torch.float32)
 
 
-def build_slice(dev, solver_opts, gp=None, gp_method="TA", **mpc_kw):
+def build_slice(dev, solver_opts, gp=None, gp_method="TA", model=None,
+                **mpc_kw):
     """The main path's controller, with the pinned fixture GP unless ``gp``
-    is given, propagating by ``gp_method``; ``mpc_kw`` adds MPC options
-    (phase 15's soft and terminal constraints)."""
+    is given and the fused plant unless ``model`` is, propagating by
+    ``gp_method``; ``mpc_kw`` adds MPC options (phase 15's soft and
+    terminal constraints, phase 17's cold-start budget)."""
     from benchmarks.bench_spec import NT, Q_W, R_W, ULB, UUB, XLB, XSP, XUB
     from gpmpc_tpu_torch import MPC
     from gpmpc_tpu_torch.models.convert import gp_from_fixture
 
-    model = build_plant(dev)
+    model = build_plant(dev) if model is None else model
     if gp is None:
         gp = gp_from_fixture(device=dev, dtype=torch.float32,
                              gp_method=gp_method, optimizer_opts=GP_OPTS)
@@ -2698,6 +2700,679 @@ def slice_f2_alone():
     return 0
 
 
+# ------------------------------------------------------------ phase 17
+
+#: phase 17 (slice F, part 3) (a): MPC.solve_mc on the main path, its
+#: lanes and steps, the short run its per-step time is a slope against,
+#: the lanes replayed on the CPU, and the fused cold-start budget of the
+#: phase's controllers (phase 16's; the default al6 x mi30 runs masked on
+#: the card, ~180 inner steps)
+MC_LANES = 64
+MC_STEPS = 10
+MC_SHORT = 2
+MC_REPLAY = (0, MC_LANES - 1)
+MC_INIT = dict(al_iters=2, max_iters=10, fused_kkt=True)
+#: (b): UT under solve_mc, and the per-lane online posteriors (UT with
+#: online_capacity: K3 with a problem dim over the lanes)
+MC_UT_LANES, MC_UT_STEPS = 16, 4
+MC_ONLINE_STEPS, MC_ONLINE_CAPACITY = 2, 128
+#: (c): the adaptive plant's 20-step sim against the host integrator
+#: (f64, tolerances of tests/test_torch_adaptive.py), and its f32
+#: tolerances in the 10-step closed loop (rtol 1e-6 is ~8 ulps of a level
+#: in f32: the error estimate would be rounding)
+ADAPTIVE_SIM_STEPS = 20
+ADAPTIVE_LOOP_STEPS = 10
+ADAPTIVE_F32 = dict(rtol=1e-4, atol=1e-6)
+#: (d): the sparse GP's inducing points and its closed loop's steps; the
+#: bound of the card fit's VFE per dim (re-evaluated in f64) against the
+#: same f32 fit on the CPU.  An f32 fit does not reach the f64 fit's
+#: optimum: K_MM's jitter floor is ~800 ulps of sf2 (1e-4 in f32, the JAX
+#: package's rule), which moves the f32 optimum, in the JAX package's own
+#: f32 fit too; the phase prints the gap to the f64 fit
+SPARSE_M = 32
+SPARSE_RECIPE = dict(multistart=1, max_iters=100)
+SPARSE_LOOP_STEPS = 10
+SPARSE_BOUND_TOL = 0.5
+
+
+def sparse_bound_f64(gp, f):
+    """The VFE bound per dim of ``gp``'s hypers and inducing set (by index)
+    on the fixture's training set, in f64 on the CPU."""
+    from gpmpc_tpu_torch.models import sparse
+    from gpmpc_tpu_torch.utils.config import GPConfig
+    f64 = dict(dtype=torch.float64)
+    x, y = (torch.tensor(f[k], **f64) for k in ("tank_X", "tank_Y"))
+    xn = (x - x.mean(0)) / x.std(0, correction=0)
+    yn = (y - y.mean(0)) / y.std(0, correction=0)
+    h = [torch.as_tensor(v.detach().cpu(), **f64) for v in gp.hyper]
+    z = xn[gp.z_idx.cpu().long()]
+    return sparse.vfe_nll_batch(*h, z, xn, yn.mT, GPConfig(**GP_OPTS),
+                                "zero").detach().numpy()
+
+
+def mc_noise(mpc, n_mc, n_steps, seed):
+    """Process noise for ``n_mc`` lanes as ``solve_mc`` draws it: normals
+    from a generator on the controller's device seeded with ``seed``,
+    times chol(R)'."""
+    g = torch.Generator(device=mpc.device).manual_seed(seed)
+    eps = torch.randn((n_mc, n_steps, mpc.Nx), generator=g,
+                      dtype=mpc.dtype, device=mpc.device)
+    return eps @ mpc._noise_chol().T
+
+
+def expect_launches(k1=0, k2=0, k4=0, k5=0, k3=0):
+    return {"riccati_sweep": k1, "rk4_substeps": k2, "se_ard_gram": k4,
+            "cholesky": k5, "gp_predict_batch": k3}
+
+
+def check_launches(ck, expect, what):
+    launches = dict(ck.LAUNCHES)
+    if launches != expect:
+        raise AssertionError(f"{what}: launch counts {launches} != {expect}")
+    return launches
+
+
+def mc_replay(mpc, xs, us, w, lanes):
+    """Per-step replay of ensemble lanes on the CPU: from the lane's state
+    on the card at each step (and the card's last input), the CPU solves
+    the step with its own warm-start chain (a cold start first, as the
+    ensemble's) and the card's constants, steps its plant and adds the
+    lane's noise row; the next states within rtol 1e-2 in the transient
+    (the first TRANSIENT_STEPS) and 1e-3 after, as the main path's replay
+    bounds them.  Returns the worst (transient, tracking) differences."""
+    from benchmarks.bench_spec import XSP
+    cpu = build_slice(torch.device("cpu"), RTI, init_solver_opts=MC_INIT)
+    cpu.consts = to_cpu(mpc.consts)
+    xs, us, w = (torch.as_tensor(np.asarray(v)).cpu() for v in (xs, us, w))
+    worst = [0.0, 0.0]
+    for lane in lanes:
+        _, warm, _, _ = cpu.solve_step(xs[lane, 0], XSP)
+        u_prev = torch.zeros(cpu.Nu)
+        for k in range(us.shape[1]):
+            u_c, warm, _, _ = cpu.solve_step(xs[lane, k], XSP, warm=warm,
+                                             u_prev=u_prev)
+            x_c = (cpu.model.integrate(xs[lane, k], u_c)
+                   + w[lane, k]).clamp(min=0.0)
+            rel = float(((xs[lane, k + 1] - x_c).abs() / x_c.abs()).max())
+            phase = int(k >= TRANSIENT_STEPS)
+            worst[phase] = max(worst[phase], rel)
+            u_prev = us[lane, k]
+    if worst[0] > 1e-2 or worst[1] > 1e-3:
+        raise AssertionError(f"ensemble lanes, card and CPU disagree: "
+                             f"{worst}")
+    return worst
+
+
+def mc_ensemble(ck, dev, card, ta_step_ms):
+    """Phase 17 (a): MPC.solve_mc on the main path (the fixture GP, TA,
+    0.95, feedback, Nt=20, RTI, the fused plant, f32), MC_LANES lanes over
+    MC_STEPS steps from X0 through chance_calibration: K1 once per inner
+    SQP step and K2 once per control step, each for every lane; finite;
+    lanes MC_REPLAY replayed on the CPU; the calibration's rates; ms per
+    ensemble step (CUDA events, the slope against an MC_SHORT-step run)
+    beside MC_LANES x the single loop's step.  Returns the launches and
+    the ensemble's last states and inputs (for K2's row)."""
+    from benchmarks.bench_spec import DT, X0, XSP
+    from gpmpc_tpu_torch.utils import chance_calibration
+
+    mpc = build_slice(dev, RTI, init_solver_opts=MC_INIT)
+    per_solve = RTI["al_iters"] * RTI["max_iters"]
+    cold = MC_INIT["al_iters"] * MC_INIT["max_iters"]
+
+    def timed(n_steps, seed, audit=False):
+        w = mc_noise(mpc, MC_LANES, n_steps, seed)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        start.record()
+        if audit:
+            report = chance_calibration(mpc, X0, n_steps * DT, XSP,
+                                        n_mc=MC_LANES, noise_ws=w)
+        else:
+            report = None
+            mpc.solve_mc(X0, n_steps * DT, XSP, MC_LANES, noise_ws=w)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), w, report
+
+    short_ms, _, _ = timed(MC_SHORT, 1)
+    full_ms, w, report = timed(MC_STEPS, 0, audit=True)
+    launches = check_launches(
+        ck, expect_launches(k1=cold + MC_STEPS * per_solve, k2=MC_STEPS),
+        "solve_mc")
+    rec = mpc.last_mc
+    xs, us = rec["x_sim"], rec["u_sim"]
+    if xs.shape != (MC_LANES, MC_STEPS + 1, 4) or \
+            us.shape != (MC_LANES, MC_STEPS, 2):
+        raise AssertionError(f"solve_mc shapes {xs.shape}, {us.shape}")
+    if not (np.all(np.isfinite(xs)) and np.all(np.isfinite(us))):
+        raise AssertionError("non-finite ensemble")
+    spread = float(xs[:, -1, 0].std())
+    miss = float(np.median(np.abs(xs[:, -1, :2] - XSP[:2])))
+    ms_step = (full_ms - short_ms) / (MC_STEPS - MC_SHORT)
+    log(f"[mc] solve_mc, {MC_LANES} lanes x {MC_STEPS} steps (TA, RTI, "
+        f"fused plant, f32): {full_ms:.1f} ms by CUDA events ({MC_SHORT} "
+        f"steps: {short_ms:.1f} ms); {ms_step:.3f} ms per ensemble step, "
+        f"{MC_LANES / ms_step * 1e3:.1f} lane-steps/s, against "
+        f"{MC_LANES} x the single loop's {ta_step_ms:.3f} ms = "
+        f"{MC_LANES * ta_step_ms:.1f} ms; launches {launches}; final h1 "
+        f"spread {spread:.4f}, median miss of the tracked tanks {miss:.4f};"
+        f" converged {int(rec['converged'].sum())}/{rec['converged'].size} "
+        f"on {card}")
+    if spread <= 1e-4 or miss > 0.5:
+        raise AssertionError("the ensemble's lanes do not spread or miss "
+                             "the setpoint")
+    log(f"[mc] chance_calibration: alpha {report['alpha']:.3f}, bound "
+        f"{report['bound']:.4f}, pooled rates {report['rate'].tolist()}, "
+        f"worst-step rates {report['worst_step_rate'].tolist()}, active "
+        f"{report['active'].tolist()}, calibrated {report['calibrated']}")
+    t0 = time.perf_counter()
+    worst = mc_replay(mpc, xs, us, w.cpu(), MC_REPLAY)
+    log(f"[mc] lanes {list(MC_REPLAY)} replayed per step on the CPU "
+        f"({time.perf_counter() - t0:.1f} s): max relative next-state "
+        f"difference {worst[0]:.3e} in the transient (1e-2), {worst[1]:.3e}"
+        f" after it (1e-3)")
+    x_last = torch.as_tensor(xs[:, -2], device=dev).contiguous()
+    u_last = torch.as_tensor(us[:, -1], device=dev).contiguous()
+    return launches, x_last, u_last, ms_step
+
+
+def k3_vmap_check(gc, dev, lanes, n, seed, per_lane):
+    """K3 under torch.func.vmap on the card, one launch per call, against
+    its plain version lane by lane (k* 2e-5, mu 2e-4): the lanes' 13
+    sigma points each against one posterior of ``n`` points, or with
+    ``per_lane`` against a posterior of each lane's own.  Returns the
+    call, its inputs and the largest k* difference."""
+    from torch.func import vmap
+    z, x, ell, sf2, alpha = gc.predict_inputs(n, 6, 13 * lanes, 4, seed,
+                                              device=dev)
+    z = z.reshape(lanes, 13, 6)
+    if per_lane:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = x + 0.1 * torch.randn((lanes, n, 6), generator=g, device=dev)
+        ell = ell * torch.exp(0.1 * torch.randn((lanes, 4, 6), generator=g,
+                                                device=dev))
+        sf2 = sf2 * torch.ones((lanes, 4), device=dev)
+        alpha = alpha + 0.1 * torch.randn((lanes, 4, n), generator=g,
+                                          device=dev)
+        args = (z, x.contiguous(), ell.contiguous(), sf2, alpha.contiguous())
+        call = (lambda: vmap(gc.gp_predict_batch)(*args))
+    else:
+        args = (z, x, ell, sf2, alpha)
+        call = (lambda: vmap(lambda zz: gc.gp_predict_batch(
+            zz, x, ell, sf2, alpha))(z))
+    mu, ks = call()
+    err_k = err_m = 0.0
+    for i in range(lanes):
+        one = [a[i] if per_lane or j == 0 else a
+               for j, a in enumerate(args)]
+        mu_r, ks_r = gc.gp_predict_batch_reference(*one)
+        if not (bool(torch.all((ks[i] - ks_r).abs()
+                               <= gc.KS_TOL + gc.KS_TOL * ks_r.abs()))
+                and bool(torch.all((mu[i] - mu_r).abs()
+                                   <= gc.MU_TOL + gc.MU_TOL * mu_r.abs()))):
+            raise AssertionError(f"K3 under vmap disagrees with its plain "
+                                 f"version at lane {i} (per_lane="
+                                 f"{per_lane})")
+        err_k = max(err_k, float((ks[i] - ks_r).abs().max()))
+        err_m = max(err_m, float((mu[i] - mu_r).abs().max()))
+    return call, args, err_k
+
+
+def mc_ut(ck, gc, dev, card):
+    """Phase 17 (b): UT under solve_mc (MC_UT_LANES lanes, MC_UT_STEPS
+    steps): K3 exactly Nt launches a solve, one per vmapped call for all
+    lanes; then UT with per-lane online posteriors (MC_ONLINE_STEPS steps,
+    capacity MC_ONLINE_CAPACITY): Nt a solve, the lanes on K3's problem
+    dim from the second step on.  K3 vmapped both ways against its plain
+    version.  Returns the launches of both and the checked calls."""
+    from benchmarks.bench_spec import DT, X0, XSP
+    per_solve = RTI["al_iters"] * RTI["max_iters"]
+    cold = MC_INIT["al_iters"] * MC_INIT["max_iters"]
+    out = {}
+    for tag, lanes, steps, kw in (
+            ("ut", MC_UT_LANES, MC_UT_STEPS, {}),
+            ("online", MC_UT_LANES, MC_ONLINE_STEPS,
+             dict(online_capacity=MC_ONLINE_CAPACITY))):
+        mpc = build_slice(dev, RTI, gp_method="UT", init_solver_opts=MC_INIT,
+                          **kw)
+        w = mc_noise(mpc, lanes, steps, 2)
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        xs, us = mpc.solve_mc(X0, steps * DT, XSP, lanes, noise_ws=w)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = check_launches(
+            ck, expect_launches(k1=cold + steps * per_solve, k2=steps,
+                                k3=mpc.Nt * (1 + steps)), f"UT solve_mc {tag}")
+        if not (bool(torch.all(torch.isfinite(xs)))
+                and bool(torch.all(torch.isfinite(us)))):
+            raise AssertionError(f"non-finite UT ensemble ({tag})")
+        log(f"[mc] UT solve_mc {tag}: {lanes} lanes x {steps} steps in "
+            f"{wall:.1f} s (cold start included); launches {launches} (K3 "
+            f"{mpc.Nt} a solve, each for all {lanes} lanes); final h1 "
+            f"{xs[:, -1, 0].double().cpu().numpy().round(3).tolist()}")
+        out[tag] = launches
+    checks = {}
+    for tag, n, per_lane in (("ut", 100, False),
+                             ("online", MC_ONLINE_CAPACITY, True)):
+        before = ck.LAUNCHES["gp_predict_batch"]
+        call, args, err = k3_vmap_check(gc, dev, MC_UT_LANES, n, 31,
+                                        per_lane)
+        torch.cuda.synchronize()
+        if ck.LAUNCHES["gp_predict_batch"] != before + 1:
+            raise AssertionError("a vmapped K3 call made more than one "
+                                 "launch")
+        log(f"[mc] K3 under vmap ({tag}: {MC_UT_LANES} lanes x 13 points, "
+            f"N={n}{', a posterior per lane' if per_lane else ''}): one "
+            f"launch, max|err| k* {err:.3e} against the plain version")
+        checks[tag] = (call, args, err)
+    return out, checks
+
+
+def adaptive_phase(ck, dev, card):
+    """Phase 17 (c): the adaptive plant.  A 20-step sim of the four-tank
+    ODE with Model(integrator='adaptive') in f64 on the card against the
+    port's host integrator (native.sim, the same DOPRI5 pair in C++)
+    within 1e-8; the poisoning case (a stiff decay at max_adaptive_steps
+    = 50) NaN; a 10-step MPC.solve of the main path with the adaptive
+    plant in f32 (K1 as ever, no K2) and its host reads per plant step;
+    the DAE network of examples/dae_network.py (Nx=2, Nu=1) on the card
+    against the port on the CPU (f64): its Newton elimination, adaptive
+    map and the RK4 map's linearization within 1e-10.  Returns the
+    loop's launches."""
+    from benchmarks.bench_spec import DT, MODEL_R, X0, XSP
+    from gpmpc_tpu_torch import Model, native
+    from gpmpc_tpu_torch.systems import four_tank_ode
+
+    f64 = torch.float64
+    tank = dict(Nx=4, Nu=2, ode=four_tank_ode, dt=DT, R=MODEL_R,
+                clip_negative=True, integrator="adaptive")
+    m = Model(rtol=1e-10, atol=1e-12, device=dev, dtype=f64, **tank)
+    useq = np.random.default_rng(17).uniform(0.0, 6.0,
+                                             (ADAPTIVE_SIM_STEPS, 2))
+    t0 = time.perf_counter()
+    xs = m.sim(X0, useq).cpu().numpy()
+    wall = time.perf_counter() - t0
+    host = native.sim(X0, useq, DT, system="four_tank",
+                      params=native.tank_params(), rtol=1e-10, atol=1e-12,
+                      clip_negative=True)
+    err = float(np.abs(xs - host).max())
+    log(f"[adaptive] {ADAPTIVE_SIM_STEPS}-step sim, f64 on the card "
+        f"(rtol 1e-10): {wall:.2f} s, {m.adaptive_host_reads} host reads "
+        f"({m.adaptive_host_reads / ADAPTIVE_SIM_STEPS:.1f} a plant step); "
+        f"max |x - host integrator| {err:.3e} (<= 1e-8)")
+    if not err <= 1e-8:
+        raise AssertionError("the adaptive plant on the card is off the "
+                             "host integrator")
+    stiff = Model(Nx=1, Nu=1, ode=lambda x, u: -1e9 * x, dt=1.0,
+                  integrator="adaptive", rtol=1e-10, atol=1e-12,
+                  max_adaptive_steps=50, device=dev, dtype=f64)
+    poisoned = stiff.integrate(torch.ones(1, dtype=f64, device=dev),
+                               torch.zeros(1, dtype=f64, device=dev))
+    if not bool(torch.all(torch.isnan(poisoned))):
+        raise AssertionError("the adaptive integrator did not poison a "
+                             "budget that ran out")
+    log("[adaptive] poisoning: a stiff decay at max_adaptive_steps=50 "
+        "gives NaN on the card")
+
+    plant = Model(device=dev, dtype=torch.float32, **ADAPTIVE_F32, **tank)
+    mpc = build_slice(dev, RTI, model=plant, init_solver_opts=MC_INIT)
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    xs, us = mpc.solve(X0, ADAPTIVE_LOOP_STEPS * DT, XSP, noise=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cold = MC_INIT["al_iters"] * MC_INIT["max_iters"]
+    launches = check_launches(ck, expect_launches(
+        k1=cold + ADAPTIVE_LOOP_STEPS * RTI["al_iters"] * RTI["max_iters"]),
+        "adaptive-plant loop")
+    xs = xs.cpu().numpy()
+    miss = float(np.abs(xs[-1, :2] - XSP[:2]).max())
+    log(f"[adaptive] {ADAPTIVE_LOOP_STEPS}-step MPC.solve with the adaptive "
+        f"plant (f32, {ADAPTIVE_F32}): {wall:.1f} s; "
+        f"{plant.adaptive_host_reads} host reads, "
+        f"{plant.adaptive_host_reads / ADAPTIVE_LOOP_STEPS:.1f} a plant "
+        f"step; launches {launches}; ends {miss:.4f} from the setpoint of "
+        f"the tracked tanks (<= 0.5)")
+    if not (np.all(np.isfinite(xs)) and miss <= 0.5):
+        raise AssertionError("the adaptive-plant loop misses")
+
+    worst = dae_check(dev)
+    log(f"[adaptive] DAE network (examples/dae_network.py), f64 card vs "
+        f"CPU: max difference {worst:.3e} (<= 1e-10; the adaptive map, the "
+        f"Newton elimination, the RK4 map's linearization)")
+    return launches
+
+
+#: the junction network of examples/dae_network.py: tank areas and flow
+#: coefficients
+DAE_A = (2.0, 3.0)
+DAE_C = (1.2, 1.0, 0.25, 0.6)
+
+
+def dae_network():
+    """``(ode(x, z, u), alg(x, z, u))`` of examples/dae_network.py in
+    torch: two tanks through a junction whose head z solves the node's
+    flow balance."""
+    (a1, a2), (c1, c2, c3, c4) = DAE_A, DAE_C
+
+    def sq(v):
+        return torch.sqrt(torch.clamp(v, min=1e-9))
+
+    def ode(x, z, u):
+        return torch.stack([(u[0] - c1 * sq(x[0] - z[0])) / a1,
+                            (c2 * sq(z[0] - x[1]) - c4 * sq(x[1])) / a2])
+
+    def alg(x, z, u):
+        return torch.stack([c1 * sq(x[0] - z[0]) - c2 * sq(z[0] - x[1])
+                            - c3 * sq(z[0])])
+
+    return ode, alg
+
+
+def dae_check(dev):
+    """The DAE network's maps on ``dev`` against the CPU in f64: the
+    adaptive integrator on 2 points at once, and the Newton elimination
+    and the RK4 map's linearization at one.  Returns the largest
+    difference; raises past 1e-10."""
+    from gpmpc_tpu_torch import Model
+    ode, alg = dae_network()
+    rng = np.random.default_rng(19)
+    xs = np.stack([rng.uniform(4.0, 8.0, 2), rng.uniform(0.5, 3.0, 2)], 1)
+    us = rng.uniform(0.0, 4.0, (2, 1))
+    sides = []
+    for d in (dev, torch.device("cpu")):
+        m = Model(Nx=2, Nu=1, ode=ode, alg=alg, Nz=1, dt=2.0,
+                  z_guess=lambda x, u: 0.5 * (x[:1] + x[1:]),
+                  clip_negative=True, integrator="adaptive", device=d,
+                  dtype=torch.float64)
+        x, u = (torch.tensor(v, dtype=torch.float64, device=d)
+                for v in (xs, us))
+        sides.append([m.integrate(x, u), m.solve_alg(x[0], u[0]),
+                      *m.discrete_linearize(x[0], u[0])])
+    worst = max(float((a.cpu() - b).abs().max()) for a, b in zip(*sides))
+    if not worst <= 1e-10:
+        raise AssertionError(f"the DAE network on the card is off the CPU: "
+                             f"{worst}")
+    return worst
+
+
+def sparse_reference(path):
+    """The CPU's sparse fits of phase 17 (d), f32 and f64 with the
+    fixture's recipe, each's bound per dim re-evaluated in f64, its
+    inducing indices and wall time, written as JSON to ``path`` (run as
+    ``chip_smoke.py --sparse-reference PATH`` in a process of its own)."""
+    from gpmpc_tpu_torch import GP
+    from gpmpc_tpu_torch.models.convert import FIXTURE
+    torch.set_num_threads(1)
+    f = np.load(FIXTURE)
+    out = {}
+    for tag, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        t0 = time.perf_counter()
+        gp = GP(f["tank_X"], f["tank_Y"], mean_func="zero", gp_method="TA",
+                inducing=SPARSE_M, optimizer_opts=GP_OPTS, device="cpu",
+                dtype=dtype, **SPARSE_RECIPE)
+        out[tag] = {"bound": sparse_bound_f64(gp, f).tolist(),
+                    "z_idx": gp.z_idx.tolist(),
+                    "seconds": time.perf_counter() - t0}
+    with open(path, "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+class SparseReference:
+    """:func:`sparse_reference` in a child process started at once (so
+    that it runs beside the card's work), its result read by
+    :meth:`result`; :meth:`stop` ends it if it still runs."""
+
+    def __init__(self):
+        os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+        self.path = os.path.join(HERE, "build",
+                                 f"sparse_reference_{os.getpid()}.json")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sparse-reference",
+             self.path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+
+    def result(self, timeout=900):
+        out, _ = self.proc.communicate(timeout=timeout)
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"the CPU's sparse reference fit failed "
+                               f"({self.proc.returncode}):\n{out}")
+        with open(self.path) as fh:
+            res = json.load(fh)
+        os.remove(self.path)
+        return res
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        if os.path.exists(self.path):
+            os.remove(self.path)
+
+
+def sparse_phase(ck, gc, dev, card, ref_proc):
+    """Phase 17 (d): GP(tank_X, tank_Y, inducing=SPARSE_M) trained on the
+    card with the fixture's recipe: exact launches (the exact subset fit's
+    K4 and K5 an evaluation, two K5 a VFE evaluation, two for the
+    posterior); each dim's bound, the card's hypers re-evaluated in f64
+    on the CPU, within SPARSE_BOUND_TOL of the CPU's f32 fit's (and its
+    gap to the f64 fit's); validate (one K3) with
+    SMSE within 2x the full fixture GP's; a SPARSE_LOOP_STEPS-step TA loop
+    with the sparse GP at the setpoint.  Returns the fit's launches and
+    the GP."""
+    from benchmarks.bench_spec import DT, TRAIN_ULB, TRAIN_UUB, TRAIN_XLB, \
+        TRAIN_XUB, X0, XSP
+    from gpmpc_tpu_torch import GP
+    from gpmpc_tpu_torch.models.convert import FIXTURE, gp_from_fixture
+
+    f = np.load(FIXTURE)
+    recipe = SPARSE_RECIPE
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    gp = GP(f["tank_X"], f["tank_Y"], mean_func="zero", gp_method="TA",
+            inducing=SPARSE_M, optimizer_opts=GP_OPTS, device=dev,
+            dtype=torch.float32, **recipe)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ev = gp.fit_evals
+    launches = check_launches(ck, expect_launches(
+        k4=ev["exact"], k5=ev["exact"] + 2 * ev["vfe"] + 2), "sparse fit")
+    log(f"[sparse] GP(inducing={SPARSE_M}) fixture recipe {recipe} on the "
+        f"card: {wall:.3f} s wall (the full fit: phase 8), evaluations "
+        f"{ev}; launches {launches}")
+    bounds = ref_proc.result()
+    card_bound = sparse_bound_f64(gp, f)
+    ref = np.array(bounds["f32"]["bound"])
+    gap64 = np.abs(card_bound - np.array(bounds["f64"]["bound"]))
+    gap = np.abs(card_bound - ref)
+    same_z = bounds["f32"]["z_idx"] == gp.z_idx.cpu().tolist()
+    log(f"[sparse] bound per dim in f64 on the CPU: the card's fit "
+        f"{card_bound.tolist()}, the CPU's f32 fit {ref.tolist()} "
+        f"({bounds['f32']['seconds']:.1f} s in its own process, beside "
+        f"phases (a)-(c); inducing set {'equal' if same_z else 'differs'})"
+        f": max gap "
+        f"{gap.max():.4f} (<= {SPARSE_BOUND_TOL}); the CPU's f64 fit "
+        f"{bounds['f64']['bound']} ({bounds['f64']['seconds']:.1f} s): gaps "
+        f"{gap64.round(4).tolist()} (information: an f32 fit's optimum "
+        f"sits at the f32 K_MM jitter floor)")
+    if not (np.all(np.isfinite(card_bound)) and gap.max() <= SPARSE_BOUND_TOL):
+        raise AssertionError("the card's sparse fit is off the CPU's")
+
+    ck.reset_launches()
+    xt, yt = build_plant(dev).generate_training_data(
+        100, uub=TRAIN_UUB, ulb=TRAIN_ULB, xub=TRAIN_XUB, xlb=TRAIN_XLB,
+        noise=False, generator=torch.Generator(device=dev).manual_seed(9))
+    full = gp_from_fixture(device=dev, dtype=torch.float32, gp_method="TA",
+                           optimizer_opts=GP_OPTS)
+    ck.reset_launches()
+    smse, mnlp, _ = gp.validate(xt, yt, verbose=False)
+    torch.cuda.synchronize()
+    check_launches(ck, expect_launches(k3=1), "sparse validate")
+    smse_f, _, _ = full.validate(xt, yt, verbose=False)
+    log(f"[sparse] validate: one K3 launch; SMSE {smse.tolist()} against "
+        f"the full GP's {smse_f.tolist()} (<= 2x); MNLP {mnlp.tolist()}")
+    if not (np.all(np.isfinite(mnlp)) and np.all(smse <= 2.0 * smse_f)):
+        raise AssertionError("the sparse GP validates worse than 2x the "
+                             "full GP")
+
+    mpc = build_slice(dev, RTI, gp=gp, init_solver_opts=MC_INIT)
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    xs, us = mpc.solve(X0, SPARSE_LOOP_STEPS * DT, XSP, noise=False)
+    torch.cuda.synchronize()
+    cold = MC_INIT["al_iters"] * MC_INIT["max_iters"]
+    loop = check_launches(ck, expect_launches(
+        k1=cold + SPARSE_LOOP_STEPS * RTI["al_iters"] * RTI["max_iters"],
+        k2=SPARSE_LOOP_STEPS), "sparse TA loop")
+    xs = xs.cpu().numpy()
+    miss = float(np.abs(xs[-1, :2] - XSP[:2]).max())
+    log(f"[sparse] {SPARSE_LOOP_STEPS}-step TA loop with the sparse GP "
+        f"({time.perf_counter() - t0:.1f} s): launches {loop}; ends "
+        f"{miss:.4f} from the setpoint of the tracked tanks (<= 0.5)")
+    if not (np.all(np.isfinite(xs)) and miss <= 0.5):
+        raise AssertionError("the sparse GP's loop misses the setpoint")
+    return launches, gp, wall
+
+
+def timed_row(name, kernel, line, fn, plain, bd, launches, err, card,
+              what, library=None):
+    """A JSON row: event ms over 200 calls of ``fn``, device ms per call,
+    the plain version's ms (and ``library``'s) and the bound ``bd``."""
+    ms = cuda_time_ms(fn, reps=200)
+    dev_ms, _, note = device_time_ms(fn)
+    plain_ms = cuda_time_ms(plain, reps=20)
+    lib_ms = cuda_time_ms(library, reps=50) if library else None
+    log(f"[time] {name} ({what}): kernel {ms:.4f} ms, device "
+        f"{fmt_ms(dev_ms)}{note} per launch, plain torch on the card "
+        f"{plain_ms:.4f} ms"
+        f"{'' if lib_ms is None else f', library {lib_ms:.4f} ms'}, bound "
+        f"{bd[0]:.3e} ms ({bd[1]}); {launches} launches on its path; "
+        f"max|err| {err:.3e} on {card}")
+    return {"name": name, "route": "cuda",
+            "source": f"gpmpc_tpu_torch/csrc/{kernel}.cu",
+            "replaces": f"gpmpc_tpu/ops/pallas_kernels.py:{line}",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "device_ms": dev_ms, "bound_ms": bd[0],
+            "bound_by": bd[1], "library_ms": lib_ms}
+
+
+def slice_f3_rows(ck, gc, dev, card, mc, ut, checks, fit, gp):
+    """Phase 17's JSON rows: K1 and K2 at the ensemble's batch (B =
+    MC_LANES; K2 on its last states and inputs), K3 vmapped both ways,
+    K5 at the sparse VFE fit's shape (P = 2 starts x 4 dims, M = 32, on
+    the K_MM of the card's hypers)."""
+    from benchmarks.bench_spec import DT
+    from gpmpc_tpu_torch.systems import four_tank_ode
+    launches, x, u, _ = mc
+    rows = []
+    q = ck.stage_qp_inputs(20, 4, 2, 24, MC_LANES, device=dev)
+    reg = torch.full((MC_LANES,), 1e-6, device=dev)
+    err1 = ck.check_riccati_sweep(q, reg)
+    out = ck.riccati_sweep(*q, reg)
+    rows.append(timed_row(
+        "riccati_sweep[solve_mc]", "riccati_sweep", 394,
+        lambda: ck.riccati_sweep(*q, reg),
+        lambda: ck.riccati_sweep_reference(*q, reg),
+        bound(nbytes(*q, reg, *out), MC_LANES * riccati_flops(20, 4, 2)),
+        launches["riccati_sweep"], err1, card,
+        f"B={MC_LANES}, Nt=20, nx=4, nu=2"))
+    err2 = ck.check_rk4_substeps(four_tank_ode, x, u, DT / 10, 10)
+    y = ck.rk4_substeps(four_tank_ode, x, u, DT / 10, 10)
+    rows.append(timed_row(
+        "rk4_substeps[solve_mc]", "rk4_substeps", 233,
+        lambda: ck.rk4_substeps(four_tank_ode, x, u, DT / 10, 10),
+        lambda: ck.rk4_substeps_reference(four_tank_ode, x, u, DT / 10, 10),
+        bound(nbytes(x, u, y), MC_LANES * 10 * (4 * 22 + 52)),
+        launches["rk4_substeps"], err2, card,
+        f"B={MC_LANES} on the ensemble's last states"))
+    for tag in ("ut", "online"):
+        call, args, err = checks[tag]
+        mu, ks = call()
+        lanes, b, d = args[0].shape
+        n, ny = args[1].shape[-2], args[2].shape[-2]
+        if tag == "ut":
+            def plain(args=args):
+                return gc.gp_predict_batch_reference(
+                    args[0].reshape(-1, d), *args[1:])
+        else:
+            def plain(args=args):
+                return gc.gp_predict_batch_reference(*args)
+        rows.append(timed_row(
+            f"gp_predict_batch[vmap_{tag}]", "gp_predict_batch", 459, call,
+            plain, bound(nbytes(*args, mu, ks),
+                         lanes * ny * b * n * (3 * d + 5)),
+            ut[tag]["gp_predict_batch"], err, card,
+            f"vmap over {lanes} lanes, (Ny,B,N,D)=({ny},{b},{n},{d})"
+            f"{', a posterior per lane' if tag == 'online' else ''}"))
+    from gpmpc_tpu_torch.models import gp_core
+    from gpmpc_tpu_torch.ops.kernels import kernel_cross
+    h = gp.hyper
+    ell = torch.exp(h.log_ell).repeat(2, 1)[:, None, :]
+    sf2 = torch.exp(h.log_sf2).repeat(2)
+    z = gp.Zn
+    eye = torch.eye(z.shape[0], device=dev)
+    jit = max(gp_core._jitter_floor(gp.cfg, z.dtype),
+              800.0 * float(torch.finfo(z.dtype).eps))
+    k = (kernel_cross("se", z, z, ell, sf2[:, None, None]) * (1.0 - eye)
+         + (sf2 + jit * sf2)[:, None, None] * eye).contiguous()
+    err5 = gc.check_cholesky(k)
+    p, m = k.shape[0], k.shape[-1]
+    rows.append(timed_row(
+        "cholesky[sparse]", "cholesky", 206, lambda: gc.cholesky(k),
+        lambda: gc.cholesky_reference(k), cholesky_bound(p, m),
+        fit["cholesky"], err5, card, f"P={p}, M={m}: K_MM of the VFE fit",
+        library=lambda: torch.linalg.cholesky_ex(k)))
+    return rows
+
+
+def slice_f3_phase(ck, gc, dev, card, ta_step_ms):
+    """Phase 17: (a) solve_mc and the chance calibration, (b) UT under
+    solve_mc and K3 under vmap, (c) the adaptive plant and the DAE, (d)
+    the sparse GP.  Returns its JSON rows."""
+    t_phase = time.perf_counter()
+    ref_proc = SparseReference()
+    try:
+        mc = mc_ensemble(ck, dev, card, ta_step_ms)
+        ut, checks = mc_ut(ck, gc, dev, card)
+        adaptive_phase(ck, dev, card)
+        fit, gp, _ = sparse_phase(ck, gc, dev, card, ref_proc)
+    finally:
+        ref_proc.stop()
+    rows = slice_f3_rows(ck, gc, dev, card, mc, ut, checks, fit, gp)
+    log(f"[slice F3] phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def slice_f3_alone():
+    """Phases 1-2 and 17, and phase 17's kernel rows, alone (the single
+    loop's step for the comparison timed here over 5 steps)."""
+    from benchmarks.bench_spec import X0, XSP
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    from gpmpc_tpu_torch.ops import gp_cuda as gc
+    card = card_line()
+    dev = torch.device("cuda")
+    log(f"[card] nvidia-smi: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    ck.build_library()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    mpc = build_slice(dev, RTI)
+    x0 = X0.astype(np.float32)
+    u0, warm, _, _ = mpc.solve_step(torch.as_tensor(x0, device=dev), XSP)
+    ta_ms = cuda_time_ms(rti_step_fn(mpc, x0, u0, warm), reps=5, warmup=1)
+    log(f"[time] RTI control step (single loop): {ta_ms:.3f} ms/step")
+    rows = slice_f3_phase(ck, gc, dev, card, ta_ms)
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
 def kernel_times(ck, gc, four_tank_ode, dev, card):
     """Phase 11: each kernel's time beside its plain version's, the library
     call's (K5), its device time per launch (torch.profiler) and its
@@ -3228,6 +3903,9 @@ def study_alone():
 
 
 def main(argv):
+    if "--sparse-reference" in argv:        # phase 17's CPU child process
+        sys.path.insert(0, HERE)
+        return sparse_reference(argv[argv.index("--sparse-reference") + 1])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
               "test runs only on an NVIDIA GPU", file=sys.stderr)
@@ -3247,6 +3925,8 @@ def main(argv):
         return k5_paths()
     if "--study" in argv:
         return study_alone()
+    if "--slice-f3" in argv:
+        return slice_f3_alone()
     if "--slice-f2" in argv:
         return slice_f2_alone()
     if "--slice-f" in argv:
@@ -3387,6 +4067,10 @@ def main(argv):
     # demand, the quadrotor's hybrid mismatch
     slice_f2_rows = slice_f2_phase(ck, dev, card)
 
+    # 17. slice F, part 3: solve_mc and the chance calibration, UT under
+    # solve_mc (K3 vmapped), the adaptive plant and the DAE, the sparse GP
+    slice_f3_rows = slice_f3_phase(ck, gc, dev, card, step_ms)
+
     # 11. kernel times beside their bounds
     times = kernel_times(ck, gc, four_tank_ode, dev, card)
     car_times = car_kernel_times(ck, gc, dev, card)
@@ -3430,7 +4114,7 @@ def main(argv):
                      "bound_by": r["bound"][1], "library_ms": None})
     rows += study_kernel_rows(ck, dev, card, study_launches, study_res,
                               sources)
-    rows += slice_f_rows + slice_f2_rows
+    rows += slice_f_rows + slice_f2_rows + slice_f3_rows
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

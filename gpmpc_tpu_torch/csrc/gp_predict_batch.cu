@@ -55,6 +55,9 @@
 // Measured on the H100 (PERF.md): 4 or 16 warps, 1 or 4 queries a warp,
 // 3 or 4 buffers, 8 points a lane, and warps split across a block's point
 // tiles were each slower at N = 100 or 1000, or no faster.
+// P problems at once (the lanes of a vmapped call with per-lane
+// posteriors): each problem's arrays follow the last's, and the grid's
+// third axis walks them; the kernel body sees one problem's pointers.
 // The Pallas kernel's (8, 128) padding, 1e6 sentinel points and norm
 // expansion exist for the TPU's layout and matrix unit and have no
 // counterpart here: the ragged edges are masked.
@@ -114,6 +117,16 @@ gp_predict_batch_kernel(const float* __restrict__ z,
                         float* __restrict__ mu, float* __restrict__ ks, int b,
                         int n, int d) {
   __shared__ __align__(16) float smem[2][STAGE];   // two tile buffers
+  {  // this block's problem: every array follows the previous problem's
+    const size_t prob = blockIdx.z, ny = gridDim.y;
+    z += prob * b * d;
+    x += prob * n * d;
+    ell += prob * ny * d;
+    sf2 += prob * ny;
+    alpha += prob * ny * n;
+    mu += prob * ny * b;
+    ks += prob * ny * b * n;
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int dim = blockIdx.y;
   const int q0 = blockIdx.x * QT + warp * ROWS;   // this warp's first query
@@ -268,6 +281,22 @@ gp_predict_batch_kernel(const float* __restrict__ z,
   }
 }
 
+int launch(const float* z, const float* x, const float* ell,
+                  const float* sf2, const float* alpha, float* mu, float* ks,
+                  int p, int ny, int b, int n, int d, void* stream) {
+  // z, x and ell are indexed in int within a problem
+  if (p <= 0 || ny <= 0 || b <= 0 || n <= 0 || d <= 0 || ny > 65535 ||
+      p > 65535 || static_cast<long long>(n) * d > INT_MAX ||
+      static_cast<long long>(b) * d > INT_MAX ||
+      static_cast<long long>(ny) * d > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 blocks((b + QT - 1) / QT, ny, p);
+  gp_predict_batch_kernel<<<blocks, THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      z, x, ell, sf2, alpha, mu, ks, b, n, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes.  z (b, d), x (n, d), ell (ny, d),
@@ -280,15 +309,14 @@ extern "C" int gpmpc_gp_predict_batch_f32(const float* z, const float* x,
                                           const float* alpha, float* mu,
                                           float* ks, int ny, int b, int n,
                                           int d, void* stream) {
-  // z, x and ell are indexed in int
-  if (ny <= 0 || b <= 0 || n <= 0 || d <= 0 || ny > 65535 ||
-      static_cast<long long>(n) * d > INT_MAX ||
-      static_cast<long long>(b) * d > INT_MAX ||
-      static_cast<long long>(ny) * d > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 blocks((b + QT - 1) / QT, ny);
-  gp_predict_batch_kernel<<<blocks, THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      z, x, ell, sf2, alpha, mu, ks, b, n, d);
-  return static_cast<int>(cudaGetLastError());
+  return launch(z, x, ell, sf2, alpha, mu, ks, 1, ny, b, n, d, stream);
+}
+
+// The same for p problems in one launch: every argument and output with a
+// leading dim p (z (p, b, d), ..., ks (p, ny, b, n)).
+extern "C" int gpmpc_gp_predict_batch_multi_f32(
+    const float* z, const float* x, const float* ell, const float* sf2,
+    const float* alpha, float* mu, float* ks, int p, int ny, int b, int n,
+    int d, void* stream) {
+  return launch(z, x, ell, sf2, alpha, mu, ks, p, ny, b, n, d, stream);
 }

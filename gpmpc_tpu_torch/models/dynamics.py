@@ -2,10 +2,25 @@
 
 Counterpart of ``gpmpc_tpu/models/dynamics.py::Model``: wraps a
 continuous-time ODE ``ode(x, u) -> dx/dt`` (any function of torch tensors)
-into fixed-step RK4 maps, their Jacobians, rollouts and training data.
-Random draws come from a ``torch.Generator`` where the JAX package takes a
-``jax.random`` key (other numbers from the same seed).  The adaptive DOPRI5
-integrator and DAE (``alg``) elimination are ROADMAP §1 item 6.4.
+into fixed-step RK4 maps or the error-controlled Dormand-Prince RK5(4)
+integrator (``integrator='adaptive'``), their Jacobians, rollouts and
+training data; semi-explicit index-1 DAE systems (``alg``) by pointwise
+Newton elimination of the algebraic variables.  Random draws come from a
+``torch.Generator`` where the JAX package takes a ``jax.random`` key (other
+numbers from the same seed).
+
+The adaptive integrator is the JAX package's ``lax.while_loop`` as a masked
+loop over a batch of lanes (any leading dims of the state): each lane
+stops stepping when it reaches dt or its step budget, and the loop reads
+"every lane done" on the host once every :data:`ADAPTIVE_CHUNK` steps on
+the card (every step on the CPU).  Under a ``torch.func`` transform (the
+NLP's ``jacfwd`` with ``discrete_method='exact'``, a ``vmap``) the flag is
+read from the primal values beneath the transform's wrappers: the step
+sizes and stop decisions depend on the primal values only, as in the JAX
+loop, and the tangents ride along.  That read is a host sync, so an
+``exact`` controller with the adaptive integrator syncs on the card; the
+plant and the host paths (``sim``, ``generate_training_data``,
+``MPC.solve_mc``'s plant step) read it outside any transform.
 """
 
 from __future__ import annotations
@@ -16,15 +31,37 @@ import numpy as np
 import torch
 from torch.func import jacfwd
 
+from torch.func import vmap
+
 from gpmpc_tpu_torch.ops import cuda_kernels
+from gpmpc_tpu_torch.ops.chol import ge_solve_small
 from gpmpc_tpu_torch.utils.device import resolve_device
+
+#: the adaptive integrator's steps between two host reads of "every lane
+#: done" on the card (each read waits for the device); on the CPU it reads
+#: after every step
+ADAPTIVE_CHUNK = 8
+
+
+def _primal(t: torch.Tensor) -> torch.Tensor:
+    """The tensor beneath every ``torch.func`` wrapper of ``t``: the primal
+    values of all lanes of every level."""
+    while torch._C._functorch.is_functorch_wrapped_tensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t
 
 
 class Model:
     """Continuous-time plant wrapped into discrete-time maps:
     ``rk4``, ``integrate``, ``linearize``, ``discrete_linearize``, ``sim``,
     ``generate_training_data``.  Every tensor lives on ``device`` (default:
-    the CUDA card; ``device="cpu"`` for the CPU) in ``dtype``."""
+    the CUDA card; ``device="cpu"`` for the CPU) in ``dtype``.
+
+    With ``alg`` the plant is the semi-explicit index-1 DAE x' = ode(x, z,
+    u), 0 = alg(x, z, u), z in R^Nz: the algebraic variables are eliminated
+    pointwise by ``alg_newton_iters`` Newton steps from ``z_guess(x, u)``
+    (default zeros), so every map works on the reduced ODE.  ``rtol``,
+    ``atol`` and ``max_adaptive_steps`` set the adaptive integrator."""
 
     def __init__(self,
                  Nx: int,
@@ -33,10 +70,16 @@ class Model:
                  dt: float,
                  R=None,
                  alg: Optional[Callable] = None,
+                 Nz: Optional[int] = None,
+                 z_guess: Optional[Callable] = None,
+                 alg_newton_iters: int = 12,
                  clip_negative: bool = False,
                  integrator_substeps: int = 20,
                  integrator: str = "rk4",
                  fused_integrator: bool = False,
+                 rtol: float = 1e-6,
+                 atol: float = 1e-9,
+                 max_adaptive_steps: int = 10_000,
                  device=None,
                  dtype=torch.float32):
         self.Nx = int(Nx)
@@ -78,20 +121,65 @@ class Model:
                     "systems.four_tank_ode or systems.car_ode passed "
                     "directly, not wrapped); other ODEs are ROADMAP work "
                     "(the quadrotor's K2 functor, §2 item 2)")
-        if integrator == "adaptive":
-            raise NotImplementedError(
-                "integrator='adaptive' is not ported yet (ROADMAP §1 item "
-                "6.4)")
-        if alg is not None:
-            raise NotImplementedError(
-                "DAE (alg) systems are not ported yet (ROADMAP §1 item "
-                "6.4)")
         self.integrator = integrator
+        self.rtol = float(rtol)
+        self.atol = float(atol)
+        self.max_adaptive_steps = int(max_adaptive_steps)
+        #: host reads of "every lane done" by the adaptive integrator
+        self.adaptive_host_reads = 0
         self.R = (torch.zeros((self.Nx, self.Nx), dtype=dtype,
                               device=self.device) if R is None
                   else torch.as_tensor(np.asarray(R), dtype=dtype,
                                        device=self.device))
-        self.ode = ode
+        self.alg = alg
+        if alg is not None:
+            if Nz is None or int(Nz) <= 0:
+                raise ValueError("DAE systems require Nz (the number of "
+                                 "algebraic variables)")
+            self.Nz = int(Nz)
+            self._ode_dae = ode                  # ode(x, z, u)
+            self._z_guess = z_guess
+            self._alg_iters = int(alg_newton_iters)
+            self.ode = self._dae_reduced         # ode(x, u) for all callers
+        else:
+            self.Nz = 0
+            self.ode = ode
+
+    # ------------------------------------------------------------ DAE layer
+
+    def solve_alg(self, x: torch.Tensor, u: torch.Tensor,
+                  z0: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Newton solve of 0 = alg(x, z, u) for the algebraic variables z
+        of one point: a fixed count of steps, each a ``jacfwd`` in z and an
+        unrolled Gauss-Jordan solve (no branch on the values)."""
+        if z0 is None:
+            z0 = (self._z_guess(x, u) if self._z_guess is not None
+                  else x.new_zeros(self.Nz))
+        z = z0
+        for _ in range(self._alg_iters):
+            g = self.alg(x, z, u)
+            jz = jacfwd(lambda zz: self.alg(x, zz, u))(z).to(z.dtype)
+            z = z + ge_solve_small(jz, -g)
+        return z
+
+    def _dae_reduced(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """Reduced ODE x' = f(x, z*(x, u), u), z* from the Newton solve;
+        mapped over any leading dims of x and u."""
+        return self._pointwise(
+            lambda xx, uu: self._ode_dae(xx, self.solve_alg(xx, uu), uu),
+            x, u)
+
+    @staticmethod
+    def _pointwise(f, x, u):
+        """``f(x, u)`` of one point, mapped over the broadcast leading dims
+        of x (..., Nx) and u (..., Nu)."""
+        lead = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
+        if not lead:
+            return f(x, u)
+        xf = x.expand(lead + x.shape[-1:]).reshape((-1,) + x.shape[-1:])
+        uf = u.expand(lead + u.shape[-1:]).reshape((-1,) + u.shape[-1:])
+        out = vmap(f)(xf, uf)
+        return out.reshape(lead + out.shape[-1:])
 
     # ------------------------------------------------------------ core maps
 
@@ -102,7 +190,10 @@ class Model:
 
     def integrate(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """Plant-truth one-step integration over dt: ``integrator_substeps``
-        RK4 substeps; with ``fused_integrator`` through the K2 wrapper."""
+        RK4 substeps (with ``fused_integrator`` through the K2 wrapper), or
+        the adaptive DOPRI5 integrator with ``integrator='adaptive'``."""
+        if self.integrator == "adaptive":
+            return self.integrate_adaptive(x, u)
         h = self.dt / self.integrator_substeps
         if self.fused_integrator:
             return cuda_kernels.rk4_substeps(
@@ -110,6 +201,104 @@ class Model:
                 self.integrator_substeps)
         return cuda_kernels.rk4_substeps_reference(
             self.ode, x, u, h, self.integrator_substeps)
+
+    # Dormand-Prince RK5(4)7M tableau (the pair of the host integrator
+    # csrc/integrator.cpp and of the JAX package)
+    _DP_A = (
+        (1 / 5,),
+        (3 / 40, 9 / 40),
+        (44 / 45, -56 / 15, 32 / 9),
+        (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+        (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+        (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
+    )
+    # 5th-order solution weights == last A row (FSAL); 4th-order embedded
+    _DP_B4 = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640,
+              -92097 / 339200, 187 / 2100, 1 / 40)
+
+    def _dopri5_step(self, x, u, h, k1):
+        """One DOPRI5 trial step of size ``h`` (broadcast against x) from
+        the first stage ``k1 = f(x)``, the ODE mapped over the lanes (an
+        ODE written for one state serves); returns (x5, err, k7) with err the
+        5th-minus-embedded-4th-order difference and k7 = f(x5), the next
+        step's k1 (FSAL)."""
+        k = [k1]
+        for row in self._DP_A:
+            xs = x + h * sum(a * ki for a, ki in zip(row, k) if a != 0.0)
+            k.append(self._pointwise(self.ode, xs, u))
+        x5 = xs                       # the last stage uses the b-row (FSAL)
+        x4 = x + h * sum(b * ki for b, ki in zip(self._DP_B4, k)
+                         if b != 0.0)
+        return x5, x5 - x4, k[-1]
+
+    def integrate_adaptive(self, x: torch.Tensor, u: torch.Tensor,
+                           rtol: Optional[float] = None,
+                           atol: Optional[float] = None) -> torch.Tensor:
+        """Error-controlled one-step integration over dt: Dormand-Prince
+        RK5(4) with the Gustafsson PI step-size controller, the JAX
+        package's ``integrate_adaptive``.  x (..., Nx) and u (..., Nu): each
+        lane of the leading dims steps on its own and stops at dt or at
+        ``max_adaptive_steps`` steps (its updates masked once it stops);
+        the loop ends when every lane has stopped, read on the host every
+        :data:`ADAPTIVE_CHUNK` steps on the card.  Forward-mode
+        differentiable.
+
+        Failure is not silent: a lane whose budget ran out before dt, or
+        that force-accepted a step at the minimum step size with its error
+        above tolerance, comes back NaN."""
+        rtol = self.rtol if rtol is None else float(rtol)
+        atol = self.atol if atol is None else float(atol)
+        t_end = self.dt
+        h0 = t_end / 10.0              # a conservative fraction of dt
+        h_min = t_end * 1e-6
+        # h *= safety err^(-0.7/5) err_prev^(0.4/5) (Hairer & Wanner II.4)
+        safety, pi_alpha, pi_beta = 0.9, 0.7 / 5.0, 0.4 / 5.0
+        budget = self.max_adaptive_steps
+        lead = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
+        x = x.expand(lead + x.shape[-1:])
+        u = u.expand(lead + u.shape[-1:])
+        kw = dict(dtype=x.dtype, device=x.device)
+        t = torch.zeros(lead, **kw)
+        h = torch.full(lead, h0, **kw)
+        k1 = self._pointwise(self.ode, x, u)
+        en_prev = torch.ones(lead, **kw)
+        n = torch.zeros(lead, dtype=torch.int32, device=x.device)
+        bad = torch.zeros(lead, dtype=torch.bool, device=x.device)
+        chunk = 1 if x.device.type == "cpu" else ADAPTIVE_CHUNK
+        steps = 0
+        while steps < budget:
+            for _ in range(min(chunk, budget - steps)):
+                active = (t < t_end) & (n < budget)
+                hh = torch.minimum(h, t_end - t)
+                x5, err, k7 = self._dopri5_step(x, u, hh[..., None], k1)
+                scale = atol + rtol * torch.maximum(torch.abs(x),
+                                                    torch.abs(x5))
+                enorm = torch.sqrt(torch.mean((err / scale) ** 2, dim=-1))
+                accept = (enorm <= 1.0) | (hh <= h_min)
+                # a force-accept at h_min with the error still above
+                # tolerance means the error control has failed
+                bad_n = bad | ((enorm > 1.0) & (hh <= h_min))
+                en = torch.clamp(enorm, min=1e-10)
+                fac = (safety * torch.pow(en, -pi_alpha)
+                       * torch.pow(torch.clamp(en_prev, min=1e-10), pi_beta))
+                h_n = torch.clamp(hh * torch.clamp(fac, 0.2, 5.0), min=h_min)
+                take = active & accept
+                t = torch.where(take, t + hh, t)
+                x = torch.where(take[..., None], x5, x)
+                # FSAL: an accepted step's k7 = f(x5) is the next k1; a
+                # rejected step retries from the same x with the same k1
+                k1 = torch.where(take[..., None], k7, k1)
+                en_prev = torch.where(take, en, en_prev)
+                h = torch.where(active, h_n, h)
+                bad = torch.where(active, bad_n, bad)
+                n = n + active.to(torch.int32)
+                steps += 1
+            self.adaptive_host_reads += 1
+            if not bool(torch.any(_primal((t < t_end) & (n < budget)))):
+                break
+        failed = bad | (t < t_end)        # budget exhausted mid-interval
+        return torch.where(failed[..., None], torch.full_like(x, torch.nan),
+                           x)
 
     # ------------------------------------------------------------ linearize
 

@@ -5,8 +5,9 @@ z-score normalizes inputs/outputs, trains the hyperparameters (multistart
 batched L-BFGS on the Cholesky NLL, :func:`gp_core.fit`) unless they are
 given (``hyper=`` or :meth:`GP.load_model`), precomputes the per-dim
 factorizations, selects the propagation scheme, predicts, validates on
-held-out data and saves to the JAX package's ``.npz`` format.  Sparse
-(inducing-point) GPs are ROADMAP §1 item 6.7.
+held-out data and saves to the JAX package's ``.npz`` format.  With
+``inducing=M`` it is the sparse variational GP of
+:mod:`gpmpc_tpu_torch.models.sparse`.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd
 
-from gpmpc_tpu_torch.models import gp_core
+from gpmpc_tpu_torch.models import gp_core, sparse
 from gpmpc_tpu_torch.models.propagate import Normalization, get_propagator
 from gpmpc_tpu_torch.ops.kernels import KERNELS
 from gpmpc_tpu_torch.utils.config import GPConfig
@@ -47,7 +48,14 @@ class GP:
     ``torch.Generator`` on the GP's device seeded with ``seed``).
     ``gh_order`` and ``gh_grid`` are the Gauss-Hermite quadrature's knobs,
     read only with ``gp_method='GH'`` (``models/propagate.py::
-    propagate_gh``)."""
+    propagate_gh``).
+
+    ``inducing=M`` (1 <= M < N) makes it the sparse variational GP
+    (:mod:`~gpmpc_tpu_torch.models.sparse`): M k-center inducing points,
+    training on the Titsias free-energy bound, a posterior every consumer
+    takes as it takes the exact one.  ``optimize_inducing=True`` also
+    refines the inducing locations on the summed bound (fit, Z-step,
+    warm refit)."""
 
     def __init__(self,
                  X,
@@ -63,6 +71,7 @@ class GP:
                  seed: int = 0,
                  generator: Optional[torch.Generator] = None,
                  inducing: Optional[int] = None,
+                 optimize_inducing: bool = False,
                  mesh=None,
                  kernel: str = "se",
                  gh_order: int = 3,
@@ -78,10 +87,14 @@ class GP:
         if kernel not in KERNELS:
             raise ValueError(f"unknown kernel {kernel!r}; "
                              f"supported: {KERNELS}")
-        if inducing is not None:
-            raise NotImplementedError(
-                "sparse (inducing-point) GPs are not ported yet (ROADMAP "
-                "§1 item 6.7)")
+        if inducing is not None and not 1 <= int(inducing) < X.shape[0]:
+            raise ValueError(
+                f"inducing={inducing} must be in [1, N={X.shape[0]}) — "
+                "at M >= N the exact GP is both cheaper and tighter")
+        self.inducing = int(inducing) if inducing is not None else None
+        if optimize_inducing and inducing is None:
+            raise ValueError("optimize_inducing=True requires inducing=M")
+        self.optimize_inducing = bool(optimize_inducing)
         if mesh is not None:
             raise NotImplementedError(
                 "GP(mesh=): sharding the training grid over devices is not "
@@ -114,11 +127,20 @@ class GP:
                                                self.device)
         self.Xn = (X - self.norm.z_mean) / self.norm.z_std
         self.Yn = (Y - self.norm.y_mean) / self.norm.y_std
+        if self.inducing is not None:
+            self.z_idx = sparse.select_inducing(self.Xn, self.inducing)
+            self.Zn = self.Xn[self.z_idx.long()]     # (M, D) inducing inputs
+        else:
+            self.z_idx = None
+            self.Zn = None
 
         self.hyper: Optional[gp_core.GPHypers] = None
         self.nll: Optional[torch.Tensor] = None
-        #: batched NLL evaluations of the last training
+        #: batched objective evaluations of the last training, and (sparse)
+        #: of each of its legs: the exact subset fit, the VFE fit, the
+        #: Z-step and the refit
         self.n_evals = 0
+        self.fit_evals = {}
         self.post: Optional[gp_core.GPPosterior] = None
         if hyper is not None:
             self.hyper = gp_core.GPHypers(*(self._t(h) for h in hyper))
@@ -131,15 +153,36 @@ class GP:
 
     def train(self, generator: Optional[torch.Generator] = None) -> None:
         """Multistart L-BFGS hyperparameter training of every output dim at
-        once (:func:`gp_core.fit`), then the posterior.  The perturbed
+        once (:func:`gp_core.fit`; with ``inducing`` on the VFE bound,
+        :func:`sparse.fit_sparse`), then the posterior.  The perturbed
         starts come from ``generator`` (default: the GP's own)."""
-        self.hyper, self.nll, self.n_evals = gp_core.fit(
-            self.Xn, self.Yn, self.cfg,
-            generator if generator is not None else self._generator)
+        g = generator if generator is not None else self._generator
+        if self.inducing is None:
+            self.hyper, self.nll, self.n_evals = gp_core.fit(
+                self.Xn, self.Yn, self.cfg, g)
+            self.fit_evals = {"exact": self.n_evals}
+        else:
+            self.hyper, self.nll, evals = sparse.fit_sparse(
+                self.Xn, self.Yn, self.Zn, self.cfg, g)
+            if self.optimize_inducing:
+                # coordinate descent: a Z-step on the summed bound with the
+                # hypers fixed, then a warm single-start refit on the
+                # moved set
+                self.Zn, _, evals["inducing"] = sparse.optimize_inducing(
+                    self.Xn, self.Yn, self.Zn, self.hyper, self.cfg)
+                self.hyper, self.nll, evals["refit"] = sparse.refit_sparse(
+                    self.Xn, self.Yn, self.Zn, self.hyper, self.cfg)
+            self.fit_evals = evals
+            self.n_evals = sum(evals.values())
         self._build_posterior()
 
     def _build_posterior(self) -> None:
-        self.post = gp_core.posterior(self.Xn, self.Yn, self.hyper, self.cfg)
+        if self.inducing is not None:
+            self.post = sparse.sparse_posterior(self.Xn, self.Yn, self.Zn,
+                                                self.hyper, self.cfg)
+        else:
+            self.post = gp_core.posterior(self.Xn, self.Yn, self.hyper,
+                                          self.cfg)
 
     def _t(self, a) -> torch.Tensor:
         if torch.is_tensor(a):
@@ -246,7 +289,11 @@ class GP:
                     for k, v in self.hyper._asdict().items()},
                  mean_func=self.cfg.mean_func, gp_method=self.gp_method,
                  normalize=self.cfg.normalize, kernel=self.cfg.kernel,
-                 inducing=0, Zn=np.zeros((0, 0)))
+                 inducing=self.inducing or 0,
+                 # the (possibly moved) inducing set in normalized
+                 # coordinates, so a loaded model rebuilds this posterior
+                 Zn=(self.Zn.detach().cpu().numpy() if self.Zn is not None
+                     else np.zeros((0, 0))))
 
     @classmethod
     def load_model(cls, path: str, device=None,
@@ -255,17 +302,21 @@ class GP:
         ``GP.save_model`` writes (on the card unless ``device`` says
         otherwise)."""
         z = np.load(path)
-        if "inducing" in z and int(z["inducing"]):
-            raise NotImplementedError(
-                "sparse (inducing-point) GPs are not ported yet "
-                "(ROADMAP §1 item 6.7)")
         hyper = gp_core.GPHypers(log_ell=z["log_ell"], log_sf2=z["log_sf2"],
                                  log_sn2=z["log_sn2"], mean_w=z["mean_w"])
-        return cls(z["X"], z["Y"], mean_func=str(z["mean_func"]),
-                   gp_method=str(z["gp_method"]), hyper=hyper,
-                   normalize=bool(z["normalize"]),
-                   kernel=str(z["kernel"]) if "kernel" in z else "se",
-                   device=device, dtype=dtype, **gp_kwargs)
+        inducing = int(z["inducing"]) if "inducing" in z else 0
+        gp = cls(z["X"], z["Y"], mean_func=str(z["mean_func"]),
+                 gp_method=str(z["gp_method"]), hyper=hyper,
+                 normalize=bool(z["normalize"]), inducing=inducing or None,
+                 kernel=str(z["kernel"]) if "kernel" in z else "se",
+                 device=device, dtype=dtype, **gp_kwargs)
+        if inducing and "Zn" in z and z["Zn"].size:
+            zn = gp._t(z["Zn"])
+            if not torch.equal(gp.Zn, zn):
+                gp.Zn = zn                       # optimized, not k-center
+                gp._build_posterior()
+                gp.set_method(gp.gp_method)
+        return gp
 
     # ------------------------------------------------------------ misc
 

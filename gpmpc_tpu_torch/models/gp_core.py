@@ -14,8 +14,9 @@ grid is one Gram (K4) and one Cholesky (K5) launch on the card, a
 posterior one K4 and three K5 launches, a batched prediction one K3
 launch.  The kernel family is ``cfg.kernel``: a Matérn Gram is plain
 PyTorch (``ops/kernels.py``), so a Matérn NLL evaluation is one K5 launch
-and a Matérn posterior three, with no K4.  Sparse GPs (``nll_fn=``/
-``extra_starts=`` of the JAX ``fit``) are ROADMAP §1 item 6.7.
+and a Matérn posterior three, with no K4.  :func:`fit` takes another
+objective of the same batched signature (``nll_fn``, the sparse GP's VFE
+bound, two K5 launches an evaluation) and informed extra starts.
 """
 
 from __future__ import annotations
@@ -70,11 +71,32 @@ class GPPosterior(NamedTuple):
 class ExplicitInversePosterior(GPPosterior):
     """A posterior known only by its explicit inverse: the online GP's
     (``parallel/online_gp.py::as_gp_posterior``), whose bordered updates
-    keep K^-1 and no factor, so ``chol`` is None.  :func:`predict` takes
-    its variance as sf2 - k*' K^-1 k*, the JAX package's form; every other
-    posterior keeps the factor's form."""
+    keep K^-1 and no factor, so ``chol`` is None.  Its variance is sf2 -
+    k*' K^-1 k*, the JAX package's form; every other posterior keeps a
+    factor's form."""
 
     __slots__ = ()
+
+
+class SparsePosterior(NamedTuple):
+    """The sparse VFE posterior (``models/sparse.py::sparse_posterior``),
+    the JAX package's drop-in ``GPPosterior`` with x = Z (M, D), chol = L_M
+    = chol(K_MM), alpha = beta and inv_k = Lambda = K_MM^-1 - Sigma (EM
+    reads it), plus ``chol_b`` = L_B = chol(I + A A') (Ny, M, M).
+
+    Its variance sf2 - k*' Lambda k* is formed as sf2 - ||L_M^-1 k*||^2 +
+    ||L_B^-1 L_M^-1 k*||^2 by two triangular solves, not with the explicit
+    Lambda: in f32 the explicit form carries cond(K_MM) into the rounding
+    and the variance near the data is noise, as for the exact GP
+    (:func:`predict`).  In f64 the two forms agree within ~1e-12 of
+    sf2."""
+
+    x: torch.Tensor
+    chol: torch.Tensor
+    alpha: torch.Tensor
+    inv_k: torch.Tensor
+    hypers: GPHypers
+    chol_b: torch.Tensor
 
 
 def _noise_var(log_sn2: torch.Tensor, cfg: GPConfig) -> torch.Tensor:
@@ -168,10 +190,16 @@ def _unpack(theta: torch.Tensor, d: int):
 
 
 def fit(x: torch.Tensor, y: torch.Tensor, cfg: GPConfig,
-        generator: torch.Generator, mesh=None
+        generator: torch.Generator, nll_fn=None,
+        extra_starts: GPHypers = None, mesh=None
         ) -> Tuple[GPHypers, torch.Tensor, int]:
     """Train all Ny GPs with multistart; returns the best hypers per dim,
     their final NLLs and the number of batched objective evaluations.
+
+    ``nll_fn`` (the signature of :func:`nll_batch`) swaps the objective:
+    ``models/sparse.py`` trains on the VFE bound this way.
+    ``extra_starts`` (per-dim hypers, Ny leading) is appended to the
+    perturbed starts as one more start.
 
     The JAX package runs the (multistart x Ny) grid under ``lax.map``, one
     problem at a time, each through ``_run_lbfgs``; here the grid is one
@@ -187,6 +215,11 @@ def fit(x: torch.Tensor, y: torch.Tensor, cfg: GPConfig,
     ny = y.shape[1]
     s = cfg.multistart
     starts = _init_hypers(generator, x, y, s, cfg.mean_func)
+    if extra_starts is not None:
+        starts = GPHypers(*(torch.cat([a, b[None].to(a.dtype)])
+                            for a, b in zip(starts, extra_starts)))
+        s = s + 1
+    nll = nll_fn if nll_fn is not None else nll_batch
     theta0 = torch.cat([starts.log_ell.reshape(s * ny, d),
                         starts.log_sf2.reshape(s * ny, 1),
                         starts.log_sn2.reshape(s * ny, 1),
@@ -194,7 +227,7 @@ def fit(x: torch.Tensor, y: torch.Tensor, cfg: GPConfig,
     y_rows = y.mT.repeat(s, 1)                    # (S*Ny, N), dim-minor
 
     def objective(theta):
-        return nll_batch(*_unpack(theta, d), x, y_rows, cfg, cfg.mean_func)
+        return nll(*_unpack(theta, d), x, y_rows, cfg, cfg.mean_func)
 
     theta, values, n_evals = lbfgs.minimize(objective, theta0,
                                             cfg.max_iters, cfg.grad_tol)
@@ -243,20 +276,29 @@ def posterior(x: torch.Tensor, y: torch.Tensor, hypers: GPHypers,
 
 def predict_batch(post: GPPosterior, z: torch.Tensor, cfg: GPConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Deterministic-input predictive mean/variance of an SE posterior with
-    a Cholesky factor at B points at once: z (B, D) -> (mu (B, Ny), var (B,
-    Ny)), what the JAX package gets from ``vmap(predict)``.  k* and k*
-    alpha for every point and dim are one K3 launch; the variance sf2 -
-    ||L^-1 k*^T||^2 is one batched triangular solve, as in
-    :func:`predict`.  :func:`predict_points` picks this route."""
+    """Deterministic-input predictive mean/variance of an SE posterior at B
+    points at once: z (B, D) -> (mu (B, Ny), var (B, Ny)), what the JAX
+    package gets from ``vmap(predict)``.  k* and k* alpha for every point
+    and dim are one K3 launch; the variance is sf2 - ||L^-1 k*^T||^2 by one
+    batched triangular solve, as in :func:`predict` (plus ||L_B^-1 L^-1
+    k*^T||^2 for a :class:`SparsePosterior`), or for an
+    :class:`ExplicitInversePosterior` sf2 - k* inv_k k*^T.
+    :func:`predict_points` picks this route."""
     h = post.hypers
     sf2 = torch.exp(h.log_sf2)
     mu, ks = gp_cuda.gp_predict_batch(
         z.contiguous(), post.x.contiguous(), torch.exp(h.log_ell).contiguous(),
         sf2.contiguous(), post.alpha.contiguous())
     mu = _mean_rows(z, h.mean_w, cfg.mean_func) + mu              # (Ny, B)
-    v = torch.linalg.solve_triangular(post.chol, ks.mT, upper=False)
-    var = sf2[:, None] - torch.sum(v * v, dim=-2)
+    if isinstance(post, ExplicitInversePosterior):
+        quad = torch.sum(ks * (post.inv_k @ ks.mT).mT, dim=-1)    # (Ny, B)
+    else:
+        v = torch.linalg.solve_triangular(post.chol, ks.mT, upper=False)
+        quad = torch.sum(v * v, dim=-2)
+        if isinstance(post, SparsePosterior):
+            vb = torch.linalg.solve_triangular(post.chol_b, v, upper=False)
+            quad = quad - torch.sum(vb * vb, dim=-2)
+    var = sf2[:, None] - quad
     if cfg.predict_includes_noise:
         var = var + _noise_var(h.log_sn2, cfg)[:, None]
     return mu.mT, torch.clamp(var, min=0.0).mT
@@ -266,12 +308,11 @@ def predict_points(post: GPPosterior, z: torch.Tensor, cfg: GPConfig
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Deterministic-input predictive mean/variance at B points: z (B, D)
     -> (mu (B, Ny), var (B, Ny)), the JAX package's ``vmap(predict)``.
-    The route follows the posterior: an SE posterior with a Cholesky
-    factor goes through :func:`predict_batch` (one K3 launch on the card,
-    the variance in :func:`predict`'s form); a Matérn posterior, or an
-    :class:`ExplicitInversePosterior` (no factor), maps :func:`predict`
-    over the points, since K3 computes SE-ARD only."""
-    if cfg.kernel == "se" and not isinstance(post, ExplicitInversePosterior):
+    An SE posterior goes through :func:`predict_batch` (one K3 launch on
+    the card; under ``vmap`` over lanes one launch for all of them, with
+    per-lane posteriors too); a Matérn posterior maps :func:`predict` over
+    the points, since K3 computes SE-ARD only."""
+    if cfg.kernel == "se":
         return predict_batch(post, z, cfg)
     return vmap(lambda zz: predict(post, zz, cfg))(z)
 
@@ -306,10 +347,13 @@ def predict(post: GPPosterior, z: torch.Tensor, cfg: GPConfig
     1.4e-3).  In f64 the two forms agree to ~1e-12 of sf2.
 
     An :class:`ExplicitInversePosterior` (the online GP) has no factor: its
-    variance is the explicit-inverse form, selected by its type."""
+    variance is the explicit-inverse form, selected by its type; a
+    :class:`SparsePosterior`'s adds ||L_B^-1 L_M^-1 k*||^2 to the factor's
+    form."""
     explicit = isinstance(post, ExplicitInversePosterior)
+    sparse = isinstance(post, SparsePosterior)
 
-    def one(log_ell, log_sf2, log_sn2, mean_w, alpha, mat):
+    def one(log_ell, log_sf2, log_sn2, mean_w, alpha, mat, mat_b):
         ks = kernel_cross(cfg.kernel, z[None, :], post.x, torch.exp(log_ell),
                           torch.exp(log_sf2))[0]                    # (N,)
         mu = mean_value(z, mean_w, cfg.mean_func) + torch.dot(ks, alpha)
@@ -318,10 +362,14 @@ def predict(post: GPPosterior, z: torch.Tensor, cfg: GPConfig
         else:
             v = tri_solve(mat, ks)                                  # L^-1 k*
             var = torch.exp(log_sf2) - torch.dot(v, v)
+            if sparse:
+                vb = tri_solve(mat_b, v)
+                var = var + torch.dot(vb, vb)
         if cfg.predict_includes_noise:
             var = var + _noise_var(log_sn2, cfg)
         return mu, torch.maximum(var, torch.zeros_like(var))
 
     h = post.hypers
-    return vmap(one)(h.log_ell, h.log_sf2, h.log_sn2, h.mean_w,
-                     post.alpha, post.inv_k if explicit else post.chol)
+    mat = post.inv_k if explicit else post.chol
+    return vmap(one)(h.log_ell, h.log_sf2, h.log_sn2, h.mean_w, post.alpha,
+                     mat, post.chol_b if sparse else mat)

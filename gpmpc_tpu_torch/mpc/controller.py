@@ -22,8 +22,13 @@ as a per-stage parameter (tightened bounds, trace cost terms).  The JAX
 ``lax.scan``s (covariance passes, covariance recursion, closed loop) are
 Python loops here; nothing inside a solve reads a tensor on the host.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-``solve_mc``.
+``solve_mc`` runs a Monte-Carlo ensemble of closed loops: each control
+step is one ``torch.func.vmap`` of :meth:`MPC._solve_step` over the lanes
+(one K1 launch per inner SQP step and one K3 launch per sigma-point pass
+for all lanes on the card), and the plant step one batched call outside
+the vmap (one K2 launch; the adaptive plant's host-side stop flag).  Not
+ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+``solve_mc(mesh=)``.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
-from torch.func import jacfwd
+from torch.func import jacfwd, vmap
 
 from gpmpc_tpu_torch.models.dynamics import Model
 from gpmpc_tpu_torch.models.gp import GP, mean_fn_functional
@@ -335,6 +340,7 @@ class MPC:
             solver=self.sqp_cfg)
         self._build_problem()
         self._last_run = None
+        self._last_mc = None
 
     # ------------------------------------------------------------ dynamics
 
@@ -716,8 +722,140 @@ class MPC:
             self.model.R + 1e-32 * torch.eye(self.Nx, dtype=self.dtype,
                                              device=self.device))
 
-    def solve_mc(self, *args, **kwargs):
-        _not_ported("MPC.solve_mc", "ROADMAP §1 item 6.5")
+    def _plant(self, x, u):
+        """The plant step of every lane at once: x (L, Nx), u (L, Nu).  The
+        fused RK4 chain (one K2 launch) and the adaptive integrator (its
+        per-lane masks and host-side stop flag) take the batch as it is;
+        the unfused RK4 chain is mapped over the lanes, so an ODE written
+        for one state serves too."""
+        if self.model.fused_integrator or self.model.integrator == "adaptive":
+            return self.model.integrate(x, u)
+        return vmap(self.model.integrate)(x, u)
+
+    def _mc_loop(self, x0s, ref_windows, u0_guess, con_pars, noise_ws,
+                 consts, opost, n_steps):
+        """The Monte-Carlo ensemble: the closed loop of :meth:`_closed_loop`
+        (with noise) for every lane, one vmapped solve and one batched
+        plant step a control step.  ``opost`` (the online posterior) goes
+        in shared and comes back batched: each lane conditions its own
+        copy.  Returns ``(xs (L, M+1, Nx), us (L, M, Nu), sig1s (L, M, Nx,
+        Nx), StepInfo of (L, M), opost)``."""
+        kw = dict(dtype=self.dtype, device=self.device)
+        n_mc = x0s.shape[0]
+        u_start = torch.zeros(self.Nu, **kw)
+        sigma0 = torch.zeros((self.Nx, self.Nx), **kw)
+        warm = vmap(lambda x0: self._init_warm(
+            self._augment_x0(x0, u_start), ref_windows[0], u0_guess))(x0s)
+        if self.init_sqp_cfg != self.sqp_cfg:
+            con_par0 = (con_pars[0] if con_pars.shape[0] else
+                        torch.zeros(self.num_con_par, **kw))
+            warm = vmap(lambda w, x0: self._solve_step(
+                w, x0, ref_windows[0], u_start, sigma0, con_par0, consts,
+                cfg=self.init_sqp_cfg)[0])(warm, x0s)
+
+        def solve(warm, x, u_prev, x_sp, con_par, post=None):
+            consts_k = (consts if post is None else consts._replace(
+                post=online_gp.as_gp_posterior(post)))
+            warm, u_cmd, sigmas, info = self._solve_step(
+                warm, x, x_sp, u_prev, sigma0, con_par, consts_k)
+            u_cmd = self._saturate(u_cmd, u_prev, consts)
+            return warm, u_cmd, sigmas[1, :self.Nx, :self.Nx], info
+
+        def observe(post, x, u, x_next):
+            y_obs = (self._bd_pinv @ (x_next - self.model.rk4(x, u))
+                     if self._bd_pinv is not None else x_next)
+            return online_gp.condition(
+                post, consts.norm, torch.cat([x, u]), y_obs,
+                kernel=self._gp_cfg.kernel, policy=self.online_policy,
+                mean_func=self._gp_cfg.mean_func)
+
+        x = x0s
+        u_prev = u_start[None].expand(n_mc, self.Nu)
+        pdim = None
+        xs, us, sig1s, infos = [], [], [], []
+        for k in range(n_steps):
+            if opost is None:
+                warm, u_cmd, sig1, info = vmap(
+                    solve, in_dims=(0, 0, 0, None, None))(
+                    warm, x, u_prev, ref_windows[k], con_pars[k])
+            else:
+                warm, u_cmd, sig1, info = vmap(
+                    solve, in_dims=(0, 0, 0, None, None, pdim))(
+                    warm, x, u_prev, ref_windows[k], con_pars[k], opost)
+            x_next = self._plant(x, u_cmd) + noise_ws[:, k]
+            if self.model.clip_negative:
+                x_next = torch.clamp(x_next, min=0.0)
+            if opost is not None:
+                opost = vmap(observe, in_dims=(pdim, 0, 0, 0))(
+                    opost, x, u_cmd, x_next)
+                pdim = 0
+            xs.append(x)
+            us.append(u_cmd)
+            sig1s.append(sig1)
+            infos.append(info)
+            x, u_prev = x_next, u_cmd
+        xs.append(x)
+        info = StepInfo(*(torch.stack(v, dim=1) for v in zip(*infos)))
+        return (torch.stack(xs, dim=1), torch.stack(us, dim=1),
+                torch.stack(sig1s, dim=1), info, opost)
+
+    def solve_mc(self, x0, sim_time, x_sp, n_mc: int, u0=None,
+                 con_par_func: Optional[Callable] = None,
+                 generator: Optional[torch.Generator] = None,
+                 noise_ws=None, mesh=None):
+        """Monte-Carlo ensemble of closed loops: ``n_mc`` process-noise
+        realizations of the same receding-horizon simulation, run as one
+        batch of lanes.
+
+        ``x0`` is one (Nx,) initial state shared by every lane or a batch
+        (n_mc, Nx).  The noise is ``noise_ws`` (n_mc, n_steps, Nx) when
+        given, else normals drawn from ``generator`` (default: a generator
+        on the controller's device seeded with 0) times the Cholesky
+        factor of ``model.R``, as :meth:`solve` draws one lane's.  Returns
+        ``(x_sim (n_mc, M+1, Nx), u_sim (n_mc, M, Nu))``; per-lane
+        diagnostics are in ``last_mc``.  Its main consumer is the chance
+        calibration audit (:mod:`gpmpc_tpu_torch.utils.calibration`)."""
+        if mesh is not None:
+            _not_ported("MPC.solve_mc(mesh=)", "ROADMAP §1 item 6.9")
+        n_steps = int(round(sim_time / self.dt))
+        x0 = self._tensor(x0)
+        if (x0.ndim == 1 and tuple(x0.shape) != (self.Nx,)) or x0.ndim > 2 \
+                or (x0.ndim == 2 and tuple(x0.shape) != (n_mc, self.Nx)):
+            raise ValueError(f"x0 must be ({self.Nx},) or ({n_mc}, "
+                             f"{self.Nx}); got {tuple(x0.shape)}")
+        x0s = x0[None].expand(n_mc, self.Nx) if x0.ndim == 1 else x0
+        ref_windows = self._prep_ref_windows(x_sp, n_steps)
+        u0_guess = (self._tensor(u0)[None].expand(self.Nt, self.Nu)
+                    if u0 is not None else None)
+        con_pars = self._prep_con_pars(con_par_func, n_steps)
+        if noise_ws is None:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            eps = torch.randn((n_mc, n_steps, self.Nx), generator=generator,
+                              dtype=self.dtype, device=self.device)
+            noise_ws = eps @ self._noise_chol().T
+        else:
+            noise_ws = self._tensor(noise_ws)
+            if tuple(noise_ws.shape) != (n_mc, n_steps, self.Nx):
+                raise ValueError(f"noise_ws must be (n_mc, n_steps, Nx) = "
+                                 f"{(n_mc, n_steps, self.Nx)}; got "
+                                 f"{tuple(noise_ws.shape)}")
+        opost = (self.online_post0 if self.online_capacity is not None
+                 else None)
+        xs, us, sig1s, infos, _ = self._mc_loop(
+            x0s, ref_windows, u0_guess, con_pars, noise_ws, self.consts,
+            opost, n_steps)
+        self._last_mc = {
+            "x_sim": xs.cpu().numpy(), "u_sim": us.cpu().numpy(),
+            "sigmas": sig1s.cpu().numpy(),
+            "converged": infos.converged.cpu().numpy(),
+            "x_sp": ref_windows[:, 0, :].cpu().numpy(),
+        }
+        return xs, us
+
+    @property
+    def last_mc(self):
+        return self._last_mc
 
     def solve(self, x0, sim_time, x_sp, u0=None, noise: bool = True,
               noise_w=None, generator: Optional[torch.Generator] = None,

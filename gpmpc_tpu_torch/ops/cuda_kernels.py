@@ -177,6 +177,9 @@ def build_library() -> ctypes.CDLL:
     lib.gpmpc_cholesky_f32.restype = i32
     lib.gpmpc_gp_predict_batch_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
     lib.gpmpc_gp_predict_batch_f32.restype = i32
+    lib.gpmpc_gp_predict_batch_multi_f32.argtypes = [ptr] * 7 + [i32] * 5 \
+        + [ptr]
+    lib.gpmpc_gp_predict_batch_multi_f32.restype = i32
     BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(so), log=log)
     _lib = lib
     return lib

@@ -267,13 +267,16 @@ def cholesky_auto(a):
 def gp_predict_batch_reference(z, x, ell, sf2, alpha):
     """Plain version of K3: z (B, D) queries, x (N, D) points, ell (Ny, D),
     sf2 (Ny,), alpha (Ny, N) -> (mu (Ny, B), ks (Ny, B, N)) with
-    ks = se_ard_cross(z, x, ell_d, sf2_d) per dim and mu = ks alpha."""
-    zs = z / ell[:, None, :]                                   # (Ny, B, D)
-    xs = x / ell[:, None, :]                                   # (Ny, N, D)
-    d2 = (torch.sum(zs * zs, dim=-1)[:, :, None]
-          + torch.sum(xs * xs, dim=-1)[:, None, :] - 2.0 * (zs @ xs.mT))
-    ks = sf2[:, None, None] * torch.exp(-0.5 * torch.clamp(d2, min=0.0))
-    return (ks @ alpha[:, :, None])[..., 0], ks
+    ks = se_ard_cross(z, x, ell_d, sf2_d) per dim and mu = ks alpha.  With
+    a leading problem dim P on every argument (z (P, B, D), x (P, N, D),
+    ell (P, Ny, D), sf2 (P, Ny), alpha (P, Ny, N)) each problem is
+    computed on its own: mu (P, Ny, B), ks (P, Ny, B, N)."""
+    zs = z[..., None, :, :] / ell[..., :, None, :]        # (..., Ny, B, D)
+    xs = x[..., None, :, :] / ell[..., :, None, :]        # (..., Ny, N, D)
+    d2 = (torch.sum(zs * zs, dim=-1)[..., :, None]
+          + torch.sum(xs * xs, dim=-1)[..., None, :] - 2.0 * (zs @ xs.mT))
+    ks = sf2[..., :, None, None] * torch.exp(-0.5 * torch.clamp(d2, min=0.0))
+    return (ks @ alpha[..., :, :, None])[..., 0], ks
 
 
 #: K3 walks the points in tiles of this many (32 lanes x 4) and the
@@ -329,39 +332,110 @@ def gp_predict_batch_tiles_reference(z, x, ell, sf2, alpha,
     return acc[..., 0], ks[..., :n]
 
 
+def _under_derivative(*tensors) -> bool:
+    """Whether a ``torch.func`` derivative transform (jvp, jacfwd, grad)
+    wraps any of the tensors, at any level beneath the vmaps."""
+    for t in tensors:
+        while torch._C._functorch.is_functorch_wrapped_tensor(t):
+            if not torch._C._functorch.is_batchedtensor(t):
+                return True
+            t = torch._C._functorch.get_unwrapped(t)
+    return False
+
+
 def gp_predict_batch(z, x, ell, sf2, alpha):
     """K3 wrapper: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors.  Arguments as :func:`gp_predict_batch_reference`; on
-    CUDA all contiguous float32 on the card, any D.  K3 has no derivative
-    and no batching rule: under a ``torch.func`` transform a CUDA call
-    raises (the control path calls it in the covariance pass, outside
-    every transform)."""
+    CUDA tensors.  Arguments as :func:`gp_predict_batch_reference` (one
+    problem, or a leading problem dim on every argument); on CUDA all
+    contiguous float32 on the card, any D.  Under ``torch.func.vmap`` on
+    the card the call goes through the custom operator
+    ``gpmpc::gp_predict_batch``, whose vmap rule makes one launch for the
+    whole batch (:func:`_gp_predict_batch_vmap`).  K3 has no derivative:
+    under ``jacfwd``/``jvp``/``grad`` a CUDA call raises."""
     if z.device.type == "cpu":
         return gp_predict_batch_reference(z, x, ell, sf2, alpha)
     if z.device.type != "cuda":
         raise ValueError(f"gp_predict_batch: no kernel for device {z.device}")
     if ck._functorch_wrapped(z, x, ell, sf2, alpha):
-        raise RuntimeError(
-            "gp_predict_batch: K3 has no torch.func rule (no derivative, no "
-            "vmap batching; a vmapped caller such as MPC.solve_mc needs a "
-            "custom operator with a vmap rule, ROADMAP §1 item 6.5)")
-    (b, d), n, ny = z.shape, x.shape[0], ell.shape[0]
+        if _under_derivative(z, x, ell, sf2, alpha):
+            raise RuntimeError(
+                "gp_predict_batch: K3 has no derivative (neither the CUDA "
+                "kernel nor the Pallas kernel it replaces has one); call it "
+                "outside jacfwd/jvp/grad, as the covariance passes do")
+        return tuple(gp_predict_batch_op(z, x, ell, sf2, alpha))
+    return _gp_predict_batch_launch(z, x, ell, sf2, alpha)
+
+
+def _gp_predict_batch_launch(z, x, ell, sf2, alpha):
+    """Launch K3 on plain CUDA tensors: one problem, or P problems stacked
+    on a leading dim of every argument (one launch, the problems on the
+    grid's third axis)."""
+    multi = x.ndim == 3
+    (b, d), n, ny = z.shape[-2:], x.shape[-2], ell.shape[-2]
+    p = x.shape[0] if multi else 1
+    lead = (p,) if multi else ()
     ck._check_cuda("gp_predict_batch", (z, x, ell, sf2, alpha),
-                   dict(z=(b, d), x=(n, d), ell=(ny, d), sf2=(ny,),
-                        alpha=(ny, n)))
+                   dict(z=lead + (b, d), x=lead + (n, d), ell=lead + (ny, d),
+                        sf2=lead + (ny,), alpha=lead + (ny, n)))
     lib = ck.build_library()
     kw = dict(dtype=torch.float32, device=z.device)
-    mu = torch.empty((ny, b), **kw)
-    ks = torch.empty((ny, b, n), **kw)
+    mu = torch.empty(lead + (ny, b), **kw)
+    ks = torch.empty(lead + (ny, b, n), **kw)
+    ptrs = (z.data_ptr(), x.data_ptr(), ell.data_ptr(), sf2.data_ptr(),
+            alpha.data_ptr(), mu.data_ptr(), ks.data_ptr())
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        code = lib.gpmpc_gp_predict_batch_f32(
-            z.data_ptr(), x.data_ptr(), ell.data_ptr(), sf2.data_ptr(),
-            alpha.data_ptr(), mu.data_ptr(), ks.data_ptr(), ny, b, n, d,
-            stream)
+        if multi:
+            code = lib.gpmpc_gp_predict_batch_multi_f32(*ptrs, p, ny, b, n,
+                                                        d, stream)
+        else:
+            code = lib.gpmpc_gp_predict_batch_f32(*ptrs, ny, b, n, d, stream)
     ck._raise_on_error("gp_predict_batch", code)
     ck.LAUNCHES["gp_predict_batch"] += 1
     return mu, ks
+
+
+@torch.library.custom_op("gpmpc::gp_predict_batch", mutates_args=())
+def gp_predict_batch_op(z: torch.Tensor, x: torch.Tensor, ell: torch.Tensor,
+                        sf2: torch.Tensor, alpha: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3 as a custom operator, the form :func:`gp_predict_batch` takes
+    under ``torch.func.vmap`` on the card: the kernel for CUDA tensors, the
+    plain version for CPU tensors (where the vmap rule can be tested)."""
+    if z.device.type == "cpu":
+        return tuple(t.clone() for t in
+                     gp_predict_batch_reference(z, x, ell, sf2, alpha))
+    return _gp_predict_batch_launch(z, x, ell, sf2, alpha)
+
+
+@gp_predict_batch_op.register_vmap
+def _gp_predict_batch_vmap(info, in_dims, z, x, ell, sf2, alpha):
+    """One call (one K3 launch on the card) for the whole batch of L lanes.
+
+    * Only the queries batched (the lanes' sigma points against one
+      posterior): the lanes fold into the query dim, (L, B) -> L B
+      queries, and the outputs unfold.
+    * Anything else batched (per-lane posteriors, as the online GP's under
+      ``MPC.solve_mc``): every argument gets the lanes as its leading
+      problem dim (expanded where unbatched; merged with a problem dim it
+      already has), and the kernel runs the L problems on its grid."""
+    lanes = info.batch_size
+    dz = in_dims[0]
+    if all(d is None for d in in_dims[1:]):
+        zb = z.movedim(dz, -3)                       # (..., L, B, D)
+        b = zb.shape[-2]
+        mu, ks = gp_predict_batch_op(zb.flatten(-3, -2).contiguous(), x,
+                                     ell, sf2, alpha)
+        return ((mu.unflatten(-1, (lanes, b)).movedim(-2, 0),
+                 ks.unflatten(-2, (lanes, b)).movedim(-3, 0)), (0, 0))
+    args = ck._to_front(info, in_dims, (z, x, ell, sf2, alpha))
+    multi = args[1].ndim == 4                        # (L, P, N, D)
+    if multi:
+        args = [a.flatten(0, 1) for a in args]
+    mu, ks = gp_predict_batch_op(*args)
+    if multi:
+        mu, ks = mu.unflatten(0, (lanes, -1)), ks.unflatten(0, (lanes, -1))
+    return (mu, ks), (0, 0)
 
 
 # ------------------------------------------ kernels against plain versions

@@ -617,16 +617,154 @@ def test_sigma_point_solve_step_launches_k3_once_a_stage(dev, method):
 
 
 def test_predict_kernel_raises_under_a_transform(dev):
-    """On a CUDA tensor K3's wrapper refuses a torch.func transform (it has
-    no derivative and no vmap rule) instead of running the plain
-    version."""
+    """On a CUDA tensor K3's wrapper refuses a derivative transform (K3 has
+    no derivative) instead of running the plain version; under ``vmap`` it
+    launches (its vmap rule, one launch)."""
     z, x, ell, sf2, alpha = gp_cuda.predict_inputs(100, 6, 13, 4, 0,
                                                    device=dev)
-    for transform in (lambda f: torch.func.vmap(f),
-                      lambda f: torch.func.jacfwd(f)):
-        with pytest.raises(RuntimeError, match="torch.func"):
-            transform(lambda zz: gp_cuda.gp_predict_batch(
-                zz.reshape(-1, 6), x, ell, sf2, alpha)[0])(z)
+    with pytest.raises(RuntimeError, match="no derivative"):
+        torch.func.jacfwd(lambda zz: gp_cuda.gp_predict_batch(
+            zz.reshape(-1, 6), x, ell, sf2, alpha)[0])(z)
+    before = ck.LAUNCHES["gp_predict_batch"]
+    mu, _ = torch.func.vmap(lambda zz: gp_cuda.gp_predict_batch(
+        zz[None], x, ell, sf2, alpha))(z)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["gp_predict_batch"] == before + 1
+    assert mu.shape == (13, 4, 1)
+
+
+# ------------------------------------------------- slice F, part 3
+
+@pytest.mark.parametrize("lanes,n,per_lane", [(16, 100, False),
+                                              (64, 100, False),
+                                              (16, 128, True),
+                                              (5, 33, True)])
+def test_predict_vmap_rule_on_the_card(dev, lanes, n, per_lane):
+    """K3 under ``torch.func.vmap`` on the card: the lanes' 13 sigma points
+    against one posterior (folded into the query dim) or against a
+    posterior of each lane's own (the lanes on the kernel's problem dim),
+    one launch per vmapped call, each lane within k* 2e-5 and mu 2e-4 of
+    its plain version (tests/test_pallas.py's tolerances)."""
+    from torch.func import vmap
+    z, x, ell, sf2, alpha = gp_cuda.predict_inputs(n, 6, 13 * lanes, 4,
+                                                   lanes, device=dev)
+    z = z.reshape(lanes, 13, 6)
+    if per_lane:
+        g = torch.Generator(device=dev).manual_seed(lanes)
+        args = (z, (x + 0.1 * torch.randn((lanes, n, 6), generator=g,
+                                          device=dev)).contiguous(),
+                ell.expand(lanes, 4, 6).contiguous(),
+                sf2.expand(lanes, 4).contiguous(),
+                (alpha + 0.1 * torch.randn((lanes, 4, n), generator=g,
+                                           device=dev)).contiguous())
+        fn = vmap(gp_cuda.gp_predict_batch)
+    else:
+        args = (z,)
+        fn = vmap(lambda zz: gp_cuda.gp_predict_batch(zz, x, ell, sf2,
+                                                      alpha))
+    before = ck.LAUNCHES["gp_predict_batch"]
+    mu, ks = fn(*args)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["gp_predict_batch"] == before + 1
+    assert mu.shape == (lanes, 4, 13) and ks.shape == (lanes, 4, 13, n)
+    for i in range(lanes):
+        one = ([a[i] for a in args] if per_lane
+               else [z[i], x, ell, sf2, alpha])
+        mu_r, ks_r = gp_cuda.gp_predict_batch_reference(*one)
+        torch.testing.assert_close(ks[i], ks_r, rtol=gp_cuda.KS_TOL,
+                                   atol=gp_cuda.KS_TOL)
+        torch.testing.assert_close(mu[i], mu_r, rtol=gp_cuda.MU_TOL,
+                                   atol=gp_cuda.MU_TOL)
+
+
+@pytest.mark.parametrize("n,p", [(32, 4), (32, 8), (12, 2), (64, 8)])
+def test_cholesky_kernel_at_the_sparse_shapes(dev, n, p):
+    """K5 at the sparse GP's M x M shapes (P = starts x Ny problems of the
+    VFE fit, Ny of its posterior), on K_MM-like matrices (the SE kernel of
+    M points plus the 800-ulp jitter) and on I + A A': within 2e-4 max|L|
+    of the plain version in f64."""
+    from gpmpc_tpu_torch.ops.kernels import kernel_cross
+    rng = np.random.default_rng(n + p)
+    z = torch.tensor(rng.uniform(-2, 2, (n, 6)), dtype=torch.float32,
+                     device=dev)
+    ell = torch.tensor(np.exp(rng.normal(0.5, 0.3, (p, 1, 6))),
+                       dtype=torch.float32, device=dev)
+    eye = torch.eye(n, device=dev)
+    k = kernel_cross("se", z, z, ell, torch.ones((p, 1, 1), device=dev))
+    k_mm = (k * (1.0 - eye) + (1.0 + 1e-4) * eye).contiguous()
+    gp_cuda.check_cholesky(k_mm)
+    a = torch.tensor(rng.standard_normal((p, n, 3 * n)), dtype=torch.float32,
+                     device=dev)
+    gp_cuda.check_cholesky((eye + a @ a.mT / n).contiguous())
+
+
+def test_sparse_fit_on_the_card_counts_its_launches(dev):
+    """GP(inducing=16) on 50 fixture points: K4 and K5 once per evaluation
+    of the exact subset fit, two K5 per VFE evaluation and two for the
+    posterior, nothing else; its validate one K3 launch."""
+    from gpmpc_tpu_torch import GP
+    from gpmpc_tpu_torch.models.convert import FIXTURE
+
+    f = np.load(FIXTURE)
+    ck.reset_launches()
+    gp = GP(f["tank_X"][:50], f["tank_Y"][:50], inducing=16, multistart=1,
+            max_iters=20, optimizer_opts=dict(jitter=1e-5, min_noise=1e-4),
+            device=dev)
+    torch.cuda.synchronize()
+    ev = gp.fit_evals
+    assert ck.LAUNCHES == {"riccati_sweep": 0, "rk4_substeps": 0,
+                           "se_ard_gram": ev["exact"],
+                           "cholesky": ev["exact"] + 2 * ev["vfe"] + 2,
+                           "gp_predict_batch": 0}
+    assert bool(torch.all(torch.isfinite(gp.nll)))
+    ck.reset_launches()
+    smse, mnlp, _ = gp.validate(f["tank_X"][50:], f["tank_Y"][50:],
+                                verbose=False)
+    assert ck.LAUNCHES["gp_predict_batch"] == 1
+    assert np.all(np.isfinite(mnlp)) and np.all(smse < 0.1)
+
+
+@pytest.mark.parametrize("method", ["TA", "UT"])
+def test_solve_mc_on_the_card_counts_its_launches(dev, method):
+    """MPC.solve_mc, 8 lanes x 3 steps at Nt = 5 (fused KKT and plant):
+    K1 once per inner SQP step and K2 once per control step, each for all
+    lanes; with UT K3 once per stage per covariance pass (one vmapped call
+    for all lanes); finite, with every lane's convergence flags."""
+    from benchmarks.bench_spec import DT, X0, XSP
+    mpc = _sigma_point_mpc(dev, method)
+    ck.reset_launches()
+    xs, us = mpc.solve_mc(X0, 3 * DT, XSP, 8)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"riccati_sweep": 3 + 3 * 4, "rk4_substeps": 3,
+                           "se_ard_gram": 0, "cholesky": 0,
+                           "gp_predict_batch": (5 * 4 if method == "UT"
+                                                else 0)}
+    assert xs.shape == (8, 4, 4) and bool(torch.all(torch.isfinite(xs)))
+    assert mpc.last_mc["converged"].shape == (8, 3)
+
+
+def test_adaptive_plant_on_the_card_matches_the_cpu(dev):
+    """The adaptive DOPRI5 integrator on 16 lanes of the four-tank plant
+    in f64 on the card against the CPU within 1e-10; a lane whose budget
+    runs out is NaN on both."""
+    from gpmpc_tpu_torch import Model
+    rng = np.random.default_rng(4)
+    x = rng.uniform(1.0, 15.0, (16, 4))
+    u = rng.uniform(0.0, 6.0, (16, 2))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        m = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=3.0,
+                  integrator="adaptive", device=d, dtype=torch.float64)
+        out.append(m.integrate(torch.tensor(x, device=d),
+                               torch.tensor(u, device=d)).cpu())
+    torch.testing.assert_close(out[0], out[1], rtol=0, atol=1e-10)
+    stiff = Model(Nx=1, Nu=1, ode=lambda x, u: -u * x, dt=1.0,
+                  integrator="adaptive", rtol=1e-10, atol=1e-12,
+                  max_adaptive_steps=50, device=dev, dtype=torch.float64)
+    got = stiff.integrate(torch.ones((2, 1), dtype=torch.float64, device=dev),
+                          torch.tensor([[1.0], [1e9]], dtype=torch.float64,
+                                       device=dev)).cpu()
+    assert bool(torch.isfinite(got[0]).all()) and bool(torch.isnan(got[1]).all())
 
 
 def test_cubature5_on_the_card_makes_no_host_sync(dev):

@@ -139,8 +139,19 @@ def test_fused_integrator_guards():
     with pytest.raises(ValueError, match="adaptive"):
         Model(ode=four_tank_ode, fused_integrator=True, integrator="adaptive",
               **TKW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(ode=four_tank_ode, integrator="adaptive", **TKW)
+    # the adaptive integrator and DAE systems are ported (ROADMAP §1 item
+    # 6.4; tests/test_torch_adaptive.py holds them against JAX): they run
+    m = Model(ode=four_tank_ode, integrator="adaptive", **TKW)
+    x1 = m.integrate(torch.tensor([8.0, 9.0, 1.0, 1.0]),
+                     torch.tensor([3.0, 3.0]))
+    assert x1.shape == (4,) and bool(torch.all(torch.isfinite(x1)))
+    dae = Model(Nx=1, Nu=1, ode=lambda x, z, u: -z,
+                alg=lambda x, z, u: z - x * x, Nz=1, dt=0.5, device="cpu")
+    assert abs(float(dae.integrate(torch.tensor([2.0]),
+                                   torch.zeros(1))[0]) - 1.0) < 1e-3
+    with pytest.raises(ValueError, match="Nz"):
+        Model(Nx=1, Nu=1, ode=lambda x, z, u: -z, alg=lambda x, z, u: z,
+              dt=0.5, device="cpu")
     with pytest.raises(ValueError, match="unknown integrator"):
         Model(ode=four_tank_ode, integrator="euler", **TKW)
     # exact-mode MPC embeds integrate in the NLP: refused with the kernel

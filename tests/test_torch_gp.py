@@ -137,8 +137,16 @@ def test_gp_from_numpy_f32_and_guards():
                        optimizer_opts=OPTS, device="cpu")
     assert gp.post.chol.dtype == torch.float32
     assert bool(torch.all(torch.isfinite(gp.post.chol)))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6.7"):
-        GP(f["tank_X"], f["tank_Y"], inducing=10, device="cpu")
+    # sparse GPs are ported (ROADMAP §1 item 6.7; tests/test_torch_
+    # sparse.py holds them against JAX): the JAX package's guards
+    sp = GP(f["tank_X"][:20], f["tank_Y"][:20], inducing=10, train=False,
+            device="cpu")
+    assert sp.Zn.shape == (10, 6) and sp.post is None
+    with pytest.raises(ValueError, match=r"inducing=20 must be in \[1, N=20\)"):
+        GP(f["tank_X"][:20], f["tank_Y"][:20], inducing=20, device="cpu")
+    with pytest.raises(ValueError, match="requires inducing"):
+        GP(f["tank_X"][:20], f["tank_Y"][:20], optimize_inducing=True,
+           device="cpu")
     with pytest.raises(NotImplementedError, match="item 6.9"):
         GP(f["tank_X"], f["tank_Y"], mesh=object(), device="cpu")
     gp.set_method("EM")         # ported with the car (slice B)

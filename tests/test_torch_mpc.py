@@ -96,7 +96,9 @@ def test_closed_loop_explicit_noise_matches_jax_x64():
 
 def test_unported_options_raise():
     """Every option still unported raises and names its ROADMAP item:
-    solve_mc.  Soft constraints, the terminal constraint, UT/GH
+    solve_mc(mesh=) (item 6.9).  solve_mc itself is ported (item 6.5;
+    tests/test_torch_solve_mc.py holds it against JAX) and runs.  Soft
+    constraints, the terminal constraint, UT/GH
     propagation and reference windows are ported (slice F part 1;
     tests/test_torch_soft_constraints.py and
     tests/test_torch_propagate_ut_gh.py hold them against JAX), and a
@@ -114,8 +116,13 @@ def test_unported_options_raise():
     assert MPC(horizon=3 * DT, model=m, gp=g, device="cpu",
                online_capacity=16).online_post0.inv_k.shape == (4, 16, 16)
     mpc = MPC(horizon=3 * DT, model=m, gp=g, feedback=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6.5"):
-        mpc.solve_mc(X0, DT, XSP, 2)
+    xs, us = mpc.solve_mc(X0, DT, XSP, 2)
+    assert xs.shape == (2, 2, 4) and us.shape == (2, 1, 2)
+    assert mpc.last_mc["converged"].shape == (2, 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6.9"):
+        mpc.solve_mc(X0, DT, XSP, 2, mesh=object())
+    with pytest.raises(ValueError, match="x0 must be"):
+        mpc.solve_mc(np.tile(X0, (3, 1)), DT, XSP, 2)
     with pytest.raises(ValueError, match="n_steps"):
         mpc.solve(X0, 5 * DT, np.tile(XSP, (4, 1)), noise=False)
     with pytest.raises(ValueError, match=r"\(Nt\+1, Nx\)"):

@@ -187,9 +187,12 @@ def test_sigma_points_go_through_k3_and_match_vmapped_predict(
 
 def test_matern_and_explicit_inverse_posteriors_take_vmapped_predict(
         monkeypatch):
-    """K3 computes SE-ARD only: a Matérn posterior and an
-    ExplicitInversePosterior (the online GP's) predict their sigma points
-    through the vmapped ``predict``, with no K3 call."""
+    """K3 computes SE-ARD only: a Matérn posterior predicts its sigma
+    points through the vmapped ``predict``, with no K3 call.  An SE
+    ExplicitInversePosterior (the online GP's) went the same way until K3
+    got its vmap rule; it now takes K3 as well (one
+    call, its variance sf2 - k* K^-1 k*'), so the lanes of
+    ``MPC.solve_mc`` with per-lane online posteriors are one launch."""
     from gpmpc_tpu_torch.parallel import online_gp
     calls = _counted_k3(monkeypatch)
     _, tm = _pair("matern52", 6, seed=6)
@@ -197,10 +200,11 @@ def test_matern_and_explicit_inverse_posteriors_take_vmapped_predict(
     post = online_gp.as_gp_posterior(online_gp.from_gp(ts, 40)[0])
     mu, cov = (torch.tensor(v) for v in _gaussian(6, 6, True))
     propagate.propagate_ut(tm.post, tm.norm, tm.cfg, mu, cov)
-    out = propagate.propagate_ut(post, ts.norm, ts.cfg, mu, cov)
     assert calls == []
-    ref = propagate.propagate_ut(ts.post, ts.norm, ts.cfg, mu, cov)
+    out = propagate.propagate_ut(post, ts.norm, ts.cfg, mu, cov)
     assert calls == [(13, 6)]
+    ref = propagate.propagate_ut(ts.post, ts.norm, ts.cfg, mu, cov)
+    assert calls == [(13, 6)] * 2
     # the padded explicit-inverse posterior predicts what the factor does
     for g, r in zip(out, ref):
         np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0,
