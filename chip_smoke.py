@@ -21,12 +21,14 @@ script exits non-zero before its last line):
      steering at +-0.5 rad and headings past +-pi;
   5. the main path at full width: the pinned four-tank GP (N=100, D=6,
      Ny=4), TA propagation with chance tightening, Nt=20, the RTI budget,
-     the fused plant integrator, f32 on the card, a 30-step closed loop
+     the fused plant integrator, f32 on the card, a 15-step closed loop
      from X0 to XSP; launch counts exact, values finite, the tracked
      tanks at their setpoint; each control step of the loop against the
      same step on the CPU (replay_against_cpu); realized cost over the
      first ANCHOR_STEPS = 2 steps against the converged (al4 x mi20)
-     budget's (cut from 30 steps to make room for the later phases);
+     budget's (cut from 30 steps to make room for the later phases; the
+     loop itself 15 steps since phase 18, every depth cut listed by its
+     constant);
   6. per-step time, a torch.profiler trace of three control steps (device
      kernels and device time per step, the device's busy share);
   7. K4 (SE-ARD Gram), K5 (Cholesky) and K3 (batched GP predict) against
@@ -48,7 +50,7 @@ script exits non-zero before its last line):
      (generate_training_data, one K2 launch), validate of the card-trained
      and the fixture GP (one K3 launch each), the trained GP's SMSE within
      1.5x the fixture GP's on every dim;
- 10. the card-trained GP in a 20-step RTI loop from X0: finite, at the
+ 10. the card-trained GP in a 12-step RTI loop from X0: finite, at the
      setpoint, realized cost within 10% of phase 5's over the same steps;
  11. kernel, device (torch.profiler), plain-version and library-call
      times of all five kernels at their paths' shapes beside each one's
@@ -98,7 +100,7 @@ script exits non-zero before its last line):
  15. slice F, part 1, at the main path's full width (the fixture GP,
      Nt=20, percentile 0.95, feedback, cov_updates=1, RTI, the fused
      plant, f32): (a) UT and (b) GH at order 3 (the 729-point tensor
-     grid), each a 12-step closed loop from X0: launch counts exact (K3
+     grid), each a 10-step closed loop from X0: launch counts exact (K3
      once per stage per covariance pass, K1 4 and K2 1 a step), finite,
      at the setpoint, the first four steps replayed on the CPU, the last
      step's stage 5 propagated on the card with no host sync and held
@@ -108,8 +110,8 @@ script exits non-zero before its last line):
      the card with no host sync against the CPU in f64, Sigma_y PSD; (d)
      the Matérn-5/2 and -3/2 fits with the fixture's recipe: one K5 and no
      K4 per evaluation, three K5 per posterior, each dim's NLL (f64, CPU)
-     within 0.1 of the port's f64 CPU fit; (e) a 12-step Matérn-5/2 TA
-     loop with the card-fitted GP; (f) a 10-step loop with soft state
+     within 0.1 of the port's f64 CPU fit; (e) a 10-step Matérn-5/2 TA
+     loop with the card-fitted GP; (f) a 6-step loop with soft state
      boxes, lam with the terminal constraint (an empty terminal block) and
      an (M, Nx) ramp reference, every step replayed on the CPU.
  16. slice F, part 2a, in f32 on the card: (a) the output-feedback
@@ -129,12 +131,33 @@ script exits non-zero before its last line):
      lane limits raising before any launch, the build's seconds; (c) the
      quadrotor golden's configuration (run_quad_golden): its residual GP
      fitted on the card on 40 points drawn in its box (exact K4 and K5
-     launches), validated on 200 fresh points (one K3; SMSE per dim), 10
+     launches), validated on 200 fresh points (one K3; SMSE per dim), 6
      hybrid solve_steps on the 1.3 kg plant through K1 at (6, 2) (exact
      launches, every step replayed on the CPU), the same loop with the
      nominal model alone, the final position errors and each model's
      one-step prediction error on the heavy plant's transitions.
-Phases 12-16 run before phase 11, whose JSON rows carry their launch
+ 18. slice G, the deployable solve step, at the main path's full width
+     (the fixture GP, TA, Nt=20, RTI al2 x mi2 x ls8, fused_kkt, f32,
+     the fused plant): (a) utils.export.export_solve_step on the card in
+     a child process (``--export-artifact``; trace, export and save
+     seconds, nodes, bytes; exactly 4 gpmpc::riccati_sweep nodes and no
+     call of a Python function), 10 warm steps from X0 through the
+     reloaded artifact and the fused plant beside the eager solve_step
+     loop (K1 4 and K2 1 a step in each, the two within 1e-5; bitwise
+     expected); (b) a fresh process
+     (``--serve-artifact``) that builds only the plant loads the saved
+     artifact and reproduces (a)'s trajectory; (c) ``python3 -m
+     gpmpc_tpu_torch.examples.deploy --quick --cpu-built`` exits 0 (the
+     artifact against the live first solve within 1e-5, the loop at the
+     setpoint, the CPU-built artifact moved to the card launching K1 4
+     times with u0 within 1e-3 of the card-built one's); (d) the exported
+     step against the eager step by profiling.time_fn in turns, and a
+     profiling.trace of three exported steps (kernels and device ms a
+     step, busy share; the eager step's are phase 6's); K1 as the
+     artifact calls it (through its operator) timed beside its bound.
+     (a)'s export and (c) are child processes started before phase 17,
+     and run beside it.
+Phases 12-18 run before phase 11, whose JSON rows carry their launch
 counts (K1 at (1024, 8, 4, 2) and K2 at B=1024 get rows of their own, as
 do K3 at the UT and GH sigma points, K5 under the Matérn-5/2 fit, and K1
 at (4, 4) under the MHE, at (3, 3) built on demand and at (6, 2) under the
@@ -167,7 +190,8 @@ and phase 11's K1 lines alone, and with OTHER_SRC is ``--compare k1``;
 ``python3 chip_smoke.py --study`` runs phases 1-2 and 14 and the study's
 kernel rows alone; ``python3 chip_smoke.py --slice-f`` phases 1-2 and 15
 and their kernel rows; ``python3 chip_smoke.py --slice-f2`` phases 1-2
-and 16 and their kernel rows;
+and 16 and their kernel rows; ``--slice-f3`` phases 1-2 and 17, and
+``--slice-g`` phases 1-2 and 18, each with their kernel rows;
 ``python3 chip_smoke.py --build-times`` times the kernels' build, one
 ``nvcc`` over all sources against one per source at once.
 The script imports no JAX.
@@ -183,15 +207,17 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-N_STEPS = 30
+#: steps of phase 5's closed loop, each replayed on the CPU (the main path
+#: is within 0.01 of its setpoint by step 10; 30 until phase 18 came)
+N_STEPS = 15
 #: steps of phase 5's converged (al4 x mi20) anchor, compared with the
 #: first ANCHOR_STEPS of the RTI loop: cut from N_STEPS to make room for
-#: the car's phases within the smoke's time (3 until phase 16 came)
-ANCHOR_STEPS = 2
-#: steps of phase 10's loop with the card-trained GP (the main path is
-#: within 0.01 of its setpoint by step 10; 30 until the smoke passed 900 s
-#: with phase 16)
-TRAINED_STEPS = 20
+#: the car's phases within the smoke's time (3 until phase 16 came, 2
+#: until phase 18 came)
+ANCHOR_STEPS = 1
+#: steps of phase 10's loop with the card-trained GP (30 until the smoke
+#: passed 900 s with phase 16, 20 until phase 18 came)
+TRAINED_STEPS = 12
 RTI = dict(al_iters=2, max_iters=2, ls_steps=8, penalty_init=1e3,
            fused_kkt=True)
 CONVERGED = dict(al_iters=4, max_iters=20, fused_kkt=True)
@@ -203,7 +229,8 @@ F32_FLOPS = 67e12
 #: the car bench (bench config 4): control period, the closed loop's steps
 #: (the second obstacle's far edge, px = 13.5, is passed by step ~25; 40
 #: until the smoke passed 900 s with phase 16), the steps replayed on the
-#: CPU besides the first ones, and the clearance floor of this smoke
+#: CPU nearest each obstacle besides the first ones, and the clearance
+#: floor of this smoke
 #: (below the JAX package's own f64 reading, 0.946, far above a loop that
 #: drives through an obstacle, ~0.1-0.5); bench.py's gate is 0.995
 CAR_DT = 0.1
@@ -1694,10 +1721,11 @@ def study_kernel_rows(ck, dev, card, launches, res_a, sources):
 #: terminal constraints' loop (every step replayed), the stage of the last
 #: step whose propagation is held card against CPU, and the cubature5 GP
 #: (numpy-seeded, the quadrotor's hybrid input and output widths D = 8,
-#: Ny = 6 at the fixture's N = 100)
-F_STEPS = 12
+#: Ny = 6 at the fixture's N = 100); the loops were 12 steps and the soft
+#: loop 10 until phase 18 came
+F_STEPS = 10
 F_REPLAY = 4
-F_SOFT_STEPS = 10
+F_SOFT_STEPS = 6
 F_STAGE = 5
 CUB_N, CUB_D, CUB_NY = 100, 8, 6
 #: phase 15 (f)'s options: the state boxes and the terminal constraint
@@ -2186,11 +2214,12 @@ LIN_MHE_OPTS = dict(al_iters=1, max_iters=3, fused_kkt=True)
 #: control period, steps, the training box, start and setpoint; the
 #: in-loop budget is the "rti" preset cut to 6 inner steps (the golden
 #: runs the converged defaults in f64; at the preset's 12, 10 steps of
-#: both loops took 56 s on an H100 80GB HBM3 at 700 W)
+#: both loops took 56 s on an H100 80GB HBM3 at 700 W; 10 steps until
+#: phase 18 came)
 QUAD_DT = 0.05
 QUAD_OPTS = dict(al_iters=2, max_iters=6, penalty_init=100.0,
                  penalty_mult=30.0, merit_viol=10.0, fused_kkt=True)
-QUAD_STEPS = 10
+QUAD_STEPS = 6
 QUAD_X_LO = np.array([-2.0, 0.0, -0.4, -1.5, -1.5, -1.0])
 QUAD_X_HI = np.array([3.0, 3.0, 0.4, 1.5, 1.5, 1.0])
 QUAD_X0 = np.array([0.0, 1.0, 0.0, 0.0, 0.0, 0.0])
@@ -3373,6 +3402,351 @@ def slice_f3_alone():
     return 0
 
 
+# ------------------------------------------------------------ phase 18
+
+#: phase 18: warm steps of the exported and the eager loop from X0, and
+#: steps of each timed in turns (after one of warm-up)
+G_STEPS = 10
+G_TIMED = 5
+#: bound of the exported loop against the eager loop on the card (and of
+#: a fresh process serving the artifact against the first): bitwise is
+#: expected, as on the CPU (tests/test_torch_export.py)
+G_TOL = 1e-5
+
+
+def artifact_loop(step, plant, args, n):
+    """``n`` receding steps from the step arguments ``args`` through a
+    loaded artifact: each u0 to the plant, the warm start threaded.
+    Returns the states (n + 1, 4) and inputs (n, 2) on the card."""
+    warm, x, x_sp, u, sigma0, con_par, consts = args
+    xs, us = [x], []
+    for _ in range(n):
+        u, warm, _ = step(warm, x, x_sp, u, sigma0, con_par, consts)
+        x = plant.integrate(x, u)
+        xs.append(x)
+        us.append(u)
+    return torch.stack(xs), torch.stack(us)
+
+
+def serve_artifact(blob_path, args_path, out_path):
+    """Phase 18 (b)'s child process: load the artifact and the step
+    arguments, build only the plant Model, run G_STEPS steps, save the
+    trajectory."""
+    from gpmpc_tpu_torch.utils.export import load_solve_step
+    t0 = time.perf_counter()
+    step = load_solve_step(blob_path)
+    load_s = time.perf_counter() - t0
+    args = torch.load(args_path, weights_only=False)
+    xs, us = artifact_loop(step, build_plant(torch.device("cuda")), args,
+                           G_STEPS)
+    torch.cuda.synchronize()
+    torch.save(dict(xs=xs.cpu(), us=us.cpu(), load_s=load_s), out_path)
+    return 0
+
+
+def trace_summary(prof, n, wall):
+    """Device kernels and device ms per step, and the device's busy share
+    of the wall, from a torch.profiler run of ``n`` steps taking ``wall``
+    seconds (as profile_steps reads them)."""
+    device = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_us = sum(e.self_device_time_total for e in device)
+    if dev_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    kernels = sum(e.count for e in device if e.self_device_time_total > 0)
+    return dict(kernels_per_step=kernels / n, device_ms_per_step=dev_us / n
+                / 1e3, wall_ms_per_step=wall / n * 1e3,
+                busy_share=dev_us / 1e6 / wall)
+
+
+def export_artifact(out_dir):
+    """Phase 18 (a)'s child process: build the main path's MPC on the card,
+    export its RTI step into ``out_dir``, save the step's arguments and
+    what the export did (seconds, nodes, bytes, calls by operator)."""
+    from benchmarks.bench_spec import X0, XSP
+    from gpmpc_tpu_torch.utils import export as ex
+    dev = torch.device("cuda")
+    mpc = build_slice(dev, RTI)
+    torch.save(ex._example_args(mpc, X0, XSP),
+               os.path.join(out_dir, "args.pt"))
+    ex.export_solve_step(mpc, os.path.join(out_dir, "solve_step.pt2"))
+    with open(os.path.join(out_dir, "export.json"), "w") as fh:
+        json.dump(dict(ex.EXPORT_INFO, ops=dict(ex.EXPORT_INFO["ops"])), fh)
+    return 0
+
+
+class SliceGChildren:
+    """Phase 18's child processes: (a)'s export of the main path's step
+    (``--export-artifact``) and (c)'s deploy walkthrough, started before
+    phase 17 in the whole smoke so that they run beside it (each is one
+    host thread on a machine of eight cores; the card is idle >90% of any
+    step), and (b)'s fresh serving process, started once the artifact is
+    saved.  ``stop`` ends any still running."""
+
+    def __init__(self):
+        self.out_dir = os.path.join(HERE, "build", "slice_g")
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.t0 = time.perf_counter()
+        self.procs = {}
+        self.deploy_log = os.path.join(self.out_dir, "deploy.log")
+        with open(self.deploy_log, "w") as fh:
+            self.procs["deploy"] = subprocess.Popen(
+                [sys.executable, "-m", "gpmpc_tpu_torch.examples.deploy",
+                 "--quick", "--cpu-built"], cwd=HERE, stdout=fh,
+                stderr=subprocess.STDOUT)
+        self.procs["export"] = self.child("--export-artifact", self.out_dir)
+
+    def child(self, *argv):
+        return subprocess.Popen([sys.executable,
+                                 os.path.join(HERE, "chip_smoke.py"), *argv],
+                                cwd=HERE)
+
+    def stop(self):
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def slice_g_phase(ck, dev, card, children, eager_trace=True):
+    """Phase 18: the deployable RTI solve step on the main path at full
+    width.  (a) exported on the card by a child process (K1 four
+    gpmpc::riccati_sweep nodes), reloaded here, G_STEPS warm steps through
+    it beside the eager loop; (b) a fresh process serving the saved
+    artifact; (c) the deploy walkthrough with the CPU-built artifact moved
+    to the card; (d) the exported step timed against the eager one in
+    turns (profiling.time_fn) and traced (profiling.trace; the eager step
+    too with ``eager_trace``, which the whole smoke leaves to phase 6).
+    ``children`` is the SliceGChildren started before.  Returns the
+    artifact's K1 row."""
+    t_phase = time.perf_counter()
+    try:
+        step, mpc, args, launches = export_and_serve(ck, dev, children)
+        deploy_check(children.procs["deploy"], children.deploy_log,
+                     children.t0)
+        step_times(mpc, step, args, children.out_dir, card, eager_trace)
+        row = artifact_k1_row(ck, dev, card, launches)
+    finally:
+        children.stop()
+    log(f"[slice G] phase 18: {time.perf_counter() - t_phase:.1f} s (its "
+        f"child processes started {t_phase - children.t0:.1f} s before)")
+    return [row]
+
+
+def export_and_serve(ck, dev, children):
+    """Phase 18 (a) and (b): the export child's artifact checked and
+    reloaded, G_STEPS steps through it beside the eager loop, and a fresh
+    process serving the saved artifact.  Returns the loaded step, the MPC,
+    the step's arguments and the artifact loop's launches."""
+    from benchmarks.bench_spec import XSP
+    from gpmpc_tpu_torch.utils import export as ex
+
+    out_dir = children.out_dir
+    blob_path = os.path.join(out_dir, "solve_step.pt2")
+    args_path = os.path.join(out_dir, "args.pt")
+    out_path = os.path.join(out_dir, "served.pt")
+    if children.procs["export"].wait(timeout=900) != 0:
+        raise AssertionError(f"the export child exited "
+                             f"{children.procs['export'].returncode}")
+    with open(os.path.join(out_dir, "export.json")) as fh:
+        info = json.load(fh)
+    t_serve = time.perf_counter()
+    children.procs["serve"] = serve = children.child(
+        "--serve-artifact", blob_path, args_path, out_path)
+    ops = info["ops"]
+    stray = sorted(k for k in ops
+                   if not k.startswith(("aten::", "gpmpc::"))
+                   and k != "getitem")
+    log(f"[slice G] (a) the main path's RTI step exported on the card (a "
+        f"child process, done {t_serve - children.t0:.1f} s after it "
+        f"started): trace {info['trace_s']:.1f} s, export "
+        f"{info['export_s']:.1f} s, save {info['save_s']:.1f} s, "
+        f"{info['nodes']} nodes, {info['bytes']} bytes; gpmpc ops "
+        f"{({k: v for k, v in ops.items() if 'gpmpc' in k})}; calls of "
+        f"Python functions {stray}")
+    if ops.get("gpmpc::riccati_sweep") != 4 or stray:
+        raise AssertionError(f"the card-built artifact holds "
+                             f"{ops.get('gpmpc::riccati_sweep')} K1 nodes "
+                             f"(not 4) or calls Python functions {stray}")
+
+    # (a) the reloaded artifact's loop beside the eager loop
+    t0 = time.perf_counter()
+    step = ex.load_solve_step(blob_path)
+    load_s = time.perf_counter() - t0
+    if ex.op_counts(step.module.graph)["gpmpc::riccati_sweep"] != 4:
+        raise AssertionError("the reloaded artifact lost its K1 nodes")
+    args = torch.load(args_path, weights_only=False)
+    mpc = build_slice(dev, RTI)
+    plant = mpc.model
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    xs_a, us_a = artifact_loop(step, plant, args, G_STEPS)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    expect = dict(riccati_sweep=4 * G_STEPS, rk4_substeps=G_STEPS,
+                  se_ard_gram=0, cholesky=0, gp_predict_batch=0)
+    if launches != expect:
+        raise AssertionError(f"the artifact's loop launched {launches}, not "
+                             f"{expect}")
+    ck.reset_launches()
+    warm, x, _, u = args[:4]
+    xs_e, us_e = [x], []
+    t0 = time.perf_counter()
+    for _ in range(G_STEPS):
+        u, warm, _, _ = mpc.solve_step(x, XSP, warm=warm, u_prev=u)
+        x = plant.integrate(x, u)
+        xs_e.append(x)
+        us_e.append(u)
+    torch.cuda.synchronize()
+    wall_e = time.perf_counter() - t0
+    if dict(ck.LAUNCHES) != expect:
+        raise AssertionError(f"the eager loop launched {ck.LAUNCHES}")
+    xs_e, us_e = torch.stack(xs_e), torch.stack(us_e)
+    du = float((us_a - us_e).abs().max())
+    dx = float((xs_a - xs_e).abs().max())
+    bitwise = torch.equal(us_a, us_e) and torch.equal(xs_a, xs_e)
+    log(f"[slice G] (a) loaded in {load_s:.1f} s; {G_STEPS} warm steps from "
+        f"X0 through the artifact ({wall_a:.2f} s) and eager solve_step "
+        f"({wall_e:.2f} s), beside the child processes: max |du| "
+        f"{du:.3e}, max |dx| {dx:.3e} (bitwise {bitwise}; <= {G_TOL:g}); "
+        f"K1 4 and K2 1 a step in each; final state {xs_a[-1].tolist()}")
+    if not (np.isfinite(xs_a.cpu().numpy()).all() and du <= G_TOL
+            and dx <= G_TOL):
+        raise AssertionError("the artifact's loop departs from the eager "
+                             "loop")
+
+    # (b) the fresh process's trajectory
+    if serve.wait(timeout=600) != 0:
+        raise AssertionError(f"the serving process exited "
+                             f"{serve.returncode}")
+    served = torch.load(out_path)
+    ddx = float((served["xs"] - xs_a.cpu()).abs().max())
+    ddu = float((served["us"] - us_a.cpu()).abs().max())
+    log(f"[slice G] (b) a fresh process (plant Model only) loaded the "
+        f"artifact in {served['load_s']:.1f} s and ran {G_STEPS} steps "
+        f"(done {time.perf_counter() - t_serve:.1f} s after it started): "
+        f"max |dx| {ddx:.3e}, max |du| {ddu:.3e} against (a) (bitwise "
+        f"{ddx == 0.0 and ddu == 0.0}; <= {G_TOL:g})")
+    if not (ddx <= G_TOL and ddu <= G_TOL):
+        raise AssertionError("the served artifact does not reproduce (a)")
+    return step, mpc, args, launches
+
+
+def deploy_check(deploy, deploy_log, t_start):
+    """Phase 18 (c): the deploy walkthrough's child exits 0 (its own
+    checks: the artifact against the live first solve, the loop at the
+    setpoint, the CPU-built artifact on the card); its output, from
+    ``deploy_log``, goes to the log."""
+    rc = deploy.wait(timeout=900)
+    with open(deploy_log) as fh:
+        out = fh.read()
+    for line in out.splitlines():
+        if "Warning" not in line and not line.startswith(" "):
+            log(f"[slice G] (c) deploy: {line}")
+    if rc != 0:
+        raise AssertionError(f"the deploy example exited {rc}:\n"
+                             f"{out[-4000:]}")
+    log(f"[slice G] (c) deploy --quick --cpu-built exited 0, "
+        f"{time.perf_counter() - t_start:.1f} s after it started")
+
+
+def step_times(mpc, step, args, out_dir, card, eager_trace):
+    """Phase 18 (d): the exported RTI control step (solve + plant) against
+    the eager one by profiling.time_fn in turns (exported, eager, eager,
+    exported), and profiling.trace of three exported steps (and three
+    eager ones with ``eager_trace``): kernels and device ms a step, the
+    device's busy share of the traced wall and of time_fn's median."""
+    from benchmarks.bench_spec import XSP
+    from gpmpc_tpu_torch.utils import profiling
+
+    plant, state = mpc.model, {}
+
+    def reset():
+        state.update(x=args[1], warm=args[0], u=args[3])
+
+    def exported():
+        u_, w, _ = step(state["warm"], state["x"], args[2], state["u"],
+                        *args[4:])
+        state.update(u=u_, warm=w, x=plant.integrate(state["x"], u_))
+
+    def eager():
+        u_, w, _, _ = mpc.solve_step(state["x"], XSP, warm=state["warm"],
+                                     u_prev=state["u"])
+        state.update(u=u_, warm=w, x=plant.integrate(state["x"], u_))
+
+    steps = {"exported": exported, "eager": eager}
+    times = {"exported": [], "eager": []}
+    for name in ("exported", "eager", "eager", "exported"):
+        reset()
+        times[name].append(profiling.time_fn(steps[name], reps=G_TIMED))
+    for name, pairs in times.items():
+        log(f"[slice G] (d) {name} RTI control step (solve + plant), "
+            f"profiling.time_fn min/median ms: "
+            f"{', '.join(f'{a * 1e3:.3f}/{b * 1e3:.3f}' for a, b in pairs)}"
+            f" ({G_TIMED} steps after 1, two turns) on {card}")
+    for name in ("exported", "eager") if eager_trace else ("exported",):
+        reset()
+        steps[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profiling.trace(os.path.join(out_dir, f"trace_{name}")) as prof:
+            for _ in range(3):
+                steps[name]()
+        s = trace_summary(prof, 3, time.perf_counter() - t0)
+        median = float(np.median([b for _, b in times[name]]))
+        log(f"[slice G] (d) profiling.trace of 3 {name} steps: "
+            f"{s['kernels_per_step']:.0f} device kernels, "
+            f"{s['device_ms_per_step']:.3f} ms device time, "
+            f"{s['wall_ms_per_step']:.3f} ms wall a step under the profiler;"
+            f" device busy {100 * s['busy_share']:.2f}% of it, "
+            f"{100 * s['device_ms_per_step'] / 1e3 / median:.2f}% of "
+            f"time_fn's median step on {card}")
+
+
+def artifact_k1_row(ck, dev, card, launches):
+    """The artifact's K1 row: K1 as the artifact calls it (through its
+    operator) at the main path's stage-QP shape, against its plain
+    version, timed beside its bound."""
+    q1 = ck.stage_qp_inputs(20, 4, 2, 0, device=dev)
+    reg = torch.tensor(1e-6, device=dev)
+    out = ck.riccati_sweep_op(*q1, reg)
+    ref = ck.riccati_sweep_reference(*q1, reg)
+    err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    ms = cuda_time_ms(lambda: ck.riccati_sweep_op(*q1, reg), reps=200)
+    dev_ms, _, note = device_time_ms(lambda: ck.riccati_sweep_op(*q1, reg))
+    plain = cuda_time_ms(lambda: ck.riccati_sweep_reference(*q1, reg),
+                         reps=20)
+    bd = bound(nbytes(*q1, reg, *out), riccati_flops(20, 4, 2))
+    log(f"[time] riccati_sweep[artifact] (Nt=20, nx=4, nu=2, through "
+        f"gpmpc::riccati_sweep): kernel {ms:.4f} ms, device "
+        f"{fmt_ms(dev_ms)}{note} per launch, plain torch on the card "
+        f"{plain:.4f} ms, bound {bd[0]:.3e} ms ({bd[1]}); "
+        f"{launches['riccati_sweep']} launches in the artifact's loop; "
+        f"max|err| {err:.3e} on {card}")
+    return {"name": "riccati_sweep[artifact]", "route": "cuda",
+            "source": "gpmpc_tpu_torch/csrc/riccati_sweep.cu",
+            "replaces": "gpmpc_tpu/ops/pallas_kernels.py:394",
+            "launches": launches["riccati_sweep"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "device_ms": dev_ms,
+            "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None}
+
+
+def slice_g_alone():
+    """Phases 1-2 and 18, and phase 18's kernel row, alone."""
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    card = card_line()
+    dev = torch.device("cuda")
+    log(f"[card] nvidia-smi: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    ck.build_library()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    rows = slice_g_phase(ck, dev, card, SliceGChildren())
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
 def kernel_times(ck, gc, four_tank_ode, dev, card):
     """Phase 11: each kernel's time beside its plain version's, the library
     call's (K5), its device time per launch (torch.profiler) and its
@@ -3906,6 +4280,13 @@ def main(argv):
     if "--sparse-reference" in argv:        # phase 17's CPU child process
         sys.path.insert(0, HERE)
         return sparse_reference(argv[argv.index("--sparse-reference") + 1])
+    if "--export-artifact" in argv:         # phase 18 (a)'s child process
+        sys.path.insert(0, HERE)
+        return export_artifact(argv[argv.index("--export-artifact") + 1])
+    if "--serve-artifact" in argv:          # phase 18 (b)'s child process
+        sys.path.insert(0, HERE)
+        i = argv.index("--serve-artifact")
+        return serve_artifact(*argv[i + 1:i + 4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
               "test runs only on an NVIDIA GPU", file=sys.stderr)
@@ -3925,6 +4306,8 @@ def main(argv):
         return k5_paths()
     if "--study" in argv:
         return study_alone()
+    if "--slice-g" in argv:
+        return slice_g_alone()
     if "--slice-f3" in argv:
         return slice_f3_alone()
     if "--slice-f2" in argv:
@@ -4068,8 +4451,19 @@ def main(argv):
     slice_f2_rows = slice_f2_phase(ck, dev, card)
 
     # 17. slice F, part 3: solve_mc and the chance calibration, UT under
-    # solve_mc (K3 vmapped), the adaptive plant and the DAE, the sparse GP
-    slice_f3_rows = slice_f3_phase(ck, gc, dev, card, step_ms)
+    # solve_mc (K3 vmapped), the adaptive plant and the DAE, the sparse GP;
+    # phase 18's export and deploy children run beside it
+    g_children = SliceGChildren()
+    try:
+        slice_f3_rows = slice_f3_phase(ck, gc, dev, card, step_ms)
+    except BaseException:
+        g_children.stop()
+        raise
+
+    # 18. slice G: the deployable RTI solve step (export, serve, deploy;
+    # the eager step's trace is phase 6's)
+    slice_g_rows = slice_g_phase(ck, dev, card, g_children,
+                                 eager_trace=False)
 
     # 11. kernel times beside their bounds
     times = kernel_times(ck, gc, four_tank_ode, dev, card)
@@ -4114,7 +4508,7 @@ def main(argv):
                      "bound_by": r["bound"][1], "library_ms": None})
     rows += study_kernel_rows(ck, dev, card, study_launches, study_res,
                               sources)
-    rows += slice_f_rows + slice_f2_rows + slice_f3_rows
+    rows += slice_f_rows + slice_f2_rows + slice_f3_rows + slice_g_rows
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,12 @@ they launch the kernel or raise.  There is no fallback.  Under a
 ``torch.func`` transform (the batched study's ``vmap`` over rollouts) a
 CUDA call goes through a custom operator (``gpmpc::riccati_sweep``,
 ``gpmpc::rk4_substeps``) whose vmap rule launches the kernel once for the
-whole batch; on CPU tensors the plain versions vmap as they are.  The shared library
+whole batch; on CPU tensors the plain versions vmap as they are.  While a
+step is traced (:func:`tracing`: ``utils/export.py`` under ``make_fx``) the
+wrappers take their custom operators on either device, so the traced graph
+names each kernel as one node (on the CPU the operator's body is the plain
+version); each operator has a fake implementation for ``torch.export``,
+and a launch outside its operator while tracing raises.  The shared library
 is built with ``nvcc`` from ``csrc/*.cu`` at first use into the package's
 own ``build/`` directory (one compiler process per source, all at once,
 then one link; rebuilt when a source changes) and bound with ``ctypes``.
@@ -56,6 +61,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 from gpmpc_tpu_torch.ops.chol import chol_small, tri_solve_small
 
@@ -305,6 +311,25 @@ def _check_cuda(name, tensors, shapes):
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
+def tracing() -> bool:
+    """Whether a ``make_fx`` trace is recording the calls (its proxy mode
+    is on the dispatch stack).  Inside a custom operator's own body the
+    tracer has stepped aside, so this is False where the kernel launches
+    for the trace."""
+    return get_proxy_mode() is not None
+
+
+def _refuse_launch_under_trace(name) -> None:
+    """Raise where a kernel would launch outside its custom operator while
+    a trace records: the graph would hold its empty outputs and lose the
+    launch."""
+    if tracing():
+        raise RuntimeError(
+            f"{name}: the kernel would launch outside its custom operator "
+            f"while a trace records the calls; the traced graph would lose "
+            f"it (call it through its operator)")
+
+
 def _raise_on_error(name, code):
     if code != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
@@ -385,13 +410,15 @@ def riccati_sweep(a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x, dx0,
     ``dx0`` included, must be a contiguous float32 tensor on the card.
     Under ``torch.func.vmap`` on the card the call goes through the custom
     operator ``gpmpc::riccati_sweep``, whose vmap rule makes one batched
-    launch for the whole batch."""
+    launch for the whole batch; while a trace records (:func:`tracing`)
+    it goes through the operator on either device."""
     args = (a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x, dx0, reg)
-    if a.device.type == "cpu":
+    traced = tracing()
+    if a.device.type == "cpu" and not traced:
         return riccati_sweep_reference(*args)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"riccati_sweep: no kernel for device {a.device}")
-    if _functorch_wrapped(*args):
+    if traced or _functorch_wrapped(*args):
         return tuple(riccati_sweep_op(*args))
     return _riccati_sweep_launch(*args)
 
@@ -411,6 +438,7 @@ def _riccati_sweep_launch(a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x,
                   reg=lead)
     args = (a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x, dx0, reg)
     _check_cuda("riccati_sweep", args, shapes)
+    _refuse_launch_under_trace("riccati_sweep")
     entry = riccati_entry(nx, nu)
     kw = dict(dtype=torch.float32, device=a.device)
     dx = torch.empty(lead + (nt + 1, nx), **kw)
@@ -440,12 +468,26 @@ def riccati_sweep_op(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                 torch.Tensor, torch.Tensor]:
     """K1 as a custom operator, the form :func:`riccati_sweep` takes under
-    ``torch.func.vmap`` on the card: the kernel for CUDA tensors, the plain
-    version for CPU tensors (where the vmap rule can be tested)."""
+    ``torch.func.vmap`` on the card and in a traced step: the kernel for
+    CUDA tensors, the plain version for CPU tensors (where the vmap rule
+    can be tested)."""
     args = (a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x, dx0, reg)
     if a.device.type == "cpu":
         return tuple(t.clone() for t in riccati_sweep_reference(*args))
     return _riccati_sweep_launch(*args)
+
+
+@riccati_sweep_op.register_fake
+def _riccati_sweep_fake(a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x,
+                        dx0, reg):
+    """The outputs' shapes and dtype: ``dx (..., Nt+1, nx)``, ``du (...,
+    Nt, nu)``, ``gains (..., Nt, nu, nx)``, ``ffs (..., Nt, nu)``,
+    ``exp_dec (...)`` for stage arrays with an optional batch dim."""
+    *lead, nt, nx, nu = b.shape
+    lead = tuple(lead)
+    return (b.new_empty(lead + (nt + 1, nx)), b.new_empty(lead + (nt, nu)),
+            b.new_empty(lead + (nt, nu, nx)), b.new_empty(lead + (nt, nu)),
+            b.new_empty(lead))
 
 
 @riccati_sweep_op.register_vmap
@@ -481,10 +523,12 @@ def rk4_substeps(ode, x, u, h: float, n_sub: int):
     contiguous float32 on the card and ``ode`` one with a compiled functor
     (:data:`CUDA_ODES`).  Under ``torch.func.vmap`` on the card the call
     goes through the custom operator ``gpmpc::rk4_substeps``, whose vmap
-    rule makes one batched launch."""
-    if x.device.type == "cpu":
+    rule makes one batched launch; while a trace records (:func:`tracing`)
+    it goes through the operator on either device."""
+    traced = tracing()
+    if x.device.type == "cpu" and not (traced and kernel_ode_id(ode)):
         return rk4_substeps_reference(ode, x, u, h, n_sub)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rk4_substeps: no kernel for device {x.device}")
     spec = kernel_ode_id(ode)
     if spec is None:
@@ -492,7 +536,7 @@ def rk4_substeps(ode, x, u, h: float, n_sub: int):
             f"rk4_substeps: no CUDA functor for ODE {ode!r}; the kernel "
             f"compiles its ODEs in (have {sorted(CUDA_ODES)}; a quadrotor "
             "functor is ROADMAP §2 item 2)")
-    if _functorch_wrapped(x, u):
+    if traced or _functorch_wrapped(x, u):
         return rk4_substeps_op(x, u, spec[0], float(h), int(n_sub))
     return _rk4_substeps_launch(spec, x, u, h, n_sub)
 
@@ -504,6 +548,7 @@ def _rk4_substeps_launch(spec, x, u, h: float, n_sub: int):
     bsz = x.shape[0] if batched else 1
     lead = (bsz,) if batched else ()
     _check_cuda("rk4_substeps", (x, u), dict(x=lead + (nx,), u=lead + (nu,)))
+    _refuse_launch_under_trace("rk4_substeps")
     lib = build_library()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -528,15 +573,21 @@ def _spec_of_id(ode_id: int):
 def rk4_substeps_op(x: torch.Tensor, u: torch.Tensor, ode_id: int, h: float,
                     n_sub: int) -> torch.Tensor:
     """K2 as a custom operator over the compiled functor ``ode_id``, the
-    form :func:`rk4_substeps` takes under ``torch.func.vmap`` on the card:
-    the kernel for CUDA tensors, the plain version (the port's ODE of that
-    name) for CPU tensors."""
+    form :func:`rk4_substeps` takes under ``torch.func.vmap`` on the card
+    and in a traced step: the kernel for CUDA tensors, the plain version
+    (the port's ODE of that name) for CPU tensors."""
     name, spec = _spec_of_id(ode_id)
     if x.device.type == "cpu":
         from gpmpc_tpu_torch import systems
         return rk4_substeps_reference(getattr(systems, f"{name}_ode"),
                                       x, u, h, n_sub).clone()
     return _rk4_substeps_launch(spec, x, u, h, n_sub)
+
+
+@rk4_substeps_op.register_fake
+def _rk4_substeps_fake(x, u, ode_id, h, n_sub):
+    """The output: the state's shape and dtype."""
+    return torch.empty_like(x)
 
 
 @rk4_substeps_op.register_vmap

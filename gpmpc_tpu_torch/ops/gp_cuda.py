@@ -16,7 +16,11 @@ for ``sm_90a`` in ``gpmpc_tpu_torch/csrc/``, built into the one library of
 Each takes a leading problem dim, so a GP fit evaluates every (start x
 output dim) problem with one K4 and one K5 launch.  The wrappers run the
 plain version on CPU tensors and launch the kernel on CUDA tensors, or
-raise; they count launches in ``cuda_kernels.LAUNCHES``.  ``SEARDGram`` and
+raise; they count launches in ``cuda_kernels.LAUNCHES``.  K3 is also a
+custom operator (``gpmpc::gp_predict_batch``, with a vmap rule and a fake
+implementation), which its wrapper takes under ``vmap`` on the card and
+while a step is traced; K4 and K5, which no solve step runs, raise if they
+would launch while a trace records.  ``SEARDGram`` and
 ``Cholesky`` are ``torch.autograd.Function``s whose forward is the wrapper
 and whose backward is plain PyTorch (the JAX package differentiates its
 XLA forms; no TPU kernel has a backward), so the CPU tests exercise the
@@ -117,6 +121,7 @@ def se_ard_gram(x, ell, sf2, sn2, jitter: float = 0.0):
     (n, d), p = x.shape, ell.shape[0]
     ck._check_cuda("se_ard_gram", (x, ell, sf2, sn2),
                    dict(x=(n, d), ell=(p, d), sf2=(p,), sn2=(p,)))
+    ck._refuse_launch_under_trace("se_ard_gram")
     lib = ck.build_library()
     out = torch.empty((p, n, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -210,6 +215,7 @@ def cholesky(a):
         raise ValueError(f"cholesky: needs non-empty (..., N, N), got "
                          f"{tuple(a.shape)}")
     ck._check_cuda("cholesky", (a,), dict(a=tuple(a.shape)))
+    ck._refuse_launch_under_trace("cholesky")
     n, p = a.shape[-1], a.numel() // (a.shape[-1] * a.shape[-1])
     lib = ck.build_library()
     blocked = n > CHOL_ONE_BLOCK_MAX_N
@@ -350,13 +356,16 @@ def gp_predict_batch(z, x, ell, sf2, alpha):
     contiguous float32 on the card, any D.  Under ``torch.func.vmap`` on
     the card the call goes through the custom operator
     ``gpmpc::gp_predict_batch``, whose vmap rule makes one launch for the
-    whole batch (:func:`_gp_predict_batch_vmap`).  K3 has no derivative:
-    under ``jacfwd``/``jvp``/``grad`` a CUDA call raises."""
-    if z.device.type == "cpu":
+    whole batch (:func:`_gp_predict_batch_vmap`); while a trace records
+    (:func:`cuda_kernels.tracing`) it goes through the operator on either
+    device.  K3 has no derivative: under ``jacfwd``/``jvp``/``grad`` a
+    CUDA call raises."""
+    traced = ck.tracing()
+    if z.device.type == "cpu" and not traced:
         return gp_predict_batch_reference(z, x, ell, sf2, alpha)
-    if z.device.type != "cuda":
+    if z.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gp_predict_batch: no kernel for device {z.device}")
-    if ck._functorch_wrapped(z, x, ell, sf2, alpha):
+    if traced or ck._functorch_wrapped(z, x, ell, sf2, alpha):
         if _under_derivative(z, x, ell, sf2, alpha):
             raise RuntimeError(
                 "gp_predict_batch: K3 has no derivative (neither the CUDA "
@@ -377,6 +386,7 @@ def _gp_predict_batch_launch(z, x, ell, sf2, alpha):
     ck._check_cuda("gp_predict_batch", (z, x, ell, sf2, alpha),
                    dict(z=lead + (b, d), x=lead + (n, d), ell=lead + (ny, d),
                         sf2=lead + (ny,), alpha=lead + (ny, n)))
+    ck._refuse_launch_under_trace("gp_predict_batch")
     lib = ck.build_library()
     kw = dict(dtype=torch.float32, device=z.device)
     mu = torch.empty(lead + (ny, b), **kw)
@@ -400,12 +410,22 @@ def gp_predict_batch_op(z: torch.Tensor, x: torch.Tensor, ell: torch.Tensor,
                         sf2: torch.Tensor, alpha: torch.Tensor
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """K3 as a custom operator, the form :func:`gp_predict_batch` takes
-    under ``torch.func.vmap`` on the card: the kernel for CUDA tensors, the
-    plain version for CPU tensors (where the vmap rule can be tested)."""
+    under ``torch.func.vmap`` on the card and in a traced step: the kernel
+    for CUDA tensors, the plain version for CPU tensors (where the vmap
+    rule can be tested)."""
     if z.device.type == "cpu":
         return tuple(t.clone() for t in
                      gp_predict_batch_reference(z, x, ell, sf2, alpha))
     return _gp_predict_batch_launch(z, x, ell, sf2, alpha)
+
+
+@gp_predict_batch_op.register_fake
+def _gp_predict_batch_fake(z, x, ell, sf2, alpha):
+    """The outputs' shapes and dtype: ``mu (..., Ny, B)`` and ``k*
+    (..., Ny, B, N)``, with the problem dim of ``x`` in front if any."""
+    lead = tuple(x.shape[:-2])
+    ny, b, n = ell.shape[-2], z.shape[-2], x.shape[-2]
+    return z.new_empty(lead + (ny, b)), z.new_empty(lead + (ny, b, n))
 
 
 @gp_predict_batch_op.register_vmap

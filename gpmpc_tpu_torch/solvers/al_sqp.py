@@ -20,7 +20,8 @@ are those of the JAX loop, and no solve on the card reads a tensor value
 on the host (no ``.item()``, no branch on data) or copies one to the card
 (its scalars are made there by ``torch.full``), so a step never waits for
 the device.  On the CPU, where nothing runs ahead of the host, the loop
-leaves at its first done step instead (``CPU_EARLY_EXIT``).
+leaves at its first done step instead (``CPU_EARLY_EXIT``), except while a
+trace records the step.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch.func import grad, hessian, jacfwd, vmap
 
+from gpmpc_tpu_torch.ops import cuda_kernels
 from gpmpc_tpu_torch.solvers import riccati
 from gpmpc_tpu_torch.utils.config import SQPConfig
 
@@ -167,17 +169,19 @@ def _merit(prob, state, params, mu, nu_pen, w_viol=0.0):
 #: CPU no device waits on the host.  False runs the card's masked budget on
 #: the CPU too (tests hold the two equal, and the masked loop against JAX).
 #: A batch of problems under ``torch.func.vmap`` (the batched study) always
-#: runs the masked budget: each problem is done at its own step.
+#: runs the masked budget: each problem is done at its own step, and so
+#: does a traced step (``utils/export.py``), whose graph must not freeze
+#: the example inputs' iteration count.
 CPU_EARLY_EXIT = True
 
 
 def _exit_early(done: torch.Tensor) -> bool:
     """Whether the inner loop may leave now: a plain CPU flag that is set
     (never a tensor under a ``torch.func`` transform, whose value differs
-    from problem to problem)."""
+    from problem to problem, and never while a trace records)."""
     return (CPU_EARLY_EXIT and done.device.type == "cpu"
             and not torch._C._functorch.is_functorch_wrapped_tensor(done)
-            and bool(done))
+            and not cuda_kernels.tracing() and bool(done))
 
 
 def _in_dtype(dtype, *ts):

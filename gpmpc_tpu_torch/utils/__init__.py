@@ -1,6 +1,17 @@
-"""Configuration dataclasses and the chance-constraint calibration audit."""
+"""Configuration dataclasses, the chance-constraint calibration audit,
+tracing and timing (``profiling``) and the deployable solve step
+(``export``, imported on first use: it imports the controller)."""
 
+import importlib
+
+from gpmpc_tpu_torch.utils import profiling
 from gpmpc_tpu_torch.utils.calibration import (chance_calibration,
                                                violation_rates)
 
-__all__ = ["chance_calibration", "violation_rates"]
+__all__ = ["chance_calibration", "violation_rates", "export", "profiling"]
+
+
+def __getattr__(name):
+    if name == "export":
+        return importlib.import_module(f"{__name__}.export")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -881,3 +881,59 @@ def test_mhe_step_on_the_card_makes_no_host_sync(dev):
     cpu.consts = to_cpu(mhe.consts)
     _, (x_ref, _) = cpu._step(to_cpu(state), (x0[:2] + 0.01).cpu(), u.cpu())
     assert float(((x_hat.cpu() - x_ref).abs() / x_ref.abs()).max()) < 1e-3
+
+
+@pytest.mark.parametrize("which", ["riccati_sweep", "rk4_substeps",
+                                   "gp_predict_batch"])
+def test_opcheck_on_cuda_inputs(dev, which):
+    """Schema, fake implementation and AOT dispatch of each kernel's
+    custom operator on CUDA tensors (the kernel is the operator's body)."""
+    if which == "riccati_sweep":
+        args = (*ck.stage_qp_inputs(20, 4, 2, 0, device=dev),
+                torch.full((), 1e-6, device=dev))
+        op = ck.riccati_sweep_op
+    elif which == "rk4_substeps":
+        x, u = ck.rk4_inputs(8, 1, device=dev)
+        args, op = (x, u, ck.CUDA_ODES["four_tank"][0], 0.3, 10), \
+            ck.rk4_substeps_op
+    else:
+        args = gp_cuda.predict_inputs(100, 6, 13, 4, 2, device=dev)
+        op = gp_cuda.gp_predict_batch_op
+    torch.library.opcheck(op, args)
+
+
+def test_cpu_built_artifact_moved_to_the_card_launches_k1(dev):
+    """An f32 fused_kkt solve step exported on the CPU for "cuda" runs on
+    the card through gpmpc::riccati_sweep: 4 K1 launches a step (al2 x
+    mi2), u0 within 1e-3 (relative) of the live step on the card."""
+    from benchmarks.bench_spec import DT, MODEL_R, Q_W, R_W, ULB, UUB, \
+        X0, XLB, XSP, XUB
+    from gpmpc_tpu_torch import MPC, Model
+    from gpmpc_tpu_torch.models.convert import gp_from_fixture
+    from gpmpc_tpu_torch.utils import export as ex
+
+    def build(device):
+        m = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT, R=MODEL_R,
+                  clip_negative=True, dtype=torch.float32,
+                  integrator_substeps=10, device=device)
+        g = gp_from_fixture(n=30, dtype=torch.float32, device=device,
+                            optimizer_opts=dict(jitter=1e-5, min_noise=1e-4))
+        return MPC(horizon=5 * DT, model=m, gp=g, Q=Q_W, R=R_W, ulb=ULB,
+                   uub=UUB, xlb=XLB, xub=XUB, percentile=0.95,
+                   feedback=True, cov_updates=1, op_x=XSP,
+                   op_u=np.array([3.0, 3.0]), device=device,
+                   solver_opts=dict(al_iters=2, max_iters=2, ls_steps=8,
+                                    penalty_init=1e3, fused_kkt=True))
+
+    step = ex.load_solve_step(ex.export_solve_step(build("cpu"),
+                                                   device="cuda"))
+    mpc = build(dev)
+    args = ex._example_args(mpc, X0, XSP)
+    ck.reset_launches()
+    u0, warm, _ = step(*args)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["riccati_sweep"] == 4
+    u0_l = torch.clamp(mpc._solve_step(*args)[1], mpc.consts.ulb,
+                       mpc.consts.uub)
+    torch.testing.assert_close(u0, u0_l, rtol=1e-3, atol=1e-3)
+    assert warm.x.device.type == "cuda"
