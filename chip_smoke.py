@@ -136,6 +136,20 @@ script exits non-zero before its last line):
      launches, every step replayed on the CPU), the same loop with the
      nominal model alone, the final position errors and each model's
      one-step prediction error on the heavy plant's transitions.
+ 17. slice F, part 3, at the main path's full width: (a) MPC.solve_mc,
+     64 lanes x 10 steps (a fused al2 x mi10 cold start) through
+     chance_calibration: K1 once per inner SQP step and K2 once per
+     control step for all lanes, finite, lanes 0 and 63 replayed on the
+     CPU, ms per ensemble step beside 64 x the single loop's step; (b) UT
+     under solve_mc (16 lanes x 4 steps, K3 through its vmap rule with the
+     lanes folded into B) and with per-lane online posteriors (2 steps, K3
+     with a problem dim over the lanes), K3 vmapped against its plain
+     version; (c) the adaptive DOPRI5 plant against the host integrator
+     (a 20-step f64 sim, a 10-step f32 loop, the poisoning case) and the
+     DAE network; (d) GP(inducing=32) with the fixture's recipe (K5 under
+     both VFE Choleskys, exact launches), its bound per dim (f64, CPU)
+     within 0.5 of the same f32 fit on the CPU (a child process), a
+     10-step TA loop with it.
  18. slice G, the deployable solve step, at the main path's full width
      (the fixture GP, TA, Nt=20, RTI al2 x mi2 x ls8, fused_kkt, f32,
      the fused plant): (a) utils.export.export_solve_step on the card in
@@ -157,11 +171,30 @@ script exits non-zero before its last line):
      artifact calls it (through its operator) timed beside its bound.
      (a)'s export and (c) are child processes started before phase 17,
      and run beside it.
-Phases 12-18 run before phase 11, whose JSON rows carry their launch
+ 19. the data-parallel surfaces over a torch.distributed mesh
+     (parallel/distributed.py), in child processes (``--mesh-rank``)
+     started after phase 8 that run beside phases 9-13, checked after
+     phase 13: (a) one NCCL rank on the card (initialize_multihost with a
+     file:// rendezvous, make_study_mesh's ("dp",) of size 1): phase 14
+     (b)'s study at B=1024 for MESH_STUDY_STEPS steps through
+     BatchedStudy(mesh=) (K1 3 launches a step and K2 1, each at
+     B=1024), GP(tank_X, tank_Y, mesh=) with phase 8's example recipe
+     (one K4 and one K5 an evaluation at P=8) and phase 17 (a)'s solve_mc
+     at 64 lanes for MESH_MC_STEPS steps, each bitwise the run without a
+     mesh (the fit: phase 8's); (b) two gloo ranks both on the card (NCCL
+     refuses two ranks on one device): the same three at 512 rollouts,
+     P=4 and 32 lanes a rank, every rank's gathered result against (a)'s
+     (the loops within the replay bounds, the fit's NLL per dim within
+     MESH_FIT_RTOL); the study's ms per step at each layout, the fit's
+     wall, each rank's launches; K1, K2, K4 and K5 against their plain
+     versions and timed at (b)'s block sizes.  ``--mesh`` on a machine of
+     four cards runs (c) in place of (b): four NCCL ranks, one a card,
+     held against (a) as (b) is.
+Phases 12-19 run before phase 11, whose JSON rows carry their launch
 counts (K1 at (1024, 8, 4, 2) and K2 at B=1024 get rows of their own, as
 do K3 at the UT and GH sigma points, K5 under the Matérn-5/2 fit, and K1
 at (4, 4) under the MHE, at (3, 3) built on demand and at (6, 2) under the
-quadrotor).
+quadrotor, and K1, K2, K4 and K5 at phase 19's two-rank block sizes).
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with the kernels' rows, and {"ok": true, "device": {...}}.
 
@@ -191,7 +224,8 @@ and phase 11's K1 lines alone, and with OTHER_SRC is ``--compare k1``;
 kernel rows alone; ``python3 chip_smoke.py --slice-f`` phases 1-2 and 15
 and their kernel rows; ``python3 chip_smoke.py --slice-f2`` phases 1-2
 and 16 and their kernel rows; ``--slice-f3`` phases 1-2 and 17, and
-``--slice-g`` phases 1-2 and 18, each with their kernel rows;
+``--slice-g`` phases 1-2 and 18, and ``--mesh`` phases 1-2, phase 8's
+example fit and phase 19, each with their kernel rows;
 ``python3 chip_smoke.py --build-times`` times the kernels' build, one
 ``nvcc`` over all sources against one per source at once.
 The script imports no JAX.
@@ -201,6 +235,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -929,6 +964,30 @@ def train_on_card(ck, dev, name, recipe):
     return gp, launches
 
 
+def trained_loop(dev, gp, xs_np, us_np):
+    """Phase 10: the card-trained GP in a TRAINED_STEPS-step RTI loop from
+    X0, against phase 5's loop ``xs_np``, ``us_np`` over the same steps."""
+    from benchmarks.bench_spec import DT, X0, XSP, closed_loop_cost
+
+    t0 = time.perf_counter()
+    xs_t, us_t = build_slice(dev, RTI, gp=gp).solve(X0, TRAINED_STEPS * DT,
+                                                    XSP, noise=False)
+    xs_t, us_t = xs_t.cpu().numpy(), us_t.cpu().numpy()
+    if not (np.all(np.isfinite(xs_t)) and np.all(np.isfinite(us_t))):
+        raise AssertionError("non-finite loop with the card-trained GP")
+    miss = float(np.abs(xs_t[-1, :2] - XSP[:2]).max())
+    cost_t = closed_loop_cost(xs_t, us_t, XSP)
+    cost_f = closed_loop_cost(xs_np[:TRAINED_STEPS + 1],
+                              us_np[:TRAINED_STEPS], XSP)
+    log(f"[trained] {TRAINED_STEPS}-step RTI loop with the card-trained GP "
+        f"({time.perf_counter() - t0:.1f} s): ends {miss:.4f} from the "
+        f"setpoint of the tracked tanks (<= 0.5), realized cost "
+        f"{cost_t:.4f} against {cost_f:.4f} over the same steps with the "
+        f"fixture GP (ratio {cost_t / cost_f:.5f}, <= 1.1)")
+    if miss > 0.5 or cost_t > 1.1 * cost_f:
+        raise AssertionError("the card-trained GP's closed loop misses")
+
+
 def validate_on_card(ck, dev, gp):
     """Phase 9: held-out data from the fused plant, validate of the
     card-trained and the fixture GP; SMSE within 1.5x per dim.  Returns
@@ -1323,11 +1382,11 @@ STUDY_REPLAY_TOL = 1e-3
 STUDY_COST_RTOL = 1e-3
 
 
-def build_study(dev, fused):
+def build_study(dev, fused, mesh=None):
     """The batched study as bench.py builds it (bench config 5) on ``dev``,
     f32: the pinned fixture GP, capacity 128, saturate, Nt=8, the al1 x mi3
     x ls4 budget, the plant with clip_negative; with ``fused`` the KKT
-    sweep kernel (K1) and the fused plant (K2)."""
+    sweep kernel (K1) and the fused plant (K2); sharded over ``mesh``."""
     from benchmarks.bench_spec import DT, MODEL_R
     from gpmpc_tpu_torch import Model
     from gpmpc_tpu_torch.models.convert import gp_from_fixture
@@ -1344,7 +1403,7 @@ def build_study(dev, fused):
                         Q=np.diag([10.0, 10.0, 0.1, 0.1]), R=0.01 * np.eye(2),
                         ulb=[0.0, 0.0], uub=[8.0, 8.0],
                         capacity=STUDY_CAPACITY, online_policy="saturate",
-                        solver_opts=opts)
+                        solver_opts=opts, mesh=mesh)
 
 
 def study_inputs(study):
@@ -3747,6 +3806,483 @@ def slice_g_alone():
     return 0
 
 
+# ------------------------------------------------------------ phase 19
+
+#: phase 19: the data-parallel surfaces over a torch.distributed mesh, in
+#: child processes of the smoke (``--mesh-rank``): (a) one NCCL rank, then
+#: (b) two gloo ranks both on the one card (NCCL refuses two ranks on one
+#: device); ``--mesh`` on a machine of four cards runs (c), four NCCL
+#: ranks, one a card, in place of (b).  The study's steps (bench config 5
+#: at B = 1024, phase 14 (b)'s configuration), the ensemble's steps (phase
+#: 17 (a)'s at 64 lanes), the layouts run in turn (the first is the one
+#: all others are held against), the seconds each layout's children may
+#: take and the process group's collective timeout
+MESH_STUDY_STEPS = 4
+MESH_MC_STEPS = 2
+MESH_LAYOUTS = (("nccl", 1), ("gloo", 2))
+MESH_LAYOUTS_CARDS = (("nccl", 1), ("nccl", 4))
+MESH_TIMEOUT = 420
+MESH_GROUP_TIMEOUT = 300
+#: phase 8's example recipe, fitted again through GP(mesh=)
+MESH_FIT = dict(multistart=2, max_iters=200, seed=1)
+#: bound of the two-rank fit's NLL per dim against the one-rank fit's,
+#: relative (bitwise is expected; the f32 batched objective at P = 4
+#: instead of 8 may round otherwise)
+MESH_FIT_RTOL = 1e-5
+
+
+class LaunchShapes:
+    """The leading (batch or problem) dim of every launch of K1, K2, K4 and
+    K5 in this process, by kernel: a spy over the wrappers' launch paths
+    (the wrappers still count the launches)."""
+
+    def __init__(self, ck, gc):
+        self.seen = {}
+        for mod, attr, name, lead in (
+                (ck, "_riccati_sweep_launch", "riccati_sweep",
+                 lambda a, *_: a.shape[0] if a.ndim == 4 else 1),
+                (ck, "_rk4_substeps_launch", "rk4_substeps",
+                 lambda spec, x, *_: x.shape[0] if x.ndim == 2 else 1),
+                (gc, "se_ard_gram", "se_ard_gram",
+                 lambda x, ell, *_: ell.shape[0]),
+                (gc, "cholesky", "cholesky",
+                 lambda a: a.numel() // a.shape[-1] ** 2)):
+            self._wrap(mod, attr, name, lead)
+
+    def _wrap(self, mod, attr, name, lead):
+        orig = getattr(mod, attr)
+
+        def spy(*args, **kw):
+            self.seen.setdefault(name, set()).add(lead(*args))
+            return orig(*args, **kw)
+
+        setattr(mod, attr, spy)
+
+    def take(self):
+        seen = {k: sorted(v) for k, v in self.seen.items()}
+        self.seen = {}
+        return seen
+
+
+def mesh_rank(rank, world, backend, out_dir, device):
+    """Phase 19's child process: rank ``rank`` of ``world`` on ``device``
+    (NCCL: card ``rank``; gloo: every rank on card 0) with ``backend`` (a
+    ``file://`` rendezvous in ``out_dir``); the study, the fit and the
+    ensemble through ``mesh=`` on make_study_mesh()'s 1-D mesh, each run's
+    launch counts and launch shapes; a one-rank mesh also runs
+    the study and the ensemble without the mesh and reads phase 8's fit of
+    the recipe from ``example_fit.pt`` (bitwise expected).  Writes what it
+    saw to ``{backend}{world}_rank{rank}.pt``."""
+    from benchmarks.bench_spec import DT, X0, XSP
+    from gpmpc_tpu_torch import GP
+    from gpmpc_tpu_torch.models.convert import FIXTURE
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    from gpmpc_tpu_torch.ops import gp_cuda as gc
+    from gpmpc_tpu_torch.parallel import distributed
+
+    tag = f"{backend}{world}"
+    if not distributed.initialize_multihost(
+            coordinator_address=f"file://{out_dir}/rendezvous_{tag}",
+            num_processes=world, process_id=rank, backend=backend,
+            device=device, timeout=MESH_GROUP_TIMEOUT):
+        raise RuntimeError("initialize_multihost joined no process group")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        ck.build_library()
+    mesh = distributed.make_study_mesh(dev.type)
+    shapes = LaunchShapes(ck, gc)
+    out = dict(rank=rank, world=world, backend=backend,
+               mesh=(mesh.mesh_dim_names, mesh.size()), launches={},
+               shapes={}, seconds={})
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        shapes.take()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["launches"][name] = dict(ck.LAUNCHES)
+        out["shapes"][name] = shapes.take()
+        return res
+
+    # the study: a warm-up step, one step and MESH_STUDY_STEPS steps through
+    # the mesh (ms per step from their slope)
+    study = build_study(dev, fused=True, mesh=mesh)
+    x0s, noise = study_inputs(study)
+    n = MESH_STUDY_STEPS
+    study.run(x0s, STUDY_XSP, 1, noise_ws=noise[:, :1])
+    run("study_1", lambda: study.run(x0s, STUDY_XSP, 1,
+                                     noise_ws=noise[:, :1]))
+    res = run("study", lambda: study.run(x0s, STUDY_XSP, n,
+                                         noise_ws=noise[:, :n]))
+    out["study"] = {k: to_cpu(getattr(res, k)) for k in
+                    ("x_traj", "u_traj", "cost", "mean_cost", "gp_points")}
+    if world == 1:
+        lstudy = build_study(dev, fused=True)
+        local = run("study_local", lambda: lstudy.run(
+            x0s, STUDY_XSP, n, noise_ws=noise[:, :n]))
+        out["study_bitwise"] = all(
+            torch.equal(getattr(res, k), getattr(local, k))
+            for k in ("x_traj", "u_traj", "cost", "obj", "gp_points",
+                      "mean_cost")) and all(
+            torch.equal(a, b) for a, b in zip(res.post, local.post))
+
+    # the fit: phase 8's example recipe through GP(mesh=)
+    f = np.load(FIXTURE)
+    gp = run("fit", lambda: GP(f["tank_X"], f["tank_Y"], mean_func="zero",
+                               gp_method="TA", optimizer_opts=GP_OPTS,
+                               device=dev, dtype=torch.float32, mesh=mesh,
+                               **MESH_FIT))
+    out["fit"] = fit_record(gp)
+    if world == 1:
+        ref = torch.load(os.path.join(out_dir, "example_fit.pt"))
+        out["fit_ref"] = ref
+        out["fit_bitwise"] = (
+            ref["n_evals"] == gp.n_evals
+            and torch.equal(ref["nll"], out["fit"]["nll"])
+            and all(torch.equal(x, y) for x, y in zip(ref["hyper"],
+                                                       out["fit"]["hyper"])))
+
+    # the ensemble: phase 17 (a)'s solve_mc at MC_LANES lanes
+    mpc = build_slice(dev, RTI, init_solver_opts=MC_INIT)
+    w = mc_noise(mpc, MC_LANES, MESH_MC_STEPS, 0)
+
+    def ensemble(m):
+        xs, us = mpc.solve_mc(X0, MESH_MC_STEPS * DT, XSP, MC_LANES,
+                              noise_ws=w, mesh=m)
+        return xs, us, dict(mpc.last_mc)
+
+    xs, us, rec = run("mc", lambda: ensemble(mesh))
+    out["mc"] = dict(xs=to_cpu(xs), us=to_cpu(us),
+                     converged=rec["converged"], sigmas=rec["sigmas"])
+    if world == 1:
+        xs_l, us_l, rec_l = run("mc_local", lambda: ensemble(None))
+        out["mc_bitwise"] = (
+            torch.equal(xs, xs_l) and torch.equal(us, us_l)
+            and all(np.array_equal(rec[k], rec_l[k]) for k in rec))
+    torch.save(out, os.path.join(out_dir, f"{tag}_rank{rank}.pt"))
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+class MeshChildren:
+    """Phase 19's child processes, given phase 8's example fit
+    ``fit_gp``: the ``layouts`` ((backend, ranks) pairs) one after the
+    other (each layout's ranks at once, each rank with a timeout), in a
+    thread of the smoke so that they run beside earlier phases.  ``join``
+    waits for them and raises if any failed; ``stop`` kills any still
+    running."""
+
+    def __init__(self, fit_gp, layouts=MESH_LAYOUTS):
+        self.out_dir = os.path.join(HERE, "build", "mesh")
+        os.makedirs(self.out_dir, exist_ok=True)
+        for name in os.listdir(self.out_dir):
+            if name.startswith("rendezvous_") or name.endswith(".pt"):
+                os.remove(os.path.join(self.out_dir, name))
+        torch.save(fit_record(fit_gp),
+                   os.path.join(self.out_dir, "example_fit.pt"))
+        self.layouts = layouts
+        self.t0 = time.perf_counter()
+        self.procs, self.error, self.walls = [], None, {}
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            for backend, world in self.layouts:
+                t0 = time.perf_counter()
+                tag = f"{backend}{world}"
+                procs = []
+                for r in range(world):
+                    with open(os.path.join(self.out_dir,
+                                           f"{tag}_rank{r}.log"), "w") as fh:
+                        procs.append(subprocess.Popen(
+                            [sys.executable, os.path.join(HERE,
+                                                          "chip_smoke.py"),
+                             "--mesh-rank", str(r), str(world), backend,
+                             self.out_dir], cwd=HERE, stdout=fh,
+                            stderr=subprocess.STDOUT))
+                self.procs += procs
+                for r, p in enumerate(procs):
+                    left = MESH_TIMEOUT - (time.perf_counter() - t0)
+                    if p.wait(timeout=max(left, 1.0)) != 0:
+                        raise RuntimeError(f"{tag} rank {r} exited "
+                                           f"{p.returncode}")
+                self.walls[tag] = time.perf_counter() - t0
+        except Exception as e:                # re-raised by join
+            self.error = e
+            self.stop()
+
+    def join(self):
+        self.thread.join(timeout=len(self.layouts) * MESH_TIMEOUT + 60)
+        if self.thread.is_alive():
+            self.error = self.error or TimeoutError("phase 19's children")
+        self.stop()
+        if self.error is not None:
+            for name in sorted(os.listdir(self.out_dir)):
+                if name.endswith(".log"):
+                    with open(os.path.join(self.out_dir, name)) as fh:
+                        log(f"[mesh] {name}:\n{fh.read()[-3000:]}")
+            raise AssertionError(f"phase 19's children failed: "
+                                 f"{self.error!r}")
+
+    def stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def rel_diff(a, b):
+    """max |a - b| / (1 + |b|), and max |a - b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d = np.abs(a - b)
+    return float((d / (1.0 + np.abs(b))).max()), float(d.max())
+
+
+def mesh_loop_diff(a, b):
+    """Worst relative differences of two runs' states (n, steps + 1, Nx),
+    in the transient (the first TRANSIENT_STEPS steps) and after it."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d = np.abs(a - b) / (1.0 + np.abs(b))
+    worst = d.max(axis=(0, 2))[1:]
+    return (float(worst[:TRANSIENT_STEPS].max()),
+            float(worst[TRANSIENT_STEPS:].max()) if worst.size >
+            TRANSIENT_STEPS else 0.0)
+
+
+def mesh_check_a(a, card):
+    """(a): one NCCL rank's study, fit and ensemble bitwise the runs
+    without a mesh (the fit: phase 8's), exact launch counts at the full
+    batch (K4 and K5 also at P = 4 for the posterior)."""
+    cfg_k1 = STUDY_BUDGET["al_iters"] * STUDY_BUDGET["max_iters"]
+    n = MESH_STUDY_STEPS
+    checks = {
+        "study": (expect_launches(k1=n * cfg_k1, k2=n),
+                  {"riccati_sweep": [STUDY_B], "rk4_substeps": [STUDY_B]}),
+        "fit": (expect_launches(k4=a["fit"]["n_evals"] + 1,
+                                k5=a["fit"]["n_evals"] + 3),
+                {"se_ard_gram": [4, MESH_FIT["multistart"] * 4],
+                 "cholesky": [4, MESH_FIT["multistart"] * 4]}),
+        "mc": (expect_launches(
+            k1=MC_INIT["al_iters"] * MC_INIT["max_iters"]
+            + MESH_MC_STEPS * RTI["al_iters"] * RTI["max_iters"],
+            k2=MESH_MC_STEPS),
+            {"riccati_sweep": [MC_LANES], "rk4_substeps": [MC_LANES]})}
+    for name, (expect, shapes) in checks.items():
+        got, seen = a["launches"][name], a["shapes"][name]
+        log(f"[mesh] (a) nccl, 1 rank: {name} launches {got}, launch "
+            f"shapes {seen}, {a['seconds'][name]:.3f} s")
+        if got != expect:
+            raise AssertionError(f"(a) {name}: launches {got} != {expect}")
+        if any(seen.get(k) != v for k, v in shapes.items()):
+            raise AssertionError(f"(a) {name}: launched at {seen}, "
+                                 f"expected {shapes}")
+    log(f"[mesh] (a) bitwise against mesh=None: study {a['study_bitwise']},"
+        f" ensemble {a['mc_bitwise']}, fit against phase 8's "
+        f"{a['fit_bitwise']} ({a['fit']['n_evals']} against "
+        f"{a['fit_ref']['n_evals']} evaluations; NLL "
+        f"{a['fit']['nll'].tolist()}) on {card}")
+    if not (a["study_bitwise"] and a["mc_bitwise"] and a["fit_bitwise"]):
+        raise AssertionError("(a) one-rank mesh runs differ from the local "
+                             "runs")
+
+
+def mesh_check_b(b, a, card):
+    """(b) (and (c)): each rank's gathered results against (a)'s: the
+    loops within the replay bounds, the fit's NLL per dim within
+    MESH_FIT_RTOL; launch counts at the rank's block (K4/K5: the most
+    launches over the ranks is n_evals + 1 / + 3).  Returns the worst
+    differences."""
+    cfg_k1 = STUDY_BUDGET["al_iters"] * STUDY_BUDGET["max_iters"]
+    n, world = MESH_STUDY_STEPS, len(b)
+    p_fit = sorted({MESH_FIT["multistart"] * 4 // world, 4})
+    tag = f"{b[0]['backend']} {world} ranks"
+    for r in b:
+        for name, k1, k2, lanes in (
+                ("study", n * cfg_k1, n, STUDY_B // world),
+                ("mc", MC_INIT["al_iters"] * MC_INIT["max_iters"]
+                 + MESH_MC_STEPS * RTI["al_iters"] * RTI["max_iters"],
+                 MESH_MC_STEPS, MC_LANES // world)):
+            got, seen = r["launches"][name], r["shapes"][name]
+            if got != expect_launches(k1=k1, k2=k2) or \
+                    seen.get("riccati_sweep") != [lanes] or \
+                    seen.get("rk4_substeps") != [lanes]:
+                raise AssertionError(f"({tag}) rank {r['rank']} {name}: "
+                                     f"launches {got} at {seen}")
+        log(f"[mesh] ({tag}) rank {r['rank']}: launches "
+            f"{ {k: r['launches'][k] for k in ('study', 'fit', 'mc')} }, "
+            f"shapes { {k: r['shapes'][k] for k in ('study', 'fit', 'mc')} }")
+    fit_l = [r["launches"]["fit"] for r in b]
+    evals = b[0]["fit"]["n_evals"]
+    if max(x["se_ard_gram"] for x in fit_l) != evals + 1 or \
+            max(x["cholesky"] for x in fit_l) != evals + 3 or \
+            any(x["cholesky"] - x["se_ard_gram"] != 2 for x in fit_l) or \
+            any(r["shapes"]["fit"]["se_ard_gram"] != p_fit for r in b):
+        raise AssertionError(f"({tag}) fit launches {fit_l} for {evals} "
+                             f"evaluations")
+    worst = {}
+    for r in b:
+        st = mesh_loop_diff(r["study"]["x_traj"], a["study"]["x_traj"])
+        mc = mesh_loop_diff(r["mc"]["xs"], a["mc"]["xs"])
+        nll_a = a["fit"]["nll"].double()
+        fit = float(((r["fit"]["nll"].double() - nll_a).abs()
+                     / nll_a.abs()).max())
+        same = {s: all(torch.equal(r[s][k], a[s][k]) for k in keys)
+                for s, keys in (("study", ("x_traj", "u_traj")),
+                                ("fit", ("nll",)), ("mc", ("xs", "us")))}
+        log(f"[mesh] ({tag}) rank {r['rank']}'s gathered results against "
+            f"(a)'s:"
+            f" bitwise {same}; study states worst relative difference "
+            f"{st[0]:.3e} (transient, 1e-2), mean cost "
+            f"{float(r['study']['mean_cost']):.6f} against "
+            f"{float(a['study']['mean_cost']):.6f}; ensemble {mc[0]:.3e} "
+            f"(1e-2); fit NLL per dim {r['fit']['nll'].tolist()} "
+            f"({r['fit']['n_evals']} evaluations), relative {fit:.3e} "
+            f"({MESH_FIT_RTOL}) on {card}")
+        if st[0] > 1e-2 or st[1] > 1e-3 or mc[0] > 1e-2 or mc[1] > 1e-3 \
+                or fit > MESH_FIT_RTOL:
+            raise AssertionError(f"({tag}) rank {r['rank']} is off (a)")
+        worst = dict(study=max(worst.get("study", 0), st[0]),
+                     mc=max(worst.get("mc", 0), mc[0]),
+                     fit=max(worst.get("fit", 0), fit))
+    return worst
+
+
+def mesh_rows(ck, gc, dev, card, b):
+    """Phase 11's rows at the block sizes the two-rank mesh launched: K1
+    at (512, 8, 4, 2) (the study) and (32, 20, 4, 2) (the ensemble), K2 at
+    B = 512 and 32 on the gathered runs' states, K4 and K5 at P = 4, N =
+    100 (the fit's block), each held against its plain version, with rank
+    0's launches."""
+    from benchmarks.bench_spec import DT
+    from gpmpc_tpu_torch.systems import four_tank_ode
+    r0 = b[0]
+    world = len(b)
+    rows = []
+    for name, nt, lanes, run, xs, us in (
+            ("study", STUDY_NT, STUDY_B // world, "study",
+             r0["study"]["x_traj"], r0["study"]["u_traj"]),
+            ("solve_mc", 20, MC_LANES // world, "mc", r0["mc"]["xs"],
+             r0["mc"]["us"])):
+        q = ck.stage_qp_inputs(nt, 4, 2, 31, lanes, device=dev)
+        reg = torch.full((lanes,), 1e-6, device=dev)
+        err1 = ck.check_riccati_sweep(q, reg)
+        out = ck.riccati_sweep(*q, reg)
+        rows.append(timed_row(
+            f"riccati_sweep[mesh_{name}]", "riccati_sweep", 394,
+            lambda q=q, reg=reg: ck.riccati_sweep(*q, reg),
+            lambda q=q, reg=reg: ck.riccati_sweep_reference(*q, reg),
+            bound(nbytes(*q, reg, *out), lanes * riccati_flops(nt, 4, 2)),
+            r0["launches"][run]["riccati_sweep"], err1, card,
+            f"B={lanes}, Nt={nt}, nx=4, nu=2: a rank's block of {world}"))
+        x = torch.as_tensor(xs[:lanes, -2], device=dev).contiguous()
+        u = torch.as_tensor(us[:lanes, -1], device=dev).contiguous()
+        err2 = ck.check_rk4_substeps(four_tank_ode, x, u, DT / 10, 10)
+        y = ck.rk4_substeps(four_tank_ode, x, u, DT / 10, 10)
+        rows.append(timed_row(
+            f"rk4_substeps[mesh_{name}]", "rk4_substeps", 233,
+            lambda x=x, u=u: ck.rk4_substeps(four_tank_ode, x, u, DT / 10,
+                                             10),
+            lambda x=x, u=u: ck.rk4_substeps_reference(four_tank_ode, x, u,
+                                                       DT / 10, 10),
+            bound(nbytes(x, u, y), lanes * 10 * (4 * 22 + 52)),
+            r0["launches"][run]["rk4_substeps"], err2, card,
+            f"B={lanes} on rank 0's gathered states"))
+    p = MESH_FIT["multistart"] * 4 // world
+    x, ell, sf2, sn2 = gc.gram_inputs(100, 6, p, 32, device=dev)
+    err4 = gc.check_se_ard_gram(x, ell, sf2, sn2)
+    k = gc.se_ard_gram(x, ell, sf2, sn2, 1e-6)
+    rows.append(timed_row(
+        "se_ard_gram[mesh_fit]", "se_ard_gram", 78,
+        lambda: gc.se_ard_gram(x, ell, sf2, sn2, 1e-6),
+        lambda: gc.se_ard_gram_reference(x, ell, sf2, sn2, 1e-6),
+        bound(nbytes(x, ell, sf2, sn2, k), p * 100 * 100 * (3 * 6 + 4)),
+        r0["launches"]["fit"]["se_ard_gram"], err4, card,
+        f"P={p}, N=100, D=6: a rank's block of the example fit"))
+    a = gc.spd_inputs(100, p, 33, device=dev)
+    err5 = gc.check_cholesky(a)
+    rows.append(timed_row(
+        "cholesky[mesh_fit]", "cholesky", 206, lambda: gc.cholesky(a),
+        lambda: gc.cholesky_reference(a), cholesky_bound(p, 100),
+        r0["launches"]["fit"]["cholesky"], err5, card,
+        f"P={p}, N=100: a rank's block of the example fit",
+        library=lambda: torch.linalg.cholesky_ex(a)))
+    return rows
+
+
+def mesh_phase(ck, gc, dev, card, children):
+    """Phase 19: waits for the children, holds (a) bitwise against the
+    runs without a mesh and every other layout against (a), prints each
+    layout's ms per study step (and rollout rate), fit and ensemble walls
+    and each rank's launch counts; returns the kernel rows at the second
+    layout's block sizes."""
+    t_wait = time.perf_counter()
+    children.join()
+    waited = time.perf_counter() - t_wait
+    runs = [[torch.load(os.path.join(children.out_dir,
+                                     f"{backend}{world}_rank{r}.pt"),
+                        weights_only=False) for r in range(world)]
+            for backend, world in children.layouts]
+    a = runs[0][0]
+    mesh_check_a(a, card)
+    span = MESH_STUDY_STEPS - 1
+    for ranks in runs:
+        worst = mesh_check_b(ranks, a, card) if ranks is not runs[0] \
+            else None
+        ms = [(r["seconds"]["study"] - r["seconds"]["study_1"]) / span * 1e3
+              for r in ranks]
+        log(f"[mesh] {ranks[0]['backend']}, {len(ranks)} rank(s): study "
+            f"ms per control step (wall slope, {MESH_STUDY_STEPS} against 1 "
+            f"step) at B={STUDY_B // len(ranks)} a rank "
+            f"{[round(v, 3) for v in ms]} ({STUDY_B / max(ms) * 1e3:.1f} "
+            f"rollout solves/s together); fit wall (P="
+            f"{MESH_FIT['multistart'] * 4 // len(ranks)} a rank) "
+            f"{[round(r['seconds']['fit'], 3) for r in ranks]} s; ensemble "
+            f"wall ({MC_LANES // len(ranks)} lanes a rank) "
+            f"{[round(r['seconds']['mc'], 3) for r in ranks]} s; worst "
+            f"against (a) {worst} on {card}")
+    log(f"[mesh] layouts' walls "
+        f"{ {k: round(v, 1) for k, v in children.walls.items()} } s, "
+        f"started {t_wait - children.t0:.1f} s before this phase, "
+        f"{waited:.1f} s waited here")
+    return mesh_rows(ck, gc, dev, card, runs[1])
+
+
+def fit_record(gp):
+    """A fit's hypers, NLL per dim and evaluations, on the CPU."""
+    return dict(hyper=[h.cpu() for h in gp.hyper], nll=gp.nll.cpu(),
+                n_evals=gp.n_evals)
+
+
+def mesh_alone():
+    """Phases 1-2, phase 8's example fit and phase 19, and phase 19's
+    kernel rows, alone; on a machine of four cards (c), four NCCL ranks
+    across them, in place of (b)."""
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    from gpmpc_tpu_torch.ops import gp_cuda as gc
+    card = card_line()
+    dev = torch.device("cuda")
+    log(f"[card] nvidia-smi: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    ck.build_library()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    gp, _ = train_on_card(ck, dev, "example", MESH_FIT)
+    four = torch.cuda.device_count() >= 4
+    children = MeshChildren(gp, MESH_LAYOUTS_CARDS if four else MESH_LAYOUTS)
+    try:
+        rows = mesh_phase(ck, gc, dev, card, children)
+    finally:
+        children.stop()
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
 def kernel_times(ck, gc, four_tank_ode, dev, card):
     """Phase 11: each kernel's time beside its plain version's, the library
     call's (K5), its device time per launch (torch.profiler) and its
@@ -4287,6 +4823,12 @@ def main(argv):
         sys.path.insert(0, HERE)
         i = argv.index("--serve-artifact")
         return serve_artifact(*argv[i + 1:i + 4])
+    if "--mesh-rank" in argv:               # phase 19's child processes
+        sys.path.insert(0, HERE)
+        i = argv.index("--mesh-rank")
+        rank, backend = int(argv[i + 1]), argv[i + 3]
+        return mesh_rank(rank, int(argv[i + 2]), backend, argv[i + 4],
+                         f"cuda:{rank if backend == 'nccl' else 0}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
               "test runs only on an NVIDIA GPU", file=sys.stderr)
@@ -4306,6 +4848,8 @@ def main(argv):
         return k5_paths()
     if "--study" in argv:
         return study_alone()
+    if "--mesh" in argv:
+        return mesh_alone()
     if "--slice-g" in argv:
         return slice_g_alone()
     if "--slice-f3" in argv:
@@ -4414,30 +4958,20 @@ def main(argv):
     # 8. training at full width, 9. validation, 10. the trained GP's loop
     gp, train_launches = train_on_card(
         ck, dev, "fixture", dict(multistart=1, max_iters=100))
-    train_on_card(ck, dev, "example",
-                  dict(multistart=2, max_iters=200, seed=1))
-    val_launches = validate_on_card(ck, dev, gp)
-    t0 = time.perf_counter()
-    xs_t, us_t = build_slice(dev, RTI, gp=gp).solve(X0, TRAINED_STEPS * DT,
-                                                    XSP, noise=False)
-    xs_t, us_t = xs_t.cpu().numpy(), us_t.cpu().numpy()
-    if not (np.all(np.isfinite(xs_t)) and np.all(np.isfinite(us_t))):
-        raise AssertionError("non-finite loop with the card-trained GP")
-    miss = float(np.abs(xs_t[-1, :2] - XSP[:2]).max())
-    cost_t = closed_loop_cost(xs_t, us_t, XSP)
-    cost_f = closed_loop_cost(xs_np[:TRAINED_STEPS + 1],
-                              us_np[:TRAINED_STEPS], XSP)
-    log(f"[trained] {TRAINED_STEPS}-step RTI loop with the card-trained GP "
-        f"({time.perf_counter() - t0:.1f} s): ends {miss:.4f} from the "
-        f"setpoint of the tracked tanks (<= 0.5), realized cost "
-        f"{cost_t:.4f} against {cost_f:.4f} over the same steps with the "
-        f"fixture GP (ratio {cost_t / cost_f:.5f}, <= 1.1)")
-    if miss > 0.5 or cost_t > 1.1 * cost_f:
-        raise AssertionError("the card-trained GP's closed loop misses")
+    gp_example, _ = train_on_card(ck, dev, "example", MESH_FIT)
+    # 19. the data-parallel surfaces over a mesh: child processes that run
+    # beside phases 9-13, checked after phase 13
+    mesh_children = MeshChildren(gp_example)
+    try:
+        val_launches = validate_on_card(ck, dev, gp)
+        trained_loop(dev, gp, xs_np, us_np)
 
-    # 12. the car's closed loop, 13. the car's validation
-    car_launches = car_loop(ck, dev, card)
-    car_val_launches = car_validation(ck, gc, dev, card)
+        # 12. the car's closed loop, 13. the car's validation
+        car_launches = car_loop(ck, dev, card)
+        car_val_launches = car_validation(ck, gc, dev, card)
+        mesh_rows_19 = mesh_phase(ck, gc, dev, card, mesh_children)
+    finally:
+        mesh_children.stop()
 
     # 14. the batched study
     study_launches, study_res = study_phase(ck, dev, card)
@@ -4508,7 +5042,8 @@ def main(argv):
                      "bound_by": r["bound"][1], "library_ms": None})
     rows += study_kernel_rows(ck, dev, card, study_launches, study_res,
                               sources)
-    rows += slice_f_rows + slice_f2_rows + slice_f3_rows + slice_g_rows
+    rows += (slice_f_rows + slice_f2_rows + slice_f3_rows + slice_g_rows
+             + mesh_rows_19)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ from torch.func import jacfwd
 from gpmpc_tpu_torch.models import gp_core, sparse
 from gpmpc_tpu_torch.models.propagate import Normalization, get_propagator
 from gpmpc_tpu_torch.ops.kernels import KERNELS
+from gpmpc_tpu_torch.parallel import distributed
 from gpmpc_tpu_torch.utils.config import GPConfig
 from gpmpc_tpu_torch.utils.device import resolve_device
 
@@ -55,7 +56,14 @@ class GP:
     training on the Titsias free-energy bound, a posterior every consumer
     takes as it takes the exact one.  ``optimize_inducing=True`` also
     refines the inducing locations on the summed bound (fit, Z-step,
-    warm refit)."""
+    warm refit).
+
+    ``mesh`` (a ``DeviceMesh`` of the GP's device type, from
+    :func:`~gpmpc_tpu_torch.parallel.distributed.make_study_mesh`) shards
+    the training grid over its ranks (:func:`gp_core.fit`; both fits of
+    the sparse GP); every rank passes the same data and seed and holds
+    the same result.  The Z-step and the refit stay on each rank, as in
+    the JAX package."""
 
     def __init__(self,
                  X,
@@ -96,9 +104,8 @@ class GP:
             raise ValueError("optimize_inducing=True requires inducing=M")
         self.optimize_inducing = bool(optimize_inducing)
         if mesh is not None:
-            raise NotImplementedError(
-                "GP(mesh=): sharding the training grid over devices is not "
-                "ported yet (ROADMAP §1 item 6.9, torch.distributed)")
+            distributed.check_mesh(mesh, self.device)
+        self.mesh = mesh
         if gh_grid not in ("auto", "tensor", "cubature5"):
             raise ValueError(f"gh_grid must be 'auto'|'tensor'|'cubature5';"
                              f" got {gh_grid!r}")
@@ -159,11 +166,11 @@ class GP:
         g = generator if generator is not None else self._generator
         if self.inducing is None:
             self.hyper, self.nll, self.n_evals = gp_core.fit(
-                self.Xn, self.Yn, self.cfg, g)
+                self.Xn, self.Yn, self.cfg, g, mesh=self.mesh)
             self.fit_evals = {"exact": self.n_evals}
         else:
             self.hyper, self.nll, evals = sparse.fit_sparse(
-                self.Xn, self.Yn, self.Zn, self.cfg, g)
+                self.Xn, self.Yn, self.Zn, self.cfg, g, mesh=self.mesh)
             if self.optimize_inducing:
                 # coordinate descent: a Z-step on the summed bound with the
                 # hypers fixed, then a warm single-start refit on the

@@ -206,11 +206,21 @@ def fit(x: torch.Tensor, y: torch.Tensor, cfg: GPConfig,
     batch through :func:`gpmpc_tpu_torch.models.lbfgs.minimize`, so each
     objective evaluation is one K4 (SE only) and one K5 launch for all S*Ny
     problems.  Non-finite final values count as +inf and each dim takes its
-    best start."""
+    best start.
+
+    ``mesh`` (a ``DeviceMesh``, :func:`gpmpc_tpu_torch.parallel.distributed.
+    make_study_mesh`) shards the problem grid over its ranks, as the JAX
+    package does: the starts are drawn from ``generator`` before sharding,
+    so every rank holds the same grid; the grid is padded to a multiple of
+    ``mesh.size()`` with copies of problem 0, each rank minimizes its
+    contiguous block (on the card one K4 and one K5 launch an evaluation at
+    P = the block's size), and the blocks are gathered and the pad dropped
+    before each dim takes its best start.  ``n_evals`` is then the most
+    batched evaluations any rank made."""
     if mesh is not None:
-        raise NotImplementedError(
-            "fit(mesh=): sharding the training grid over devices is not "
-            "ported yet (ROADMAP §1 item 6.9, torch.distributed)")
+        # imported here: the parallel package imports this module
+        from gpmpc_tpu_torch.parallel import distributed
+        distributed.check_mesh(mesh, x.device)
     n, d = x.shape
     ny = y.shape[1]
     s = cfg.multistart
@@ -225,12 +235,23 @@ def fit(x: torch.Tensor, y: torch.Tensor, cfg: GPConfig,
                         starts.log_sn2.reshape(s * ny, 1),
                         starts.mean_w.reshape(s * ny, -1)], dim=1)
     y_rows = y.mT.repeat(s, 1)                    # (S*Ny, N), dim-minor
+    total = s * ny
+    if mesh is not None:
+        pad = (-total) % mesh.size()
+        theta0, y_rows = (distributed.local_block(
+            torch.cat([a, a[:1].expand((pad,) + a.shape[1:])]), mesh)
+            for a in (theta0, y_rows))
 
     def objective(theta):
         return nll(*_unpack(theta, d), x, y_rows, cfg, cfg.mean_func)
 
     theta, values, n_evals = lbfgs.minimize(objective, theta0,
                                             cfg.max_iters, cfg.grad_tol)
+    if mesh is not None:
+        theta = distributed.gather(theta, mesh)[:total]
+        values = distributed.gather(values, mesh)[:total]
+        n_evals = int(distributed.all_reduce(
+            torch.tensor(n_evals, device=x.device), mesh, "max"))
     values = torch.where(torch.isfinite(values), values, torch.inf)
     values = values.reshape(s, ny)
     best = torch.argmin(values, dim=0)                          # (Ny,)

@@ -38,7 +38,7 @@ from gpmpc_tpu_torch.models import gp_core, lbfgs
 from gpmpc_tpu_torch.models.gp_core import (GPHypers, _jitter_floor,
                                             _mean_rows, _noise_var)
 from gpmpc_tpu_torch.ops.chol import tri_solve
-from gpmpc_tpu_torch.ops.gp_cuda import cholesky_auto
+from gpmpc_tpu_torch.ops.gp_cuda import cholesky_auto, sum_rows_then_cols
 from gpmpc_tpu_torch.ops.kernels import kernel_cross
 from gpmpc_tpu_torch.utils.config import GPConfig
 
@@ -108,7 +108,7 @@ def vfe_nll_batch(log_ell: torch.Tensor, log_sf2: torch.Tensor,
                        min=0.0) / sn2
     logdet = (torch.sum(torch.log(torch.diagonal(l_b, dim1=-2, dim2=-1)),
                         dim=-1) + 0.5 * n * torch.log(sn2))
-    trace = 0.5 * torch.clamp(n * sf2 / sn2 - torch.sum(a * a, dim=(-2, -1)),
+    trace = 0.5 * torch.clamp(n * sf2 / sn2 - sum_rows_then_cols(a * a),
                               min=0.0)
     nll = 0.5 * quad + logdet + 0.5 * n * math.log(2.0 * math.pi) + trace
     prior = (max(cfg.ell_prior, 1e-4) * torch.sum(log_ell ** 2, dim=-1)
@@ -128,7 +128,7 @@ def vfe_nll_single(log_ell: torch.Tensor, log_sf2: torch.Tensor,
 
 
 def fit_sparse(x: torch.Tensor, y: torch.Tensor, z_ind: torch.Tensor,
-               cfg: GPConfig, generator: torch.Generator
+               cfg: GPConfig, generator: torch.Generator, mesh=None
                ) -> Tuple[GPHypers, torch.Tensor, dict]:
     """Train all Ny sparse GPs: multistart L-BFGS on the VFE bound, the
     (multistart x Ny) grid as one batch (:func:`gp_core.fit` with this
@@ -136,15 +136,17 @@ def fit_sparse(x: torch.Tensor, y: torch.Tensor, z_ind: torch.Tensor,
     a k-center subset of at most 256 points: the VFE landscape has a wide
     "predict the mean" basin that data-blind starts fall into.  Returns
     the best hypers per dim, their bounds and the batched evaluations of
-    each leg (``{"exact": ..., "vfe": ...}``)."""
+    each leg (``{"exact": ..., "vfe": ...}``).  ``mesh`` shards both fits'
+    grids over its ranks (:func:`gp_core.fit`)."""
     def nll_fn(log_ell, log_sf2, log_sn2, mean_w, xx, yy, cfg_, mf):
         return vfe_nll_batch(log_ell, log_sf2, log_sn2, mean_w, z_ind, xx,
                              yy, cfg_, mf)
 
     sub = select_inducing(x, min(x.shape[0], 256)).long()
-    warm, _, n_exact = gp_core.fit(x[sub], y[sub], cfg, generator)
+    warm, _, n_exact = gp_core.fit(x[sub], y[sub], cfg, generator,
+                                   mesh=mesh)
     hyper, values, n_vfe = gp_core.fit(x, y, cfg, generator, nll_fn=nll_fn,
-                                       extra_starts=warm)
+                                       extra_starts=warm, mesh=mesh)
     return hyper, values, {"exact": n_exact, "vfe": n_vfe}
 
 

@@ -26,9 +26,9 @@ Python loops here; nothing inside a solve reads a tensor on the host.
 step is one ``torch.func.vmap`` of :meth:`MPC._solve_step` over the lanes
 (one K1 launch per inner SQP step and one K3 launch per sigma-point pass
 for all lanes on the card), and the plant step one batched call outside
-the vmap (one K2 launch; the adaptive plant's host-side stop flag).  Not
-ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-``solve_mc(mesh=)``.
+the vmap (one K2 launch; the adaptive plant's host-side stop flag).
+``solve_mc(mesh=)`` shards the lanes over the ranks of a ``DeviceMesh``
+(:mod:`gpmpc_tpu_torch.parallel.distributed`).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ from gpmpc_tpu_torch.models.dynamics import Model
 from gpmpc_tpu_torch.models.gp import GP, mean_fn_functional
 from gpmpc_tpu_torch.models.propagate import get_propagator
 from gpmpc_tpu_torch.mpc import costs as cost_lib
-from gpmpc_tpu_torch.parallel import online_gp
+from gpmpc_tpu_torch.parallel import distributed, online_gp
 from gpmpc_tpu_torch.solvers import al_sqp, riccati
 from gpmpc_tpu_torch.utils.config import (MPCOptions, SQPConfig,
                                           resolve_solver_opts)
@@ -103,10 +103,6 @@ class StepInfo(NamedTuple):
     stat: torch.Tensor        # relative KKT dual infeasibility
     iters: torch.Tensor
     converged: torch.Tensor
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 class MPC:
@@ -814,9 +810,19 @@ class MPC:
         factor of ``model.R``, as :meth:`solve` draws one lane's.  Returns
         ``(x_sim (n_mc, M+1, Nx), u_sim (n_mc, M, Nu))``; per-lane
         diagnostics are in ``last_mc``.  Its main consumer is the chance
-        calibration audit (:mod:`gpmpc_tpu_torch.utils.calibration`)."""
+        calibration audit (:mod:`gpmpc_tpu_torch.utils.calibration`).
+
+        ``mesh`` (a ``DeviceMesh`` of the controller's device type) shards
+        the lanes over its ranks, as the JAX package shards them over a
+        mesh's devices: ``n_mc`` must divide by ``mesh.size()``; each rank
+        runs its contiguous lanes of ``x0`` and of the noise (drawn in full
+        on every rank, then sliced, so lane i sees the local run's noise),
+        with per-lane online posteriors of its own when
+        ``online_capacity`` is set; the reference windows, ``con_par``s and
+        ``u0`` are replicated; every rank returns the gathered lanes and
+        holds them in ``last_mc``."""
         if mesh is not None:
-            _not_ported("MPC.solve_mc(mesh=)", "ROADMAP §1 item 6.9")
+            distributed.check_mesh(mesh, self.device)
         n_steps = int(round(sim_time / self.dt))
         x0 = self._tensor(x0)
         if (x0.ndim == 1 and tuple(x0.shape) != (self.Nx,)) or x0.ndim > 2 \
@@ -842,13 +848,20 @@ class MPC:
                                  f"{tuple(noise_ws.shape)}")
         opost = (self.online_post0 if self.online_capacity is not None
                  else None)
+        if mesh is not None:
+            x0s, noise_ws = (distributed.local_block(a, mesh)
+                             for a in (x0s, noise_ws))
         xs, us, sig1s, infos, _ = self._mc_loop(
             x0s, ref_windows, u0_guess, con_pars, noise_ws, self.consts,
             opost, n_steps)
+        converged = infos.converged
+        if mesh is not None:
+            xs, us, sig1s, converged = (distributed.gather(a, mesh) for a in
+                                        (xs, us, sig1s, converged))
         self._last_mc = {
             "x_sim": xs.cpu().numpy(), "u_sim": us.cpu().numpy(),
             "sigmas": sig1s.cpu().numpy(),
-            "converged": infos.converged.cpu().numpy(),
+            "converged": converged.cpu().numpy(),
             "x_sp": ref_windows[:, 0, :].cpu().numpy(),
         }
         return xs, us

@@ -16,9 +16,11 @@ masked budget under the batch, as on the card, which is what the JAX
 package's vmapped ``while_loop`` computes lane by lane.
 
 Each rollout carries its own :class:`~online_gp.OnlinePosterior`, so the
-B posteriors part as the rollouts explore.  Not ported: ``mesh=`` (ROADMAP
-§1 item 6.9), ``chunk=`` and ``solve_precision=`` (ROADMAP "Not
-ported"); each raises ``NotImplementedError``.
+B posteriors part as the rollouts explore.  ``mesh=`` shards the rollouts
+over the ranks of a ``DeviceMesh`` (:mod:`~gpmpc_tpu_torch.parallel.
+distributed`): each rank runs its contiguous block and every rank returns
+the gathered study.  Not ported: ``chunk=`` and ``solve_precision=``
+(ROADMAP "Not ported"); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from gpmpc_tpu_torch.parallel import online_gp
+from gpmpc_tpu_torch.parallel import distributed, online_gp
 from gpmpc_tpu_torch.solvers import al_sqp
 from gpmpc_tpu_torch.utils.config import SQPConfig, resolve_solver_opts
 
@@ -110,7 +112,17 @@ def _not_ported(what: str, item: str):
 class BatchedStudy:
     """Batched GP-MPC study harness: ``run(x0s, x_sp, n_steps)`` runs B
     receding-horizon rollouts, each conditioning its own online posterior
-    on every observed transition.  Tensors live on the model's device."""
+    on every observed transition.  Tensors live on the model's device.
+
+    With ``mesh`` (a ``DeviceMesh`` of the model's device type) the
+    rollouts shard over its ranks as the JAX package shards them over a
+    mesh's devices: B must divide by ``mesh.size()``; each rank runs its
+    contiguous block of ``x0s``, of the noise (drawn in full on every rank
+    from the same generator, then sliced, so rollout i sees the local
+    run's noise) and of ``init_post``; the setpoint, the constants and a
+    shared posterior are replicated; the trajectories, costs, objectives,
+    gp_points and posteriors are gathered, and ``mean_cost`` is the mean
+    of the gathered costs."""
 
     def __init__(self, model, gp, horizon: float,
                  Q=None, R=None, ulb=None, uub=None,
@@ -125,14 +137,15 @@ class BatchedStudy:
             _not_ported("BatchedStudy(solve_precision=)",
                         "ROADMAP 'Not ported': the single TF32 flag, which "
                         "stays off, replaces it")
-        if mesh is not None:
-            _not_ported("BatchedStudy(mesh=)", "ROADMAP §1 item 6.9")
         if chunk is not None:
             _not_ported("BatchedStudy(chunk=)",
                         "ROADMAP 'Not ported': a TPU vmap-tiling workaround")
         if gp.device != model.device or gp.dtype != model.dtype:
             raise ValueError(f"the GP lives on {gp.device}/{gp.dtype}, the "
                              f"model on {model.device}/{model.dtype}")
+        if mesh is not None:
+            distributed.check_mesh(mesh, model.device)
+        self.mesh = mesh
         self.model = model
         self.dt = model.dt
         self.Nt = int(round(horizon / model.dt))
@@ -302,5 +315,22 @@ class BatchedStudy:
         else:
             noise_ws = torch.zeros((b, n_steps, self.Nx), **kw)
         post0 = self.post0 if init_post is None else init_post
-        return self._run(x0s, x_sp, noise_ws, post0, self.consts,
-                         n_steps=n_steps, batched_post=init_post is not None)
+        mesh = self.mesh
+        if mesh is None:
+            return self._run(x0s, x_sp, noise_ws, post0, self.consts,
+                             n_steps=n_steps,
+                             batched_post=init_post is not None)
+        x0s, noise_ws = (distributed.local_block(a, mesh)
+                         for a in (x0s, noise_ws))
+        if init_post is not None:
+            post0 = type(post0)(*(distributed.local_block(leaf, mesh)
+                                  for leaf in post0))
+        res = self._run(x0s, x_sp, noise_ws, post0, self.consts,
+                        n_steps=n_steps, batched_post=init_post is not None)
+        res = res._replace(**{k: distributed.gather(getattr(res, k), mesh)
+                              for k in ("x_traj", "u_traj", "cost", "obj",
+                                        "gp_points")},
+                           post=type(res.post)(*(
+                               distributed.gather(leaf, mesh)
+                               for leaf in res.post)))
+        return res._replace(mean_cost=torch.mean(res.cost))

@@ -463,11 +463,11 @@ def test_training_and_validation_on_the_card_count_their_launches(dev):
     assert np.all(np.isfinite(mnlp)) and np.all(smse < 0.1)
 
 
-def _study(dev, fused, b):
+def _study(dev, fused, b, mesh=None):
     """Bench config 5's study (the fixture GP, capacity 128, Nt=8, the
     al1 x mi3 x ls4 budget) on the card, f32; with ``fused`` the KKT sweep
-    kernel and the fused plant.  Returns the study, x0s and 2 steps of
-    noise."""
+    kernel and the fused plant; sharded over ``mesh``.  Returns the study,
+    x0s and 2 steps of noise."""
     from benchmarks.bench_spec import DT, MODEL_R
     from gpmpc_tpu_torch import Model
     from gpmpc_tpu_torch.models.convert import gp_from_fixture
@@ -482,7 +482,7 @@ def _study(dev, fused, b):
     study = BatchedStudy(model, gp, horizon=8 * DT,
                          Q=np.diag([10.0, 10.0, 0.1, 0.1]),
                          R=0.01 * np.eye(2), ulb=[0.0, 0.0], uub=[8.0, 8.0],
-                         capacity=128, solver_opts=budget)
+                         capacity=128, solver_opts=budget, mesh=mesh)
     rng = np.random.default_rng(0)
     x0s = np.array([8.0, 9.0, 1.0, 1.0]) + 0.5 * rng.uniform(size=(b, 4))
     noise = 0.01 * rng.standard_normal((b, 2, 4))
@@ -515,6 +515,40 @@ def test_study_step_on_the_card_batches_its_kernels(dev):
     assert ck.LAUNCHES["riccati_sweep"] == 3 + 6
     assert ck.LAUNCHES["rk4_substeps"] == 1 + 2
     assert bool(torch.all(torch.isfinite(two.x_traj)))
+
+
+def test_one_rank_nccl_study_is_the_local_study(dev, tmp_path):
+    """The study at B=64 through ``mesh=`` on a one-rank NCCL group (a
+    ``file://`` rendezvous): K1 3 launches a step and K2 1, each for all 64
+    rollouts, as without a mesh, and every result bitwise the same; the
+    group destroyed afterwards."""
+    import torch.distributed as dist
+    from gpmpc_tpu_torch.parallel import distributed
+
+    assert distributed.initialize_multihost(
+        coordinator_address=f"file://{tmp_path / 'rendezvous'}",
+        num_processes=1, process_id=0, backend="nccl", device="cuda",
+        timeout=120)
+    try:
+        mesh = distributed.make_study_mesh()
+        assert mesh.mesh_dim_names == ("dp",) and mesh.size() == 1
+        results = []
+        for m in (None, mesh):
+            study, x0s, noise = _study(dev, True, 64, mesh=m)
+            ck.reset_launches()
+            results.append(study.run(x0s, XSP, 2, noise_ws=noise))
+            torch.cuda.synchronize()
+            assert ck.LAUNCHES == {"riccati_sweep": 6, "rk4_substeps": 2,
+                                   "se_ard_gram": 0, "cholesky": 0,
+                                   "gp_predict_batch": 0}
+        local, sharded = results
+        for name in ("x_traj", "u_traj", "cost", "obj", "gp_points",
+                     "mean_cost"):
+            assert torch.equal(getattr(sharded, name), getattr(local, name))
+        for a, b in zip(sharded.post, local.post):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_riccati_vmap_rule_launches_once_on_the_card(dev):

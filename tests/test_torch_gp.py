@@ -147,7 +147,10 @@ def test_gp_from_numpy_f32_and_guards():
     with pytest.raises(ValueError, match="requires inducing"):
         GP(f["tank_X"][:20], f["tank_Y"][:20], optimize_inducing=True,
            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6.9"):
+    # the mesh is ported (ROADMAP §1 item 6.9; tests/test_torch_
+    # distributed.py holds it against JAX): anything but a DeviceMesh is
+    # refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         GP(f["tank_X"], f["tank_Y"], mesh=object(), device="cpu")
     gp.set_method("EM")         # ported with the car (slice B)
     gp.set_method("UT")         # ported with slice F (part 1)

@@ -178,7 +178,7 @@ def test_fit_multistart_takes_the_best_start():
     np.testing.assert_allclose(nll.numpy(),
                                values.reshape(2, 2).min(0).values.numpy(),
                                rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="item 6.9"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         gp_core.fit(x, y, cfg, gen, mesh=object())
 
 

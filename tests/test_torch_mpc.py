@@ -95,9 +95,10 @@ def test_closed_loop_explicit_noise_matches_jax_x64():
 
 
 def test_unported_options_raise():
-    """Every option still unported raises and names its ROADMAP item:
-    solve_mc(mesh=) (item 6.9).  solve_mc itself is ported (item 6.5;
-    tests/test_torch_solve_mc.py holds it against JAX) and runs.  Soft
+    """No option is left unported: solve_mc (item 6.5;
+    tests/test_torch_solve_mc.py holds it against JAX) runs, and its
+    mesh (item 6.9; tests/test_torch_distributed.py) refuses anything but
+    a DeviceMesh.  Soft
     constraints, the terminal constraint, UT/GH
     propagation and reference windows are ported (slice F part 1;
     tests/test_torch_soft_constraints.py and
@@ -119,7 +120,7 @@ def test_unported_options_raise():
     xs, us = mpc.solve_mc(X0, DT, XSP, 2)
     assert xs.shape == (2, 2, 4) and us.shape == (2, 1, 2)
     assert mpc.last_mc["converged"].shape == (2, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6.9"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         mpc.solve_mc(X0, DT, XSP, 2, mesh=object())
     with pytest.raises(ValueError, match="x0 must be"):
         mpc.solve_mc(np.tile(X0, (3, 1)), DT, XSP, 2)

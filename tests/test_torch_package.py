@@ -16,12 +16,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_pulls_in_no_jax():
     """The port imports torch and never jax or gpmpc_tpu (whose __init__
-    imports jax), the batched study's package included."""
+    imports jax), the batched study's package and its torch.distributed
+    mesh (parallel/distributed.py) included."""
     code = (
         "import sys, pkgutil, importlib, gpmpc_tpu_torch\n"
         "import gpmpc_tpu_torch.parallel\n"
         "from gpmpc_tpu_torch.parallel import BatchedStudy, online_gp\n"
+        "from gpmpc_tpu_torch.parallel import distributed\n"
+        "from gpmpc_tpu_torch.parallel import (initialize_multihost, "
+        "make_study_mesh, batch_spec)\n"
         "assert 'gpmpc_tpu_torch.parallel.batched' in sys.modules\n"
+        "assert 'torch.distributed' in sys.modules\n"
         "for m in pkgutil.walk_packages(gpmpc_tpu_torch.__path__, "
         "'gpmpc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

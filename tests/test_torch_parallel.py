@@ -382,13 +382,18 @@ def test_converted_posterior_predicts_like_jax():
     _assert_predictions_close(post, norm, jpost, jnorm, _queries(3, 7))
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(solve_precision="default"), "Not ported"),
-    (dict(mesh=object()), "item 6.9"),
-    (dict(chunk=256), "Not ported")])
-def test_study_options_not_ported_raise(kw, item):
+@pytest.mark.parametrize("kw,error,item", [
+    pytest.param(dict(solve_precision="default"), NotImplementedError,
+                 "Not ported", id="kw0-Not ported"),
+    # the mesh is ported (ROADMAP §1 item 6.9; tests/test_torch_
+    # distributed.py): anything but a DeviceMesh is refused
+    pytest.param(dict(mesh=object()), TypeError, "DeviceMesh",
+                 id="kw1-item 6.9"),
+    pytest.param(dict(chunk=256), NotImplementedError, "Not ported",
+                 id="kw2-Not ported")])
+def test_study_options_not_ported_raise(kw, error, item):
     _, tgp = _gp_pair(12)
     tm = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT, R=MODEL_R,
                dtype=F64, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         BatchedStudy(tm, tgp, horizon=4 * DT, **kw)
