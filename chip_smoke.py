@@ -21,14 +21,14 @@ script exits non-zero before its last line):
      steering at +-0.5 rad and headings past +-pi;
   5. the main path at full width: the pinned four-tank GP (N=100, D=6,
      Ny=4), TA propagation with chance tightening, Nt=20, the RTI budget,
-     the fused plant integrator, f32 on the card, a 15-step closed loop
-     from X0 to XSP; launch counts exact, values finite, the tracked
-     tanks at their setpoint; each control step of the loop against the
+     the fused plant integrator, f32 on the card, an N_STEPS = 10-step
+     closed loop from X0 to XSP; launch counts exact, values finite, the
+     tracked tanks at their setpoint; each control step of the loop against the
      same step on the CPU (replay_against_cpu); realized cost over the
-     first ANCHOR_STEPS = 2 steps against the converged (al4 x mi20)
+     first ANCHOR_STEPS = 1 step against the converged (al4 x mi20)
      budget's (cut from 30 steps to make room for the later phases; the
-     loop itself 15 steps since phase 18, every depth cut listed by its
-     constant);
+     loop itself 15 steps since phase 18, 10 since phase 20, every depth
+     cut listed by its constant);
   6. per-step time, a torch.profiler trace of three control steps (device
      kernels and device time per step, the device's busy share);
   7. K4 (SE-ARD Gram), K5 (Cholesky) and K3 (batched GP predict) against
@@ -50,7 +50,7 @@ script exits non-zero before its last line):
      (generate_training_data, one K2 launch), validate of the card-trained
      and the fixture GP (one K3 launch each), the trained GP's SMSE within
      1.5x the fixture GP's on every dim;
- 10. the card-trained GP in a 12-step RTI loop from X0: finite, at the
+ 10. the card-trained GP in an 8-step RTI loop from X0: finite, at the
      setpoint, realized cost within 10% of phase 5's over the same steps;
  11. kernel, device (torch.profiler), plain-version and library-call
      times of all five kernels at their paths' shapes beside each one's
@@ -100,7 +100,7 @@ script exits non-zero before its last line):
  15. slice F, part 1, at the main path's full width (the fixture GP,
      Nt=20, percentile 0.95, feedback, cov_updates=1, RTI, the fused
      plant, f32): (a) UT and (b) GH at order 3 (the 729-point tensor
-     grid), each a 10-step closed loop from X0: launch counts exact (K3
+     grid), each a 6-step closed loop from X0: launch counts exact (K3
      once per stage per covariance pass, K1 4 and K2 1 a step), finite,
      at the setpoint, the first four steps replayed on the CPU, the last
      step's stage 5 propagated on the card with no host sync and held
@@ -110,13 +110,13 @@ script exits non-zero before its last line):
      the card with no host sync against the CPU in f64, Sigma_y PSD; (d)
      the Matérn-5/2 and -3/2 fits with the fixture's recipe: one K5 and no
      K4 per evaluation, three K5 per posterior, each dim's NLL (f64, CPU)
-     within 0.1 of the port's f64 CPU fit; (e) a 10-step Matérn-5/2 TA
+     within 0.1 of the port's f64 CPU fit; (e) a 6-step Matérn-5/2 TA
      loop with the card-fitted GP; (f) a 6-step loop with soft state
      boxes, lam with the terminal constraint (an empty terminal block) and
      an (M, Nx) ramp reference, every step replayed on the CPU.
  16. slice F, part 2a, in f32 on the card: (a) the output-feedback
      golden's configuration (tests/golden_configs.py, run_mhe_golden) on
-     the fixture GP: simulate_output_feedback for 8 steps with the
+     the fixture GP: simulate_output_feedback for 6 steps with the
      golden's noise, the MHE (window 4, two levels measured, GP
      dynamics, the filtered arrival cost; al2 x mi5) through K1 at (4, 4),
      the TA MPC (Nt = 5, RTI after a fused al2 x mi10 cold start) through
@@ -137,7 +137,7 @@ script exits non-zero before its last line):
      nominal model alone, the final position errors and each model's
      one-step prediction error on the heavy plant's transitions.
  17. slice F, part 3, at the main path's full width: (a) MPC.solve_mc,
-     64 lanes x 10 steps (a fused al2 x mi10 cold start) through
+     64 lanes x 6 steps (a fused al2 x mi10 cold start) through
      chance_calibration: K1 once per inner SQP step and K2 once per
      control step for all lanes, finite, lanes 0 and 63 replayed on the
      CPU, ms per ensemble step beside 64 x the single loop's step; (b) UT
@@ -190,11 +190,24 @@ script exits non-zero before its last line):
      versions and timed at (b)'s block sizes.  ``--mesh`` on a machine of
      four cards runs (c) in place of (b): four NCCL ranks, one a card,
      held against (a) as (b) is.
-Phases 12-19 run before phase 11, whose JSON rows carry their launch
+ 20. the walkthroughs gpmpc_tpu_torch/examples/pendulum.py (hybrid TA, the
+     sat cost, al2 x mi8, 60 steps, its residual GP fitted at P = 4, N =
+     120, D = 3) and batched_study.py (B = 1024 rollouts, 20 steps, the
+     prior GP at P = 4, N = 50, D = 6) at their full settings, each
+     ``main(quick=False, device="cuda")`` in a child process
+     (``--example-child``) started before phase 15 that runs beside
+     phases 15-18, checked after phase 18: each exits 0 (its own asserts),
+     its self-check readings hold (the pendulum upright within 0.1 rad,
+     |u| <= 5; the study finite, its checkpoint read back bitwise), its
+     K4 and K5 launches are its fit's evaluations + 1 and + 3 and it
+     launches no K1, K2 or K3; their wall, ms per control step and
+     readings are printed, and K4 and K5 timed at the two fits' shapes.
+Phases 12-20 run before phase 11, whose JSON rows carry their launch
 counts (K1 at (1024, 8, 4, 2) and K2 at B=1024 get rows of their own, as
 do K3 at the UT and GH sigma points, K5 under the Matérn-5/2 fit, and K1
 at (4, 4) under the MHE, at (3, 3) built on demand and at (6, 2) under the
-quadrotor, and K1, K2, K4 and K5 at phase 19's two-rank block sizes).
+quadrotor, K1, K2, K4 and K5 at phase 19's two-rank block sizes, and
+K4 and K5 at phase 20's two fits).
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with the kernels' rows, and {"ok": true, "device": {...}}.
 
@@ -226,6 +239,13 @@ and their kernel rows; ``python3 chip_smoke.py --slice-f2`` phases 1-2
 and 16 and their kernel rows; ``--slice-f3`` phases 1-2 and 17, and
 ``--slice-g`` phases 1-2 and 18, and ``--mesh`` phases 1-2, phase 8's
 example fit and phase 19, each with their kernel rows;
+``python3 chip_smoke.py --examples [NAME ...] [--full] [--steps N]`` runs
+the named walkthroughs (all nine without a name) on the card, ``--quick``
+sizes unless ``--full``, each in a child process, all at once, and prints
+each one's wall, ms per control step, readings and launches; with
+``--steps N`` (four_tank, car, dae_network, whose loops outlast a call on
+the card) it times each of their controllers' cold step and N warm steps
+instead;
 ``python3 chip_smoke.py --build-times`` times the kernels' build, one
 ``nvcc`` over all sources against one per source at once.
 The script imports no JAX.
@@ -243,16 +263,18 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 #: steps of phase 5's closed loop, each replayed on the CPU (the main path
-#: is within 0.01 of its setpoint by step 10; 30 until phase 18 came)
-N_STEPS = 15
+#: is within 0.01 of its setpoint by step 10; 30 until phase 18 came, 15
+#: until phase 20 came)
+N_STEPS = 10
 #: steps of phase 5's converged (al4 x mi20) anchor, compared with the
 #: first ANCHOR_STEPS of the RTI loop: cut from N_STEPS to make room for
 #: the car's phases within the smoke's time (3 until phase 16 came, 2
 #: until phase 18 came)
 ANCHOR_STEPS = 1
 #: steps of phase 10's loop with the card-trained GP (30 until the smoke
-#: passed 900 s with phase 16, 20 until phase 18 came)
-TRAINED_STEPS = 12
+#: passed 900 s with phase 16, 20 until phase 18 came, 12 until phase 20
+#: came)
+TRAINED_STEPS = 8
 RTI = dict(al_iters=2, max_iters=2, ls_steps=8, penalty_init=1e3,
            fused_kkt=True)
 CONVERGED = dict(al_iters=4, max_iters=20, fused_kkt=True)
@@ -1781,8 +1803,8 @@ def study_kernel_rows(ck, dev, card, launches, res_a, sources):
 #: step whose propagation is held card against CPU, and the cubature5 GP
 #: (numpy-seeded, the quadrotor's hybrid input and output widths D = 8,
 #: Ny = 6 at the fixture's N = 100); the loops were 12 steps and the soft
-#: loop 10 until phase 18 came
-F_STEPS = 10
+#: loop 10 until phase 18 came, the loops 10 steps until phase 20 came
+F_STEPS = 6
 F_REPLAY = 4
 F_SOFT_STEPS = 6
 F_STAGE = 5
@@ -2258,8 +2280,8 @@ def slice_f_alone():
 #: budgets that fit the smoke (the golden runs the converged defaults in
 #: f64): the MHE window al2 x mi5, the MPC the main path's RTI budget
 #: after a fused al2 x mi10 cold start; the golden's start, prior,
-#: setpoint and noise (numpy, seed 23)
-OFB_STEPS = 8
+#: setpoint and noise (numpy, seed 23); 8 steps until phase 20 came
+OFB_STEPS = 6
 OFB_X0 = np.array([8.0, 9.0, 1.0, 1.0])
 OFB_XBAR = OFB_X0 + np.array([0.5, -0.5, 0.2, 0.2])
 OFB_XSP = np.array([12.4, 12.7, 1.8, 1.4])
@@ -2794,9 +2816,9 @@ def slice_f2_alone():
 #: lanes and steps, the short run its per-step time is a slope against,
 #: the lanes replayed on the CPU, and the fused cold-start budget of the
 #: phase's controllers (phase 16's; the default al6 x mi30 runs masked on
-#: the card, ~180 inner steps)
+#: the card, ~180 inner steps); 10 steps until phase 20 came
 MC_LANES = 64
-MC_STEPS = 10
+MC_STEPS = 6
 MC_SHORT = 2
 MC_REPLAY = (0, MC_LANES - 1)
 MC_INIT = dict(al_iters=2, max_iters=10, fused_kkt=True)
@@ -4283,6 +4305,295 @@ def mesh_alone():
     return 0
 
 
+# ------------------------------------------------------------ phase 20
+
+#: phase 20: the port's walkthroughs (gpmpc_tpu_torch/examples) at their
+#: full settings, each in a child process (``--example-child``) started
+#: before phase 15 that runs beside phases 15-17; the fits' shapes (P, N,
+#: D) for their K4 and K5 rows (pendulum: 2 starts x Ny 2 at N = 120, D =
+#: 3; batched_study: 1 start x Ny 4 at N = 50, D = 6); the seconds a child
+#: may take there, and under ``--examples``
+EXAMPLES_FULL = ("pendulum", "batched_study")
+EXAMPLE_FITS = {"pendulum": (4, 120, 3), "batched_study": (4, 50, 6)}
+EXAMPLE_TIMEOUT = 900
+EXAMPLES_ALONE_TIMEOUT = 2100
+#: every walkthrough, in ROADMAP's order (``--examples`` with no name)
+EXAMPLES = ("four_tank", "car", "pendulum", "output_feedback", "quadrotor",
+            "risk_audit", "adaptive", "dae_network", "batched_study")
+
+
+def example_child(name, quick, out_path, device="cuda"):
+    """Phase 20's child process: ``gpmpc_tpu_torch.examples.<name>``'s
+    ``main(quick, device)`` (its own asserts are its self-checks) with the
+    kernels' launch counts zeroed just before it; writes its wall seconds,
+    its readings and the counts to ``out_path`` (JSON).  It runs at a
+    lower host priority with one intra-op thread, so that the smoke's
+    own phases beside it keep the host's cores."""
+    import importlib
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    os.nice(10)
+    torch.set_num_threads(1)
+    mod = importlib.import_module(f"gpmpc_tpu_torch.examples.{name}")
+    if torch.device(device).type == "cuda":
+        ck.build_library()
+        torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    readings = mod.main(quick=quick, device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    out = dict(name=name, quick=quick, wall=time.perf_counter() - t0,
+               readings=readings, launches=dict(ck.LAUNCHES))
+    with open(out_path, "w") as fh:
+        json.dump(out, fh, default=float)
+    return 0
+
+
+def example_steps(name, quick, n, out_path, device="cuda"):
+    """``--examples NAME --steps N``: for an example whose loops do not
+    fit one call (four_tank, car, dae_network), its own data, fit and
+    controller functions, then per controller a cold ``solve_step`` and
+    ``n`` warm steps (each solve_step + plant step, host clock after a
+    synchronize);
+    writes ms per cold and warm step and the masked inner SQP steps a
+    control step runs to ``out_path`` (JSON)."""
+    import importlib
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    mod = importlib.import_module(f"gpmpc_tpu_torch.examples.{name}")
+    dev = torch.device(device)
+    dtype = torch.float32 if dev.type == "cuda" else torch.float64
+    if dev.type == "cuda":
+        ck.build_library()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    model = mod.build_model(dev, dtype)
+    if name == "four_tank":
+        X, Y, _, _ = mod.training_data(model, quick)
+        gp = mod.fit(X, Y, dev, dtype)
+        ctrls = [(m, mod.build_mpc(model, gp, m, p, quick))
+                 for m, p in mod.METHODS]
+        con_par = None
+    elif name == "car":
+        gp = mod.fit(*mod.training_data(model, quick))
+        ctrls = [("EM", mod.build_mpc(model, gp, quick))]
+        con_par = mod.OBSTACLES.ravel()
+    elif name == "dae_network":
+        gp = None
+        ctrls = [("rk4", mod.build_mpc(model))]
+        con_par = None
+    else:
+        raise ValueError(f"--steps times four_tank, car or dae_network, "
+                         f"not {name}")
+    out = dict(name=name, quick=quick, steps=n,
+               n_evals=gp.n_evals if gp is not None else 0, controllers={})
+    for tag, mpc in ctrls:
+        x = torch.as_tensor(mod.X0, dtype=dtype, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        u, warm, _, _ = mpc.solve_step(x, mod.X_SP, con_par=con_par)
+        x = model.integrate(x, u)
+        sync()
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(n):
+            u, warm, _, info = mpc.solve_step(x, mod.X_SP, warm=warm,
+                                              u_prev=u, con_par=con_par)
+            x = model.integrate(x, u)
+        sync()
+        warm_s = (time.perf_counter() - t0) / n
+        cfg = mpc.sqp_cfg
+        out["controllers"][tag] = dict(
+            cold_ms=1e3 * cold, ms_per_step=1e3 * warm_s,
+            inner_steps=cfg.al_iters * cfg.max_iters * mpc.cov_updates,
+            cold_inner_steps=(mpc.init_sqp_cfg.al_iters
+                              * mpc.init_sqp_cfg.max_iters
+                              * mpc.cov_updates),
+            finite=bool(torch.isfinite(x).all()))
+        log(f"[examples] {name} {tag}: cold step {1e3 * cold:.1f} ms, "
+            f"{1e3 * warm_s:.1f} ms per warm step over {n}")
+    with open(out_path, "w") as fh:
+        json.dump(out, fh, default=float)
+    return 0
+
+
+class ExampleChildren:
+    """Walkthroughs in child processes, all started at once, each in its
+    own working directory under ``build/examples/{quick,full,steps}/``
+    (their figures and checkpoints land there) with its output in
+    ``<name>.log`` there: each runs
+    ``main`` (``--example-child``), or with ``steps`` times its
+    controllers (``--example-steps``).  ``join`` waits for them (all
+    within ``timeout`` s) and
+    returns each one's exit code, wall and JSON; ``stop`` kills any still
+    running."""
+
+    def __init__(self, names, quick, steps=None, timeout=EXAMPLE_TIMEOUT):
+        self.timeout = timeout
+        mode = "quick" if quick else "full"
+        self.out_dir = os.path.join(HERE, "build", "examples",
+                                    mode if steps is None else "steps")
+        self.t0 = time.perf_counter()
+        self.procs = {}
+        for name in names:
+            cwd = os.path.join(self.out_dir, name)
+            os.makedirs(cwd, exist_ok=True)
+            out = os.path.join(cwd, "result.json")
+            if os.path.exists(out):
+                os.remove(out)
+            argv = (["--example-child", name, mode, out] if steps is None
+                    else ["--example-steps", name, mode, str(steps), out])
+            with open(os.path.join(self.out_dir, f"{name}.log"), "w") as fh:
+                self.procs[name] = subprocess.Popen(
+                    [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                     *argv], cwd=cwd, stdout=fh, stderr=subprocess.STDOUT)
+
+    def join(self):
+        done = {}
+        for name, p in self.procs.items():
+            left = self.timeout - (time.perf_counter() - self.t0)
+            try:
+                rc = p.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                rc = p.wait()
+            res = None
+            out = os.path.join(self.out_dir, name, "result.json")
+            if rc == 0 and os.path.exists(out):
+                with open(out) as fh:
+                    res = json.load(fh)
+            done[name] = dict(rc=rc, result=res,
+                              wall=time.perf_counter() - self.t0)
+        return done
+
+    def log_tail(self, name, n=3000):
+        with open(os.path.join(self.out_dir, f"{name}.log")) as fh:
+            return fh.read()[-n:]
+
+    def stop(self):
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def example_self_checks(name, r):
+    """The readings phase 20 holds for each full-settings walkthrough (the
+    examples' own asserts, read back from their JSON)."""
+    if name == "pendulum":
+        return r["max_abs_u"] <= 5.0 + 1e-6 and r["final_err"] < 0.1
+    if name == "batched_study":
+        return (r["checkpoint_bitwise"] is True
+                and np.isfinite(r["mean_cost"]) and r["gp_points"] >= 50)
+    raise ValueError(name)
+
+
+def example_fit_rows(gc, dev, card, name, launches):
+    """K4 and K5 rows at a walkthrough's fit shape (EXAMPLE_FITS), with
+    its child's launch counts."""
+    p, n, d = EXAMPLE_FITS[name]
+    x, ell, sf2, sn2 = gc.gram_inputs(n, d, p, 34, device=dev)
+    err4 = gc.check_se_ard_gram(x, ell, sf2, sn2)
+    k = gc.se_ard_gram(x, ell, sf2, sn2, 1e-6)
+    a = gc.spd_inputs(n, p, 35, device=dev)
+    err5 = gc.check_cholesky(a)
+    return [
+        timed_row(f"se_ard_gram[{name}]", "se_ard_gram", 78,
+                  lambda: gc.se_ard_gram(x, ell, sf2, sn2, 1e-6),
+                  lambda: gc.se_ard_gram_reference(x, ell, sf2, sn2, 1e-6),
+                  bound(nbytes(x, ell, sf2, sn2, k),
+                        p * n * n * (3 * d + 4)),
+                  launches["se_ard_gram"], err4, card,
+                  f"P={p}, N={n}, D={d}: the {name} example's fit"),
+        timed_row(f"cholesky[{name}]", "cholesky", 206,
+                  lambda: gc.cholesky(a), lambda: gc.cholesky_reference(a),
+                  cholesky_bound(p, n), launches["cholesky"], err5, card,
+                  f"P={p}, N={n}: the {name} example's fit",
+                  library=lambda: torch.linalg.cholesky_ex(a))]
+
+
+def examples_phase(gc, dev, card, children):
+    """Phase 20: waits for the full-settings children; each exits 0 (its
+    asserts held), its self-check readings hold and its K4 and K5 launches
+    are its fit's evaluations + 1 and + 3 (one of each an evaluation, one
+    K4 and three K5 for the posterior), no K1, K2 or K3; returns their
+    kernel rows."""
+    t_wait = time.perf_counter()
+    done = children.join()
+    waited = time.perf_counter() - t_wait
+    rows = []
+    for name, d in done.items():
+        res = d["result"]
+        if d["rc"] != 0 or res is None:
+            log(f"[examples] {name} log:\n{children.log_tail(name)}")
+            raise AssertionError(f"the {name} example exited {d['rc']}")
+        r, got = res["readings"], res["launches"]
+        n = r["n_evals"]
+        expect = {"riccati_sweep": 0, "rk4_substeps": 0,
+                  "se_ard_gram": n + 1, "cholesky": n + 3,
+                  "gp_predict_batch": 0}
+        for line in children.log_tail(name, 2000).splitlines():
+            if line and not line.startswith(("[", " ")):
+                log(f"[examples] {name}: {line}")
+        log(f"[examples] {name} at full settings: {res['wall']:.1f} s "
+            f"(its child {d['wall']:.1f} s after the start), "
+            f"{r['ms_per_step']:.1f} ms per control step, readings {r}, "
+            f"launches {got} ({n} fit evaluations) on {card}")
+        if got != expect:
+            raise AssertionError(f"{name}: launches {got} != {expect}")
+        if not example_self_checks(name, r):
+            raise AssertionError(f"{name}: self-checks fail: {r}")
+        rows += example_fit_rows(gc, dev, card, name, got)
+    log(f"[examples] phase 20: children started {t_wait - children.t0:.1f}"
+        f" s before this phase, {waited:.1f} s waited here")
+    return rows
+
+
+def examples_alone(names, quick, steps):
+    """``--examples [NAME ...] [--full] [--steps N]``: the named walkthroughs
+    (all nine without a name) on the card, ``--quick`` unless ``--full``,
+    each in a child, all at once; with ``--steps N`` (four_tank, car,
+    dae_network)
+    their controllers' cold and warm steps instead.  Prints each one's
+    wall, ms per control step and readings; exits 1 if any failed."""
+    card = card_line()
+    log(f"[card] nvidia-smi: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    t0 = time.perf_counter()
+    ck.build_library()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    children = ExampleChildren(names or EXAMPLES, quick, steps,
+                               timeout=EXAMPLES_ALONE_TIMEOUT)
+    try:
+        done = children.join()
+    finally:
+        children.stop()
+    failed = []
+    for name, d in done.items():
+        res = d["result"]
+        for line in children.log_tail(name, 4000).splitlines():
+            log(f"[examples] {name}| {line}")
+        if d["rc"] != 0 or res is None:
+            failed.append(name)
+            log(f"[examples] {name}: FAILED (exit {d['rc']}) after "
+                f"{d['wall']:.1f} s")
+            continue
+        if steps is not None:
+            log(f"[examples] {name} ({'quick' if quick else 'full'} sizes,"
+                f" {steps} warm steps a controller): {res['controllers']} "
+                f"on {card}")
+            continue
+        r = res["readings"]
+        log(f"[examples] {name} ({'quick' if quick else 'full'}): wall "
+            f"{res['wall']:.1f} s, {r.get('ms_per_step', float('nan')):.1f}"
+            f" ms per control step, readings {r}, launches "
+            f"{res['launches']} on {card}")
+    print(card_line(), flush=True)
+    print(json.dumps({"examples": {k: d["result"] for k, d in
+                                   done.items()}}, default=float),
+          flush=True)
+    return 1 if failed else 0
+
+
 def kernel_times(ck, gc, four_tank_ode, dev, card):
     """Phase 11: each kernel's time beside its plain version's, the library
     call's (K5), its device time per launch (torch.profiler) and its
@@ -4829,6 +5140,16 @@ def main(argv):
         rank, backend = int(argv[i + 1]), argv[i + 3]
         return mesh_rank(rank, int(argv[i + 2]), backend, argv[i + 4],
                          f"cuda:{rank if backend == 'nccl' else 0}")
+    if "--example-child" in argv:           # phase 20's child processes
+        sys.path.insert(0, HERE)
+        i = argv.index("--example-child")
+        return example_child(argv[i + 1], argv[i + 2] == "quick",
+                             argv[i + 3])
+    if "--example-steps" in argv:           # --examples --steps' children
+        sys.path.insert(0, HERE)
+        i = argv.index("--example-steps")
+        return example_steps(argv[i + 1], argv[i + 2] == "quick",
+                             int(argv[i + 3]), argv[i + 4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
               "test runs only on an NVIDIA GPU", file=sys.stderr)
@@ -4836,6 +5157,14 @@ def main(argv):
     sys.path.insert(0, HERE)
     n_steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv \
         else 140
+    if "--examples" in argv:
+        names = []
+        for a in argv[argv.index("--examples") + 1:]:
+            if a.startswith("--"):
+                break
+            names.append(a)
+        return examples_alone(names, "--full" not in argv,
+                              n_steps if "--steps" in argv else None)
     if "--panel-one" in argv:
         return panel_one(int(argv[argv.index("--panel-one") + 1]), n_steps)
     if "--panel" in argv:
@@ -4976,28 +5305,35 @@ def main(argv):
     # 14. the batched study
     study_launches, study_res = study_phase(ck, dev, card)
 
-    # 15. slice F, part 1: UT, GH, cubature5, the Matérn fits and loop,
-    # soft and terminal constraints with a reference trajectory
-    slice_f_rows = slice_f_phase(ck, gc, dev, card, ta_step=rti_step)
-
-    # 16. slice F, part 2a: the tank's output-feedback loop, K1 built on
-    # demand, the quadrotor's hybrid mismatch
-    slice_f2_rows = slice_f2_phase(ck, dev, card)
-
-    # 17. slice F, part 3: solve_mc and the chance calibration, UT under
-    # solve_mc (K3 vmapped), the adaptive plant and the DAE, the sparse GP;
-    # phase 18's export and deploy children run beside it
-    g_children = SliceGChildren()
+    # 20. the walkthroughs at full settings: child processes that run
+    # beside phases 15-17, checked after phase 18
+    ex_children = ExampleChildren(EXAMPLES_FULL, quick=False)
     try:
-        slice_f3_rows = slice_f3_phase(ck, gc, dev, card, step_ms)
-    except BaseException:
-        g_children.stop()
-        raise
+        # 15. slice F, part 1: UT, GH, cubature5, the Matérn fits and
+        # loop, soft and terminal constraints with a reference trajectory
+        slice_f_rows = slice_f_phase(ck, gc, dev, card, ta_step=rti_step)
 
-    # 18. slice G: the deployable RTI solve step (export, serve, deploy;
-    # the eager step's trace is phase 6's)
-    slice_g_rows = slice_g_phase(ck, dev, card, g_children,
-                                 eager_trace=False)
+        # 16. slice F, part 2a: the tank's output-feedback loop, K1 built
+        # on demand, the quadrotor's hybrid mismatch
+        slice_f2_rows = slice_f2_phase(ck, dev, card)
+
+        # 17. slice F, part 3: solve_mc and the chance calibration, UT
+        # under solve_mc (K3 vmapped), the adaptive plant and the DAE, the
+        # sparse GP; phase 18's export and deploy children run beside it
+        g_children = SliceGChildren()
+        try:
+            slice_f3_rows = slice_f3_phase(ck, gc, dev, card, step_ms)
+        except BaseException:
+            g_children.stop()
+            raise
+
+        # 18. slice G: the deployable RTI solve step (export, serve,
+        # deploy; the eager step's trace is phase 6's)
+        slice_g_rows = slice_g_phase(ck, dev, card, g_children,
+                                     eager_trace=False)
+        examples_rows = examples_phase(gc, dev, card, ex_children)
+    finally:
+        ex_children.stop()
 
     # 11. kernel times beside their bounds
     times = kernel_times(ck, gc, four_tank_ode, dev, card)
@@ -5043,7 +5379,7 @@ def main(argv):
     rows += study_kernel_rows(ck, dev, card, study_launches, study_res,
                               sources)
     rows += (slice_f_rows + slice_f2_rows + slice_f3_rows + slice_g_rows
-             + mesh_rows_19)
+             + mesh_rows_19 + examples_rows)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ Counterpart of ``gpmpc_tpu/models/dynamics.py::Model``: wraps a
 continuous-time ODE ``ode(x, u) -> dx/dt`` (any function of torch tensors)
 into fixed-step RK4 maps or the error-controlled Dormand-Prince RK5(4)
 integrator (``integrator='adaptive'``), their Jacobians, rollouts and
-training data; semi-explicit index-1 DAE systems (``alg``) by pointwise
-Newton elimination of the algebraic variables.  Random draws come from a
+training data, the plant-against-predictor comparison and its figure;
+semi-explicit index-1 DAE systems (``alg``) by pointwise Newton
+elimination of the algebraic variables.  Random draws come from a
 ``torch.Generator`` where the JAX package takes a ``jax.random`` key (other
 numbers from the same seed).
 
@@ -322,6 +323,12 @@ class Model:
 
     # ------------------------------------------------------------ simulate
 
+    def _tensor(self, v) -> torch.Tensor:
+        """``v`` (a tensor, an array or a list) on the model's device, in
+        its dtype."""
+        return torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v),
+                               dtype=self.dtype, device=self.device)
+
     def _chol_r(self) -> torch.Tensor:
         eye = torch.eye(self.Nx, dtype=self.dtype, device=self.device)
         return torch.linalg.cholesky(self.R + 1e-32 * eye)
@@ -331,9 +338,8 @@ class Model:
         """Multi-step rollout under a control sequence u_seq (T, Nu); with
         ``noise`` additive process noise ~ N(0, R) per step, drawn from
         ``generator``.  Returns the trajectory (T+1, Nx) including x0."""
+        x, u_seq = self._tensor(x0), self._tensor(u_seq)
         kw = dict(dtype=self.dtype, device=self.device)
-        x = torch.as_tensor(np.asarray(x0), **kw)
-        u_seq = torch.as_tensor(np.asarray(u_seq), **kw)
         t = u_seq.shape[0]
         if noise:
             if generator is None:
@@ -381,3 +387,44 @@ class Model:
     def get_size(self) -> Tuple[int, int]:
         """(Nx, Nu)."""
         return self.Nx, self.Nu
+
+    def predict_compare(self, x0, u_seq, predictor,
+                        generator: Optional[torch.Generator] = None):
+        """Rollout of the plant against a one-step ``predictor(x, u) ->
+        x_next`` (e.g. a trained GP's mean) under the controls ``u_seq``
+        (T, Nu), for validation plots.  The plant's rollout is :meth:`sim`,
+        with process noise drawn from ``generator`` when one is given.
+        Returns ``(x_true (T+1, Nx), x_pred (T+1, Nx))``."""
+        x, u_seq = self._tensor(x0), self._tensor(u_seq)
+        x_true = self.sim(x, u_seq, noise=generator is not None,
+                          generator=generator)
+        xs = [x]
+        for k in range(u_seq.shape[0]):
+            x = predictor(x, u_seq[k])
+            xs.append(x)
+        return x_true, torch.stack(xs)
+
+    def plot_compare(self, x_true, x_pred, filename=None):
+        """The prediction-against-plant figure of :meth:`predict_compare`'s
+        two rollouts, one axis per state, saved to ``filename`` when given;
+        returns the (closed) figure.  Raises
+        :class:`~gpmpc_tpu_torch.utils.plotting.MatplotlibMissing` without
+        matplotlib."""
+        from gpmpc_tpu_torch.utils.plotting import pyplot
+        plt = pyplot()
+        x_true = np.asarray(torch.as_tensor(x_true).detach().cpu())
+        x_pred = np.asarray(torch.as_tensor(x_pred).detach().cpu())
+        t = np.arange(x_true.shape[0]) * self.dt
+        fig, axes = plt.subplots(self.Nx, 1, sharex=True,
+                                 figsize=(8, 2.0 * self.Nx))
+        axes = np.atleast_1d(axes)
+        for i in range(self.Nx):
+            axes[i].plot(t, x_true[:, i], label=f"x{i} plant")
+            axes[i].plot(t, x_pred[:, i], "--", label=f"x{i} predicted")
+            axes[i].legend(loc="best", fontsize=7)
+        axes[-1].set_xlabel("time [s]")
+        fig.tight_layout()
+        if filename:
+            fig.savefig(filename, dpi=120)
+        plt.close(fig)
+        return fig

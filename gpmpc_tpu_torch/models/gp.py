@@ -224,6 +224,11 @@ class GP:
         self._moment_map = moment_map
         return moment_map
 
+    def moment_map(self):
+        """The one-step moment map ``(mu_z, Sigma_z) -> (mu_y, Sigma_y, C)``
+        of the selected scheme: what the MPC embeds in its rollout."""
+        return self._moment_map
+
     def predict(self, x, u=None, cov=None, gp_method: Optional[str] = None):
         """One-step prediction.  With ``cov`` given, propagates input
         uncertainty by the selected scheme and returns ``(mean (Ny,), cov

@@ -924,6 +924,57 @@ class MPC:
     def last_run(self):
         return self._last_run
 
+    def plot(self, filename: Optional[str] = None, show: bool = False):
+        """The last :meth:`solve`'s closed-loop states and inputs with their
+        bounds, the reference and +/-2 sigma bands of the one-step
+        predicted covariance, drawn from ``last_run``; saved to
+        ``filename`` when given, shown with ``show``.  Returns the (closed)
+        figure.  Raises :class:`~gpmpc_tpu_torch.utils.plotting.
+        MatplotlibMissing` without matplotlib."""
+        if self._last_run is None:
+            raise RuntimeError("nothing to plot — call solve() first")
+        from gpmpc_tpu_torch.utils.plotting import pyplot
+        plt = pyplot()
+        r = self._last_run
+        xs, us, sig = r["x_sim"], r["u_sim"], r["sigmas"]
+        xlb, xub, ulb, uub = (v.cpu().numpy() for v in
+                              (self.xlb, self.xub, self.ulb, self.uub))
+        t_x = np.arange(xs.shape[0]) * self.dt
+        t_u = np.arange(us.shape[0]) * self.dt
+        fig, axes = plt.subplots(self.Nx + self.Nu, 1, sharex=True,
+                                 figsize=(8, 2.2 * (self.Nx + self.Nu)))
+        axes = np.atleast_1d(axes)
+        for i in range(self.Nx):
+            ax = axes[i]
+            ax.plot(t_x, xs[:, i], label=f"x{i}")
+            std = np.sqrt(np.maximum(sig[:, i, i], 0.0))
+            ax.fill_between(t_u + self.dt, xs[1:, i] - 2 * std,
+                            xs[1:, i] + 2 * std, alpha=0.2,
+                            label="±2σ (predicted)")
+            if xub[i] < _BIG:
+                ax.axhline(xub[i], ls="--", c="r", lw=0.8)
+            if xlb[i] > -_BIG:
+                ax.axhline(xlb[i], ls="--", c="r", lw=0.8)
+            ax.plot(t_u, r["x_sp"][:, i], ls=":", c="g", lw=0.9,
+                    label="reference")
+            ax.legend(loc="best", fontsize=7)
+        for j in range(self.Nu):
+            ax = axes[self.Nx + j]
+            ax.step(t_u, us[:, j], where="post", label=f"u{j}")
+            if uub[j] < _BIG:
+                ax.axhline(uub[j], ls="--", c="r", lw=0.8)
+            if ulb[j] > -_BIG:
+                ax.axhline(ulb[j], ls="--", c="r", lw=0.8)
+            ax.legend(loc="best", fontsize=7)
+        axes[-1].set_xlabel("time [s]")
+        fig.tight_layout()
+        if filename:
+            fig.savefig(filename, dpi=120)
+        if show:
+            plt.show()
+        plt.close(fig)
+        return fig
+
     def __repr__(self):
         return (f"MPC(Nt={self.Nt}, Nx={self.Nx}, Nu={self.Nu}, "
                 f"dt={self.dt}, device={self.device}, {self.options})")

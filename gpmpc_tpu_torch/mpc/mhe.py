@@ -43,7 +43,7 @@ import torch
 from torch.func import jacfwd
 
 from gpmpc_tpu_torch.models.gp import GP, mean_fn_functional
-from gpmpc_tpu_torch.ops.chol import chol_small, tri_solve_small
+from gpmpc_tpu_torch.ops.chol import spd_inverse_small, spd_solve_small
 from gpmpc_tpu_torch.solvers import al_sqp
 from gpmpc_tpu_torch.utils.config import SQPConfig, resolve_solver_opts
 
@@ -58,17 +58,6 @@ def _as_cov(a, n: int, **kw) -> torch.Tensor:
     if a.ndim == 1:
         return torch.diag(a)
     return a
-
-
-def _spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A^-1 B for a small SPD matrix A, by the unrolled Cholesky factor."""
-    l = chol_small(a)
-    return tri_solve_small(l, tri_solve_small(l, b), trans=True)
-
-
-def _spd_inverse(a: torch.Tensor) -> torch.Tensor:
-    return _spd_solve(a, torch.eye(a.shape[-1], dtype=a.dtype,
-                                   device=a.device))
 
 
 def _row(a: torch.Tensor, t, hi: int) -> torch.Tensor:
@@ -347,7 +336,8 @@ class MHE:
         u_buf = self._t(us).reshape(self.M, self.Nu)
         p = self._p0 if p is None else _as_cov(p, self.Nx, dtype=self.dtype,
                                                device=self.device)
-        params = self._params(x_bar, u_buf, y_buf, p_inv=_spd_inverse(p))
+        params = self._params(x_bar, u_buf, y_buf,
+                              p_inv=spd_inverse_small(p))
         init = al_sqp.init_state(self._prob, x_bar, params=params)
         res = self._solve(params, init)
         fill = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -362,7 +352,7 @@ class MHE:
         state and ``(x_hat, result)``, x_hat the current-state estimate."""
         y_buf = torch.cat([state.y_buf[1:], y_new[None]], dim=0)
         u_buf = torch.cat([state.u_buf[1:], u_applied[None]], dim=0)
-        p_inv = _spd_inverse(state.p) if self.arrival_update else None
+        p_inv = spd_inverse_small(state.p) if self.arrival_update else None
         params = self._params(state.x_bar, u_buf, y_buf, p_inv=p_inv)
         warm = al_sqp.shift_state(state.solver, state.x_bar)
         res = self._solve(params, warm)
@@ -391,7 +381,7 @@ class MHE:
         x_anchor = res.state.x[1]
         c_jac = jacfwd(self.h)(x_anchor).to(self.dtype)
         s = c_jac @ p @ c_jac.T + self._r_mat
-        k_gain = _spd_solve(s, c_jac @ p).T                  # P C' S^-1
+        k_gain = spd_solve_small(s, c_jac @ p).T             # P C' S^-1
         x_filt = x_bar + k_gain @ (y_buf[0] - self.h(x_bar))
         p_filt = p - k_gain @ s @ k_gain.T
         u_dep = u_buf[0]                  # input window-start -> next state

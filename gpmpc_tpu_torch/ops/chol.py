@@ -3,8 +3,9 @@
 Counterpart of ``gpmpc_tpu/ops/chol.py``: the plain Gram factor
 (LAPACK/cuSOLVER through ``torch.linalg``; the plain version of K5, which
 GP training and the posterior reach through ``gp_cuda.cholesky_auto``),
-triangular solves, and the unrolled small-matrix forms the Riccati
-sweeps and the EM propagation use.  The unrolled forms build their
+triangular solves, the unrolled small-matrix forms the Riccati
+sweeps and the EM propagation use, and the rank-1 update
+:func:`cholupdate`.  The unrolled forms build their
 result from Python lists (no in-place writes), so ``torch.func``
 transforms pass through them.
 """
@@ -123,3 +124,49 @@ def ge_solve_small(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         m = torch.where((rows == j)[:, None], pivot_row[..., None, :], m)
     x = m[..., n:]
     return x[..., 0] if vec else x
+
+
+def spd_solve_small(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A^{-1} b for small SPD A (..., n, n) by the unrolled Cholesky and
+    two unrolled triangular solves; b (..., n) or (..., n, m)."""
+    l = chol_small(a)
+    return tri_solve_small(l, tri_solve_small(l, b), trans=True)
+
+
+def spd_inverse_small(a: torch.Tensor) -> torch.Tensor:
+    """Explicit inverse of small SPD A (..., n, n), unrolled."""
+    n = a.shape[-1]
+    eye = torch.eye(n, dtype=a.dtype, device=a.device).expand(a.shape)
+    return spd_solve_small(a, eye)
+
+
+def cholupdate(l: torch.Tensor, x: torch.Tensor,
+               downdate: bool = False) -> torch.Tensor:
+    """Rank-1 Cholesky update: the lower factor of L L^T + x x^T (or, with
+    ``downdate``, of L L^T - x x^T) in O(N^2), for L (..., N, N) and x
+    (..., N).
+
+    The JAX package's rotation sweep (a ``lax.scan`` over columns) as a
+    Python loop of vector ops: step k rewrites column k only and later
+    steps read columns past k, which are still the input's, so the new
+    columns are stacked at the end.  A pivot whose square would fall below
+    the dtype's smallest normal is clamped there, as in the JAX version;
+    nothing reads a tensor on the host."""
+    sign = -1.0 if downdate else 1.0
+    n = l.shape[-1]
+    rows = torch.arange(n, device=l.device)
+    tiny = torch.finfo(l.dtype).tiny
+    cols = []
+    for k in range(n):
+        lkk = l[..., k, k, None]
+        xk = x[..., k, None]
+        r = torch.sqrt(torch.clamp(lkk * lkk + sign * xk * xk, min=tiny))
+        c = r / lkk
+        s = xk / lkk
+        col = l[..., :, k]
+        new_col = (col + sign * s * x) / c
+        new_col = torch.where(rows == k, r, new_col)
+        new_col = torch.where(rows < k, col, new_col)
+        x = torch.where(rows <= k, 0.0, c * x - s * new_col)
+        cols.append(new_col)
+    return torch.stack(cols, dim=-1)

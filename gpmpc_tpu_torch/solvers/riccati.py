@@ -10,11 +10,13 @@ by the backward Riccati factorization and a forward rollout.  ``solve``
 runs the plain PyTorch sweep; ``solve_parallel`` the same solve as
 associative scans of O(log Nt) depth; ``solve_fused`` the single-launch
 sweep kernel (K1) through its wrapper, which takes the plain version on a
-CPU tensor.  ``select_backend`` picks among them as the JAX package does.
+CPU tensor.  ``select_backend`` picks among them as the JAX package does,
+by the horizon threshold of :class:`KKTPolicy` (``set_kkt_policy``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -181,11 +183,28 @@ def solve_fused(qp: StageQP, dx0: torch.Tensor, reg) -> RiccatiSolution:
         *(t.contiguous() for t in qp), dx0.contiguous(), reg))
 
 
-#: without ``fused``, f32 problems of at least this many stages take the
-#: associative scan (the JAX package's ``KKTPolicy.parallel_min_nt``); its
-#: ``fused_max_nt`` cap is not carried over: the sweep kernel (K1) loops over
-#: stages at run time
-PARALLEL_MIN_NT = 20
+@dataclasses.dataclass(frozen=True)
+class KKTPolicy:
+    """The horizon threshold of the KKT backends (the JAX package's
+    ``KKTPolicy``): without ``fused``, f32 problems of at least
+    ``parallel_min_nt`` stages take the associative scan.  Its
+    ``fused_max_nt`` cap is not carried over: the sweep kernel (K1) loops
+    over stages at run time, so ``fused`` takes it at every horizon."""
+
+    parallel_min_nt: int = 20
+
+
+_KKT_POLICY = KKTPolicy()
+
+
+def set_kkt_policy(policy: KKTPolicy) -> None:
+    """Make ``policy`` the one :func:`select_backend` reads."""
+    global _KKT_POLICY
+    _KKT_POLICY = policy
+
+
+def get_kkt_policy() -> KKTPolicy:
+    return _KKT_POLICY
 
 
 def select_backend(nt: int, dtype, fused: bool = False,
@@ -196,7 +215,7 @@ def select_backend(nt: int, dtype, fused: bool = False,
     * ``fused=True`` takes the sweep kernel at every horizon.  f64 + fused
       raises.
     * ``parallel=True`` takes the associative scan.
-    * Neither: sequential below :data:`PARALLEL_MIN_NT` stages, the
+    * Neither: sequential below ``KKTPolicy.parallel_min_nt`` stages, the
       associative scan for f32 at or above it; f64 always sequential (the
       x64 parity path keeps one reduction order).
     """
@@ -210,7 +229,7 @@ def select_backend(nt: int, dtype, fused: bool = False,
         return solve_fused
     if parallel:
         return solve_parallel
-    if not is_f64 and nt >= PARALLEL_MIN_NT:
+    if not is_f64 and nt >= _KKT_POLICY.parallel_min_nt:
         return solve_parallel
     return solve
 
