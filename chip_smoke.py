@@ -5,7 +5,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each ends in torch.cuda.synchronize(); any failure raises and the
 script exits non-zero before its last line):
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the CUDA kernels from gpmpc_tpu_torch/csrc/ (nvcc, sm_90a);
+  2. build the CUDA kernels from gpmpc_tpu_torch/csrc/ (nvcc, sm_90a),
+     and beside that build phase 4's traced K2 ODEs traced, lowered and
+     built (one nvcc each, all at once; the seconds printed);
   3. K1 (Riccati sweep) against its plain PyTorch version on the card, at
      the three shapes of the JAX package's kernel test, at Nt=300 (across
      the kernel's shared-memory chunks) and at B=1024 (Nt=20, and the
@@ -18,7 +20,13 @@ script exits non-zero before its last line):
   4. K2 (RK4 substeps) against its plain version: one rollout, eight (one
      of them also at n_sub=7, the run-time loop, with a drained tank on
      the 1e-6 clamp) and 1024; the Car functor at 1, 200 and 1024, with
-     steering at +-0.5 rad and headings past +-pi;
+     steering at +-0.5 rad and headings past +-pi; then K2 traced for any
+     ODE (ops/ode_trace.py): the four-tank plant as bench.py builds it (a
+     lambda), the 1.3 kg quadrotor, the pendulum walkthrough's ODE and a
+     closure over a CUDA tensor (built in phase 2), each held against its
+     plain version over each rollout (the four-tank at 1, 8 with n_sub=7
+     and a drained tank, and 1024, also against the hand-written
+     FourTank; the quadrotor at 1, 64 and 1024; the others at 1 and 64);
   5. the main path at full width: the pinned four-tank GP (N=100, D=6,
      Ny=4), TA propagation with chance tightening, Nt=20, the RTI budget,
      the fused plant integrator, f32 on the card, an N_STEPS = 10-step
@@ -29,8 +37,9 @@ script exits non-zero before its last line):
      budget's (cut from 30 steps to make room for the later phases; the
      loop itself 15 steps since phase 18, 10 since phase 20, every depth
      cut listed by its constant);
-  6. per-step time, a torch.profiler trace of three control steps (device
-     kernels and device time per step, the device's busy share);
+  6. per-step time, a torch.profiler trace of MAIN_PROFILED = 1 control
+     step (three until phase 21 came; device kernels and device time per
+     step, the device's busy share);
   7. K4 (SE-ARD Gram), K5 (Cholesky) and K3 (batched GP predict) against
      their plain versions on the card at the JAX package's kernel-test
      shapes, K4 also at N = 101, 1000 and 2048 and at D = 257 and 300
@@ -61,7 +70,10 @@ script exits non-zero before its last line):
      practical write floor); K3 at (Ny, B, N, D) = (4, 100, 100, 6),
      (4, 1000, 500, 6) and (4, 1000, 1000, 6) beside a fill_ of the same
      k*; K2 at B = 1, 64 and 1024, and the SM cycles
-     of its dependent chain (one thread between two clock64() reads);
+     of its dependent chain (one thread between two clock64() reads); the
+     traced K2 of phase 4's four-tank and quadrotor at B = 1, 64 and 1024
+     (after FourTank's lines) and of the pendulum and the closure at
+     B = 1, and the chain cycles of the traced four-tank and quadrotor;
      each beside the launch floor (a one-element add_) and nvidia-smi's
      SM clock and power draw over its window; the car's instantiations, K1
      at (6, 2) (Nt=20, B=1) and K2 Car at B = 1 and 200, and K3, K4, K5 at
@@ -131,7 +143,9 @@ script exits non-zero before its last line):
      lane limits raising before any launch, the build's seconds; (c) the
      quadrotor golden's configuration (run_quad_golden): its residual GP
      fitted on the card on 40 points drawn in its box (exact K4 and K5
-     launches), validated on 200 fresh points (one K3; SMSE per dim), 6
+     launches; in the whole smoke phase 21 (b)'s fit, the same recipe on
+     the same draws through the fused plant, stands in), validated on 200
+     fresh points (one K3; SMSE per dim), 6
      hybrid solve_steps on the 1.3 kg plant through K1 at (6, 2) (exact
      launches, every step replayed on the CPU), the same loop with the
      nominal model alone, the final position errors and each model's
@@ -202,12 +216,24 @@ script exits non-zero before its last line):
      K4 and K5 launches are its fit's evaluations + 1 and + 3 and it
      launches no K1, K2 or K3; their wall, ms per control step and
      readings are printed, and K4 and K5 timed at the two fits' shapes.
-Phases 12-20 run before phase 11, whose JSON rows carry their launch
+ 21. K2 traced on the main path and the quadrotor's, after phase 6: (a)
+     the main path as the JAX package builds it (bench.py:457-480, its
+     plant Model(ode=lambda x, u: four_tank_ode(x, u),
+     fused_integrator=True, integrator_substeps=10)), N_STEPS RTI steps
+     through MPC.solve: K1 4 and the traced K2 1 a step exactly, each next
+     state within phase 5's replay bounds of phase 5's trajectory (the
+     hand-written FourTank's); (b) phase 16 (c)'s quadrotor with its
+     plant fused (the lambda over the 1.3 kg parameters traced): the
+     residual data through vmap(plant.integrate) (one K2 launch), the
+     fit (exact K4, K5), QUAD_STEPS hybrid steps (one K2 launch a step),
+     every step replayed on the CPU under phase 16 (c)'s bounds.
+Phases 12-21 run before phase 11, whose JSON rows carry their launch
 counts (K1 at (1024, 8, 4, 2) and K2 at B=1024 get rows of their own, as
 do K3 at the UT and GH sigma points, K5 under the Matérn-5/2 fit, and K1
 at (4, 4) under the MHE, at (3, 3) built on demand and at (6, 2) under the
-quadrotor, K1, K2, K4 and K5 at phase 19's two-rank block sizes, and
-K4 and K5 at phase 20's two fits).
+quadrotor, K1, K2, K4 and K5 at phase 19's two-rank block sizes, K4
+and K5 at phase 20's two fits, and the traced K2 of phase 21 (a) and
+(b)).
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with the kernels' rows, and {"ok": true, "device": {...}}.
 
@@ -234,8 +260,10 @@ repository K2's chain in SM cycles;
 ``python3 chip_smoke.py --k1 [OTHER_SRC]`` runs phase 3's K1 and K2 checks
 and phase 11's K1 lines alone, and with OTHER_SRC is ``--compare k1``;
 ``python3 chip_smoke.py --study`` runs phases 1-2 and 14 and the study's
-kernel rows alone; ``python3 chip_smoke.py --slice-f`` phases 1-2 and 15
-and their kernel rows; ``python3 chip_smoke.py --slice-f2`` phases 1-2
+kernel rows alone; ``--traced-k2`` phases 1-2, phase 4's traced K2,
+phase 5's loop, phase 21 and phase 11's traced K2 lines and rows;
+``python3 chip_smoke.py --slice-f`` phases 1-2 and 15 and their kernel
+rows; ``python3 chip_smoke.py --slice-f2`` phases 1-2
 and 16 and their kernel rows; ``--slice-f3`` phases 1-2 and 17, and
 ``--slice-g`` phases 1-2 and 18, and ``--mesh`` phases 1-2, phase 8's
 example fit and phase 19, each with their kernel rows;
@@ -278,6 +306,9 @@ TRAINED_STEPS = 8
 RTI = dict(al_iters=2, max_iters=2, ls_steps=8, penalty_init=1e3,
            fused_kkt=True)
 CONVERGED = dict(al_iters=4, max_iters=20, fused_kkt=True)
+#: RTI steps under torch.profiler in phase 6 (3 until phase 21 came: the
+#: CPU ops' trace of a step takes ~10 s to read back)
+MAIN_PROFILED = 1
 #: the f32-safe GP recipe of benchmarks/make_bench_fixture.py
 GP_OPTS = dict(jitter=1e-5, min_noise=1e-4)
 #: one H100 SXM: HBM bytes/s and f32 (non-tensor-core) FLOP/s, published
@@ -2590,16 +2621,19 @@ def k1_on_demand(ck, dev, card):
     return expect[(3, 3)], build["seconds"], errs
 
 
-def quad_models(dev):
+def quad_models(dev, fused=False):
     """The quadrotor golden's nominal model (QUAD_PARAMS) and true plant
-    (m = 1.3), f32, unfused (no K2 functor)."""
+    (m = 1.3), f32; the plant through K2 with ``fused`` (its ODE traced
+    into a functor of its own on the card: phase 21 (b)), else unfused
+    (phase 16 (c))."""
     from gpmpc_tpu_torch import Model
     from gpmpc_tpu_torch.systems import QUAD_PARAMS, planar_quadrotor_ode
     heavy = dict(QUAD_PARAMS, m=1.3)
     kw = dict(Nx=6, Nu=2, dt=QUAD_DT, R=np.diag([1e-8] * 6),
               integrator_substeps=4, device=dev, dtype=torch.float32)
     return (Model(ode=planar_quadrotor_ode, **kw),
-            Model(ode=lambda x, u: planar_quadrotor_ode(x, u, heavy), **kw))
+            Model(ode=lambda x, u: planar_quadrotor_ode(x, u, heavy),
+                  fused_integrator=fused, **kw))
 
 
 def build_quad(dev, gp, method):
@@ -2620,26 +2654,29 @@ def build_quad(dev, gp, method):
                init_solver_opts="robust", device=dev)
 
 
-def quad_data(dev, n, seed):
+def quad_data(dev, n, seed, fused=False):
     """``n`` points uniform in the quadrotor golden's box (thrusts in
     [2, 9]) from a generator on ``dev`` seeded ``seed``, and their
-    residual targets plant step - nominal RK4 step."""
-    nominal, plant = quad_models(dev)
+    residual targets plant step - nominal RK4 step; with ``fused`` the
+    plant steps go through ``vmap(plant.integrate)``, as
+    examples/quadrotor.py draws them (one K2 launch by its vmap rule)."""
+    nominal, plant = quad_models(dev, fused)
     g = torch.Generator(device=dev).manual_seed(seed)
     kw = dict(dtype=torch.float32, device=dev)
     lo, hi = (torch.tensor(v, **kw) for v in (QUAD_X_LO, QUAD_X_HI))
     x = lo + (hi - lo) * torch.rand((n, 6), generator=g, **kw)
     u = 2.0 + 7.0 * torch.rand((n, 2), generator=g, **kw)
-    return (torch.cat([x, u], dim=1),
-            plant.integrate(x, u) - nominal.rk4(x, u))
+    step = torch.func.vmap(plant.integrate) if fused else plant.integrate
+    return torch.cat([x, u], dim=1), step(x, u) - nominal.rk4(x, u)
 
 
-def quad_loop(ck, mpc, dev, tag):
+def quad_loop(ck, mpc, dev, tag, fused=False):
     """QUAD_STEPS solve_steps of ``mpc`` on the true plant from hover at
     QUAD_X0: exact K1 (6, 2) launches (the cold start's al x mi, then the
-    RTI budget's a step), finite; returns the states, the inputs and each
-    step's (state, warm start, last input)."""
-    _, plant = quad_models(dev)
+    RTI budget's a step) and K2 (one traced launch a step with ``fused``,
+    else none), finite; returns the states, the inputs and each step's
+    (state, warm start, last input)."""
+    _, plant = quad_models(dev, fused)
     init, cfg = mpc.init_sqp_cfg, mpc.sqp_cfg
     ck.reset_launches()
     x = torch.as_tensor(QUAD_X0, dtype=torch.float32, device=dev)
@@ -2658,18 +2695,22 @@ def quad_loop(ck, mpc, dev, tag):
     by_shape = dict(ck.RICCATI_LAUNCHES)
     expect = {(6, 2): init.al_iters * init.max_iters
               + (QUAD_STEPS - 1) * cfg.al_iters * cfg.max_iters}
-    log(f"[slice F2] (c) quadrotor, {tag}: {QUAD_STEPS} solve_steps "
+    head = "[traced K2] (b)" if fused else "[slice F2] (c)"
+    log(f"{head} quadrotor, {tag}: {QUAD_STEPS} solve_steps "
         f"({wall:.3f} s, cold start al{init.al_iters} x mi{init.max_iters}, "
         f"then al{cfg.al_iters} x mi{cfg.max_iters}); K1 launches "
         f"{by_shape}, expected {expect}; final state {xs[-1].tolist()}")
-    if by_shape != expect or ck.LAUNCHES["rk4_substeps"] != 0:
+    k2 = {k2_id(plant): QUAD_STEPS} if fused else {}
+    log(f"{head} quadrotor, {tag}: K2 launches by functor "
+        f"{dict(ck.K2_LAUNCHES)}, expected {k2}")
+    if by_shape != expect or ck.K2_LAUNCHES != k2:
         raise AssertionError(f"quadrotor ({tag}) launch counts are off")
     if not np.all(np.isfinite(xs)):
         raise AssertionError(f"non-finite quadrotor loop ({tag})")
     return xs, torch.stack(us).cpu().numpy(), rec, expect[(6, 2)]
 
 
-def quad_phase(ck, dev, card):
+def quad_phase(ck, dev, card, fused=False, gp=None):
     """Phase 16 (c): the quadrotor's hybrid mismatch on the card: the
     residual GP fitted on 40 points drawn in the golden's box (exact K4
     and K5 launches), validated on 200 fresh points (one K3 launch, SMSE
@@ -2677,39 +2718,66 @@ def quad_phase(ck, dev, card):
     step replayed on the CPU in f32 (next state within 1e-2 of 1 + |x| in
     the first TRANSIENT_STEPS steps, 1e-3 after), and the same loop with
     the nominal model alone ('rk4'); the final position error of both.
-    Returns K1 (6, 2)'s launches in the hybrid loop."""
+    ``gp``, a GP already fitted with this recipe on the same 40 draws
+    (phase 21 (b)'s, whose plant steps are the fused plant's), stands in
+    for the fit.  With ``fused`` (phase 21 (b)) the plant is fused, its
+    ODE traced into K2: the data's plant steps are one batched K2 launch
+    and the hybrid loop launches K2 once a step; no validation or nominal
+    loop.  Returns K1 (6, 2)'s launches in the hybrid loop, the K2
+    launches (data, loop) and the GP."""
     from gpmpc_tpu_torch import GP
-    x, y = quad_data(dev, 40, 0)
-    ck.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gp = GP(x, y, mean_func="zero", gp_method="TA", multistart=2,
-            max_iters=150, seed=1, optimizer_opts=GP_OPTS, device=dev,
-            dtype=torch.float32)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ck.LAUNCHES)
-    expect = {"riccati_sweep": 0, "rk4_substeps": 0,
-              "se_ard_gram": gp.n_evals + 1, "cholesky": gp.n_evals + 3,
-              "gp_predict_batch": 0}
-    log(f"[slice F2] (c) residual GP (40 points, D=8, Ny=6) fitted on the "
-        f"card: {wall:.3f} s, {gp.n_evals} batched evaluations; launches "
-        f"{launches}, expected {expect}")
-    if launches != expect:
-        raise AssertionError("quadrotor GP fit launch counts are off")
-    xt, yt = quad_data(dev, 200, 1)
-    ck.reset_launches()
-    smse, _, _ = gp.validate(xt, yt, verbose=False)
-    log(f"[slice F2] (c) residual GP SMSE per output dim on 200 fresh "
-        f"points {np.round(smse, 5).tolist()}; K3 launches "
-        f"{ck.LAUNCHES['gp_predict_batch']} (expected 1)")
-    if ck.LAUNCHES["gp_predict_batch"] != 1 or not np.all(
-            np.isfinite(smse)):
-        raise AssertionError("quadrotor GP validation is off")
+    tag = "[traced K2] (b)" if fused else "[slice F2] (c)"
+    data_k2 = {}
+    if gp is None:
+        ck.reset_launches()
+        x, y = quad_data(dev, 40, 0, fused)
+        data_k2 = dict(ck.K2_LAUNCHES)
+        if fused:
+            expect_data = {k2_id(quad_models(dev, True)[1]): 1}
+            log(f"{tag} residual data on 40 points through "
+                f"vmap(plant.integrate): K2 launches by functor {data_k2}, "
+                f"expected {expect_data}")
+            if data_k2 != expect_data:
+                raise AssertionError("the quadrotor data's K2 launches are "
+                                     "off")
+        ck.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gp = GP(x, y, mean_func="zero", gp_method="TA", multistart=2,
+                max_iters=150, seed=1, optimizer_opts=GP_OPTS, device=dev,
+                dtype=torch.float32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        expect = {"riccati_sweep": 0, "rk4_substeps": 0,
+                  "se_ard_gram": gp.n_evals + 1, "cholesky": gp.n_evals + 3,
+                  "gp_predict_batch": 0}
+        log(f"{tag} residual GP (40 points, D=8, Ny=6) fitted on the "
+            f"card: {wall:.3f} s, {gp.n_evals} batched evaluations; "
+            f"launches {launches}, expected {expect}")
+        if launches != expect:
+            raise AssertionError("quadrotor GP fit launch counts are off")
+    else:
+        log(f"{tag} residual GP: phase 21 (b)'s fit with this recipe on "
+            f"the same 40 draws ({gp.n_evals} batched evaluations, its "
+            f"launches checked there)")
+    if not fused:
+        xt, yt = quad_data(dev, 200, 1)
+        ck.reset_launches()
+        smse, _, _ = gp.validate(xt, yt, verbose=False)
+        log(f"{tag} residual GP SMSE per output dim on 200 fresh "
+            f"points {np.round(smse, 5).tolist()}; K3 launches "
+            f"{ck.LAUNCHES['gp_predict_batch']} (expected 1)")
+        if ck.LAUNCHES["gp_predict_batch"] != 1 or not np.all(
+                np.isfinite(smse)):
+            raise AssertionError("quadrotor GP validation is off")
     mpc = build_quad(dev, gp, "hybrid")
-    xs, us, rec, k1 = quad_loop(ck, mpc, dev, "hybrid, the fitted residual")
-    xs_n, _, _, _ = quad_loop(ck, build_quad(dev, None, "rk4"), dev,
-                              "rk4, the nominal model alone")
+    xs, us, rec, k1 = quad_loop(ck, mpc, dev, "hybrid, the fitted residual"
+                                + (", the plant fused" if fused else ""),
+                                fused)
+    xs_n = None if fused else quad_loop(
+        ck, build_quad(dev, None, "rk4"), dev,
+        "rk4, the nominal model alone")[0]
     t0 = time.perf_counter()
     cpu = build_quad(torch.device("cpu"), to_cpu_gp(gp), "hybrid")
     cpu.consts = to_cpu(mpc.consts)
@@ -2723,30 +2791,38 @@ def quad_phase(ck, dev, card):
         rel = float(np.max(np.abs(xs[k + 1] - x_c) / (1.0 + np.abs(x_c))))
         phase = int(k >= TRANSIENT_STEPS)
         worst[phase] = max(worst[phase], rel)
-    miss = [float(np.linalg.norm(v[-1, :2] - QUAD_XSP[:2]))
-            for v in (xs, xs_n)]
-    # how well each model predicts the heavy plant's realized transitions
-    kw = dict(dtype=torch.float32, device=dev)
-    pred = [max(float((f(torch.tensor(xs[k], **kw), torch.tensor(us[k], **kw))
-                       - torch.tensor(xs[k + 1], **kw)).abs().max())
-                for k in range(QUAD_STEPS))
-            for f in (lambda a, b: mpc._mean_dynamics(a, b, mpc.consts),
-                      mpc.model.rk4)]
-    log(f"[slice F2] (c) hybrid steps replayed on the CPU in f32 "
+    log(f"{tag} hybrid steps replayed on the CPU in f32 "
         f"({time.perf_counter() - t0:.1f} s): max |diff| / (1 + |x|) of the "
         f"next state {worst[0]:.3e} in the first {TRANSIENT_STEPS} steps "
         f"(<= 1e-2), {worst[1]:.3e} after (<= 1e-3)")
-    log(f"[slice F2] (c) position error |(px, pz) - x_sp| after "
-        f"{QUAD_STEPS} steps: hybrid {miss[0]:.5f}, nominal rk4 "
-        f"{miss[1]:.5f}; px hybrid {xs[-1, 0]:.5f}, rk4 {xs_n[-1, 0]:.5f}; "
-        f"pz hybrid {xs[-1, 1]:.5f}, rk4 {xs_n[-1, 1]:.5f} (from "
-        f"{QUAD_X0[:2].tolist()}, towards {QUAD_XSP[:2].tolist()}); one-step "
-        f"prediction of the 1.3 kg plant's realized transitions, max |error|:"
-        f" hybrid model {pred[0]:.3e}, nominal model {pred[1]:.3e} on "
-        f"{card}")
+    if fused:
+        miss = float(np.linalg.norm(xs[-1, :2] - QUAD_XSP[:2]))
+        log(f"{tag} position error |(px, pz) - x_sp| after {QUAD_STEPS} "
+            f"steps: {miss:.5f} (from {QUAD_X0[:2].tolist()}, towards "
+            f"{QUAD_XSP[:2].tolist()}) on {card}")
+    else:
+        miss = [float(np.linalg.norm(v[-1, :2] - QUAD_XSP[:2]))
+                for v in (xs, xs_n)]
+        # how well each model predicts the heavy plant's realized
+        # transitions
+        kw = dict(dtype=torch.float32, device=dev)
+        pred = [max(float((f(torch.tensor(xs[k], **kw),
+                             torch.tensor(us[k], **kw))
+                           - torch.tensor(xs[k + 1], **kw)).abs().max())
+                    for k in range(QUAD_STEPS))
+                for f in (lambda a, b: mpc._mean_dynamics(a, b, mpc.consts),
+                          mpc.model.rk4)]
+        log(f"{tag} position error |(px, pz) - x_sp| after "
+            f"{QUAD_STEPS} steps: hybrid {miss[0]:.5f}, nominal rk4 "
+            f"{miss[1]:.5f}; px hybrid {xs[-1, 0]:.5f}, rk4 "
+            f"{xs_n[-1, 0]:.5f}; pz hybrid {xs[-1, 1]:.5f}, rk4 "
+            f"{xs_n[-1, 1]:.5f} (from {QUAD_X0[:2].tolist()}, towards "
+            f"{QUAD_XSP[:2].tolist()}); one-step prediction of the 1.3 kg "
+            f"plant's realized transitions, max |error|: hybrid model "
+            f"{pred[0]:.3e}, nominal model {pred[1]:.3e} on {card}")
     if worst[0] > 1e-2 or worst[1] > 1e-3:
         raise AssertionError("card and CPU quadrotor steps disagree")
-    return k1
+    return k1, (sum(data_k2.values()), QUAD_STEPS if fused else 0), gp
 
 
 def k1_row(ck, name, nt, nx, nu, launches, err, card, **extra):
@@ -2773,14 +2849,15 @@ def k1_row(ck, name, nt, nx, nu, launches, err, card, **extra):
             "bound_by": bd[1], "library_ms": None, **extra}
 
 
-def slice_f2_phase(ck, dev, card):
+def slice_f2_phase(ck, dev, card, quad_gp=None):
     """Phase 16: (a) the tank's output-feedback loop (MHE + MPC, K1 at (4,
     4) and (4, 2), K2), (b) K1 built on demand, (c) the quadrotor's hybrid
-    mismatch.  Returns its JSON rows."""
+    mismatch (with ``quad_gp``, phase 21 (b)'s fit, in place of its own).
+    Returns its JSON rows."""
     t_phase = time.perf_counter()
     n44 = ofb_loop(ck, dev, card)
     n33, build_s, errs = k1_on_demand(ck, dev, card)
-    n62 = quad_phase(ck, dev, card)
+    n62, _, _ = quad_phase(ck, dev, card, gp=quad_gp)
     err62 = ck.check_riccati_sweep(ck.stage_qp_inputs(8, 6, 2, 14,
                                                       device=dev),
                                    torch.tensor(1e-6, device=dev))
@@ -4910,6 +4987,27 @@ def k2_times(ck, four_tank_ode, dev, card, integrate=None):
     log(f"[K2 time] nvidia-smi over the K2 window: {smi.summary()}")
 
 
+def chain_cycles(ck, entry, x, u, h, dev):
+    """The SM cycles of one rollout's substep chain by a chain-cycles C
+    entry ``entry(x, u, out, cycles, n_sub, h, stream)`` (one thread
+    between two clock64() reads, from before its loads to after its
+    stores), min over 20 calls, at n_sub = 0, 10, 20 and 40."""
+    out = torch.empty_like(x)
+    cyc = torch.zeros(1, dtype=torch.int64, device=dev)
+    c = {}
+    for n_sub in (0, 10, 20, 40):
+        reads = []
+        for _ in range(20):
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                code = entry(x.data_ptr(), u.data_ptr(), out.data_ptr(),
+                             cyc.data_ptr(), n_sub, float(h), stream)
+            ck._raise_on_error("rk4_chain_cycles", code)
+            reads.append(int(cyc.item()))
+        c[n_sub] = min(reads)
+    return c
+
+
 def k2_chain_cycles(ck, dev, card):
     """K2's dependent chain in SM cycles: gpmpc_rk4_chain_cycles_f32 runs
     one rollout's substeps in one thread between two clock64() reads (from
@@ -4921,21 +5019,9 @@ def k2_chain_cycles(ck, dev, card):
     from benchmarks.bench_spec import DT
     lib = ck.build_library()
     x, u = ck.rk4_inputs(None, 1, dev)
-    out = torch.empty_like(x)
-    cyc = torch.zeros(1, dtype=torch.int64, device=dev)
-    c = {}
     with SmiSampler() as smi:
-        for n_sub in (0, 10, 20, 40):
-            reads = []
-            for _ in range(20):
-                with torch.cuda.device(dev):
-                    stream = torch.cuda.current_stream(dev).cuda_stream
-                    code = lib.gpmpc_rk4_chain_cycles_f32(
-                        0, x.data_ptr(), u.data_ptr(), out.data_ptr(),
-                        cyc.data_ptr(), n_sub, float(DT / 10), stream)
-                ck._raise_on_error("rk4_chain_cycles", code)
-                reads.append(int(cyc.item()))
-            c[n_sub] = min(reads)
+        c = chain_cycles(ck, lambda *a: lib.gpmpc_rk4_chain_cycles_f32(0, *a),
+                         x, u, DT / 10, dev)
     mhz = float(np.median([r[0] for r in smi.rows])) if smi.rows else None
     at = "" if mhz is None else \
         f" = {c[10] / mhz:.3f} us at the median SM clock {mhz:.0f} MHz"
@@ -5123,6 +5209,321 @@ def study_alone():
     return 0
 
 
+# ------------------------------------------------------------ phase 21
+
+#: phase 4's traced K2 errors at B = 1 (the paths' shape), by ODE
+TRACED_ERRS = {}
+
+
+def k2_id(model):
+    """The ode_id of a fused model's K2 functor (its ``k2`` on the card)."""
+    return model.k2.ode_id
+
+
+def traced_odes(dev):
+    """The ODEs that K2 traces in phases 4, 11 and 21: name -> (ODE, nx,
+    nu, h, n_sub).  The four-tank plant as bench.py:460-462 and
+    tests/test_pallas.py:47 build it (a lambda, no tag), the 1.3 kg
+    quadrotor as phase 21 (b)'s plant builds it, the pendulum
+    walkthrough's ODE (written for one point) and a closure over a CUDA
+    tensor."""
+    from benchmarks.bench_spec import DT
+    from gpmpc_tpu_torch.examples import pendulum
+    from gpmpc_tpu_torch.systems import (QUAD_PARAMS, four_tank_ode,
+                                         planar_quadrotor_ode)
+    heavy = dict(QUAD_PARAMS, m=1.3)
+    c = torch.tensor([1.0, 2.0, 3.0], device=dev)
+
+    def closure(x, u):
+        return torch.where(x > 1.0, torch.clamp(x * c, 0.1, 5.0) ** 2,
+                           (1.0 - x) / 2.0 + u[..., 0:1])
+
+    return {"four_tank": (lambda x, u: four_tank_ode(x, u), 4, 2, DT / 10,
+                          10),
+            "quadrotor": (lambda x, u: planar_quadrotor_ode(x, u, heavy), 6,
+                          2, QUAD_DT / 4, 4),
+            "pendulum": (pendulum.pendulum_ode, 2, 1, pendulum.DT / 10, 10),
+            "closure": (closure, 3, 1, 0.05, 10)}
+
+
+def traced_inputs(name, batch, seed, dev):
+    """K2 check inputs for a traced ODE: the four-tank's of
+    ``cuda_kernels.rk4_inputs`` (a drained tank in a batch's first
+    rollout), the quadrotor in its golden's box with thrusts in [2, 9],
+    the pendulum over a swing, the closure across its branch; f32 (n,) for
+    one rollout when ``batch`` is None."""
+    if name == "four_tank":
+        from gpmpc_tpu_torch.ops import cuda_kernels as ck
+        return ck.rk4_inputs(batch, seed, dev)
+    rng = np.random.default_rng(seed)
+    lead = () if batch is None else (batch,)
+    x, u = {"quadrotor": (rng.uniform(QUAD_X_LO, QUAD_X_HI, lead + (6,)),
+                          rng.uniform(2.0, 9.0, lead + (2,))),
+            "pendulum": (rng.uniform([-np.pi, -3.0], [np.pi, 3.0],
+                                     lead + (2,)),
+                         rng.uniform(-5.0, 5.0, lead + (1,))),
+            "closure": (rng.uniform(-2.0, 2.5, lead + (3,)),
+                        rng.uniform(-1.0, 1.0, lead + (1,)))}[name]
+    kw = dict(dtype=torch.float32, device=dev)
+    return torch.tensor(x, **kw), torch.tensor(u, **kw)
+
+
+def build_traced_k2(ck, dev):
+    """Phase 2's traced K2: each ODE of :func:`traced_odes` traced and
+    lowered, and every unit built at once (one nvcc each; the whole smoke
+    runs this beside the main library's build).  Returns the specs by
+    name."""
+    odes = traced_odes(dev)
+    t0 = time.perf_counter()
+    specs = {k: ck.register_ode(o, nx, nu, dev)
+             for k, (o, nx, nu, _, _) in odes.items()}
+    t_trace = time.perf_counter() - t0
+    built = ck.prebuild(specs.values())
+    log(f"[K2 traced] {len(specs)} ODEs traced and lowered in {t_trace:.2f} "
+        f"s; {len(built)} units built at once (one nvcc each) in "
+        f"{max(built.values(), default=0.0):.2f} s")
+    for k, spec in specs.items():
+        f = spec.functor
+        log(f"[K2 traced] {k}: ode_id {spec.ode_id}, {f.name}, (nx, nu, NW) "
+            f"= ({f.nx}, {f.nu}, {f.nw}), {f.n_prep} operations a rollout "
+            f"(prep), {f.n_eval} an evaluation -> "
+            f"{ck.K2_BUILDS[spec.ode_id]['path']}")
+    for line in next(iter(ck.K2_BUILDS.values()))["log"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in \
+                line:
+            log(f"[K2 traced build] {line.strip()}")
+    return specs
+
+
+def build_beside(ck, fn):
+    """``ck.build_library()`` in a thread (its nvcc processes) while
+    ``fn()`` runs here; ``fn``'s result, or the build's error."""
+    err = []
+
+    def build():
+        try:
+            ck.build_library()
+        except BaseException as e:              # re-raised below
+            err.append(e)
+
+    t = threading.Thread(target=build)
+    t.start()
+    try:
+        return fn()
+    finally:
+        t.join()
+        if err:
+            raise err[0]
+
+
+def check_traced_k2(ck, dev, specs):
+    """Phase 4's traced K2: each unit of :func:`build_traced_k2` held
+    against its plain version (over each rollout) at K2's card tolerance:
+    the four-tank lambda at B = 1, 8 (n_sub = 7, the run-time loop, a
+    drained tank) and 1024, also against the hand-written FourTank; the
+    quadrotor at B = 1, 64 and 1024; the pendulum and the closure at B = 1
+    and 64."""
+    from gpmpc_tpu_torch.systems import four_tank_ode
+    odes = traced_odes(dev)
+    cases = ([("four_tank", b, n) for b, n in ((None, 10), (8, 7),
+                                               (1024, 10))]
+             + [("quadrotor", b, 4) for b in (None, 64, 1024)]
+             + [(k, b, 10) for k in ("pendulum", "closure")
+                for b in (None, 64)])
+    for name, batch, n_sub in cases:
+        ode, _, _, h, _ = odes[name]
+        x, u = traced_inputs(name, batch, (batch or 1) + n_sub, dev)
+        before = ck.K2_LAUNCHES.get(specs[name].ode_id, 0)
+        err = ck.check_rk4_substeps(ode, x, u, h, n_sub, spec=specs[name])
+        torch.cuda.synchronize()
+        if ck.K2_LAUNCHES[specs[name].ode_id] != before + 1:
+            raise AssertionError(f"traced K2 {name} did not launch once")
+        extra = ""
+        if name == "four_tank":
+            hand = ck.rk4_substeps(four_tank_ode, x, u, h, n_sub)
+            got = ck.rk4_substeps(ode, x, u, h, n_sub, spec=specs[name])
+            gap = float((got - hand).abs().max())
+            rel = float(((got - hand).abs() / hand.abs().clamp(
+                min=1e-6)).max())
+            extra = (f"; against the hand-written FourTank max|diff| "
+                     f"{gap:.3e} (relative {rel:.3e})")
+        log(f"[K2 traced] {name} batch={batch or 1}, n_sub={n_sub}, h={h:g} "
+            f"max|err| {err:.3e} against its plain version (rtol 1e-5, "
+            f"atol 1e-6){extra}")
+        if batch is None:
+            TRACED_ERRS[name] = err
+
+
+def traced_k2_phase(ck, dev, card, xs_np):
+    """Phase 21: (a) the main path as the JAX package builds it
+    (bench.py:457-480: the plant ``Model(ode=lambda x, u: four_tank_ode(x,
+    u), fused_integrator=True, integrator_substeps=10)``), N_STEPS RTI
+    steps through ``MPC.solve``: exact launches (K1 4 and the traced K2 1
+    a step), finite, each next state within phase 5's replay bounds of
+    phase 5's trajectory (the hand-written FourTank's; relative 1e-2 in
+    the first TRANSIENT_STEPS steps, 1e-3 after); (b) the quadrotor's
+    hybrid mismatch as phase 16 (c) runs it with the plant fused (its
+    lambda traced): the residual data through vmap(plant.integrate) (one
+    K2 launch), the fit, QUAD_STEPS steps (one K2 launch a step), every
+    step replayed on the CPU under phase 16 (c)'s bounds.  Returns the
+    traced K2 launches of (a) and of (b), and (b)'s GP (phase 16 (c) takes
+    it in the whole smoke)."""
+    from benchmarks.bench_spec import DT, MODEL_R, X0, XSP
+    from gpmpc_tpu_torch import Model
+    from gpmpc_tpu_torch.systems import four_tank_ode
+    t_phase = time.perf_counter()
+    plant = Model(Nx=4, Nu=2, ode=lambda x, u: four_tank_ode(x, u), dt=DT,
+                  R=MODEL_R, clip_negative=True, integrator_substeps=10,
+                  fused_integrator=True, device=dev, dtype=torch.float32)
+    mpc = build_slice(dev, RTI, model=plant)
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    xs, us = mpc.solve(X0, N_STEPS * DT, XSP, noise=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, k2 = dict(ck.LAUNCHES), dict(ck.K2_LAUNCHES)
+    expect = {"riccati_sweep": N_STEPS * RTI["al_iters"] * RTI["max_iters"],
+              "rk4_substeps": N_STEPS, "se_ard_gram": 0, "cholesky": 0,
+              "gp_predict_batch": 0}
+    traced = k2_id(plant)
+    log(f"[traced K2] (a) the main path as the JAX package builds it (the "
+        f"plant's ODE a lambda, traced: ode_id {traced}), {N_STEPS} RTI "
+        f"steps: {wall:.3f} s; launches {launches}, K2 by functor {k2}")
+    if launches != expect or k2 != {traced: N_STEPS}:
+        raise AssertionError(f"traced main path launches {launches}, {k2} "
+                             f"!= {expect}, all K2 on {traced}")
+    xa = xs.cpu().numpy()
+    if xa.shape != (N_STEPS + 1, 4) or not np.all(np.isfinite(xa)):
+        raise AssertionError("traced main path: non-finite or misshapen")
+    worst = [(0.0, 0), (0.0, 0)]
+    for k in range(N_STEPS):
+        rel = float(np.max(np.abs(xa[k + 1] - xs_np[k + 1])
+                           / np.abs(xs_np[k + 1])))
+        worst[int(k >= TRANSIENT_STEPS)] = max(worst[int(
+            k >= TRANSIENT_STEPS)], (rel, k))
+    # the plants alone on (a)'s own states and inputs
+    xt = torch.as_tensor(xa[:-1], device=dev)
+    ut = us.to(dev)
+    hand = build_plant(dev).integrate(xt, ut)
+    gap = float((plant.integrate(xt, ut) - hand).abs().max())
+    log(f"[traced K2] (a) next state against phase 5's loop (the "
+        f"hand-written FourTank): max relative difference {worst[0][0]:.3e} "
+        f"at step {worst[0][1]} in the transient (<= 1e-2), "
+        f"{worst[1][0]:.3e} at step {worst[1][1]} after it (<= 1e-3); the "
+        f"two plants alone on (a)'s states and inputs: max|diff| {gap:.3e}; "
+        f"final state {xa[-1].tolist()} on {card}")
+    if worst[0][0] > 1e-2 or worst[1][0] > 1e-3:
+        raise AssertionError("the traced main path left phase 5's bounds")
+    _, (data_k2, loop_k2), gp = quad_phase(ck, dev, card, fused=True)
+    log(f"[traced K2] phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return {"four_tank": N_STEPS, "quadrotor": data_k2 + loop_k2}, gp
+
+
+def traced_k2_times(ck, dev, card, specs):
+    """Phase 11's traced K2 lines, after the hand-written FourTank's
+    (:func:`k2_times`, :func:`k2_chain_cycles`) in the same call: each
+    traced functor's event ms over 200 calls, device ms per launch
+    (mean/median over 200) and its plain version's ms beside the bound,
+    the four-tank and the quadrotor at K2_TIME_BATCHES and the pendulum
+    and the closure at B = 1; the chain's SM cycles of the traced
+    four-tank and quadrotor.  Returns {name: row numbers at B = 1}."""
+    odes = traced_odes(dev)
+    rows = {}
+    with SmiSampler() as smi:
+        for name in ("four_tank", "quadrotor", "pendulum", "closure"):
+            ode, nx, nu, h, n_sub = odes[name]
+            spec = specs[name]
+            f = spec.functor
+            for bsz in (K2_TIME_BATCHES if name in ("four_tank", "quadrotor")
+                        else (1,)):
+                x, u = traced_inputs(name, None if bsz == 1 else bsz, bsz,
+                                     dev)
+                out = ck.rk4_substeps(ode, x, u, h, n_sub, spec=spec)
+
+                def call():
+                    ck.rk4_substeps(ode, x, u, h, n_sub, spec=spec)
+
+                # a substep: 4 evaluations, and the plain-order stage
+                # combination (csrc/rk4_chain.h rk4_step_plain), 13
+                # operations a state as in the FourTank rows; prep once
+                bd = bound(nbytes(x, u, out),
+                           bsz * (f.n_prep + n_sub * (4 * f.n_eval
+                                                      + 13 * nx)))
+                ms = cuda_time_ms(call, reps=200)
+                dev_ms = launch_ms(call, 200)
+                plain = cuda_time_ms(lambda: ck.rk4_substeps_rollouts(
+                    ode, x, u, h, n_sub), reps=20)
+                log(f"[K2 traced time] {name} B={bsz}, n_sub={n_sub}: event "
+                    f"{ms:.4f} ms (200 calls); device per launch mean/median "
+                    f"{fmt_pair(dev_ms)}; plain {plain:.4f} ms; bound "
+                    f"{bd[0]:.3e} ms ({bd[1]}) on {card}")
+                if bsz == 1:
+                    rows[name] = dict(ms=ms, device_ms=dev_ms[0],
+                                      plain_ms=plain, bound=bd)
+        for name in ("four_tank", "quadrotor"):
+            lib = ck.K2_BUILDS[specs[name].ode_id]["lib"]
+            x, u = traced_inputs(name, None, 1, dev)
+            c = chain_cycles(ck, lib.gpmpc_rk4_traced_chain_cycles_f32, x, u,
+                             odes[name][3], dev)
+            rows[name]["chain_cycles"] = c[10]
+            log(f"[K2 traced chain] {name}: one thread, clock64 from before "
+                f"the loads to after the stores, min of 20: n_sub=0 {c[0]}, "
+                f"10 (compiled-in) {c[10]}, 20 {c[20]}, 40 {c[40]} cycles: "
+                f"{(c[10] - c[0]) / 40:.1f} cycles an evaluation at n_sub=10,"
+                f" {(c[40] - c[20]) / 80:.1f} in the run-time loop, on "
+                f"{card}")
+    log(f"[K2 traced time] nvidia-smi over the window: {smi.summary()}")
+    return rows
+
+
+def traced_k2_rows(specs, launches, times):
+    """The JSON rows of the traced K2 on phase 21's paths: the four-tank
+    (a) and the quadrotor (b), at B = 1."""
+    return [{"name": f"rk4_substeps[traced,{name}]", "route": "cuda",
+             "source": "gpmpc_tpu_torch/csrc/rk4_substeps.cu",
+             "generated_by": "gpmpc_tpu_torch/ops/ode_trace.py",
+             "functor": specs[name].functor.name,
+             "replaces": "gpmpc_tpu/ops/pallas_kernels.py:233",
+             "launches": launches[name], "max_abs_err": TRACED_ERRS[name],
+             "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+             "device_ms": times[name]["device_ms"],
+             "bound_ms": times[name]["bound"][0],
+             "bound_by": times[name]["bound"][1], "library_ms": None,
+             "chain_cycles": times[name]["chain_cycles"]}
+            for name in ("four_tank", "quadrotor")]
+
+
+def traced_k2_alone():
+    """Phases 1-2, phase 4's traced K2, phase 5's loop (the trajectory
+    phase 21 (a) is held against), phase 21 and phase 11's K2 lines and
+    traced K2 rows, alone."""
+    from benchmarks.bench_spec import DT, X0, XSP
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    from gpmpc_tpu_torch.systems import four_tank_ode
+    card = card_line()
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    log(f"[card] nvidia-smi: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    specs = build_beside(ck, lambda: build_traced_k2(ck, dev))
+    log(f"[build] {time.perf_counter() - t0:.2f} s (the traced units' "
+        f"included)")
+    check_traced_k2(ck, dev, specs)
+    xs, _ = build_slice(dev, RTI).solve(X0, N_STEPS * DT, XSP, noise=False)
+    launches, _ = traced_k2_phase(ck, dev, card, xs.cpu().numpy())
+    k2_times(ck, four_tank_ode, dev, card)
+    k2_chain_cycles(ck, dev, card)
+    rows = traced_k2_rows(specs, launches, traced_k2_times(ck, dev, card,
+                                                           specs))
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main(argv):
     if "--sparse-reference" in argv:        # phase 17's CPU child process
         sys.path.insert(0, HERE)
@@ -5177,6 +5578,8 @@ def main(argv):
         return k5_paths()
     if "--study" in argv:
         return study_alone()
+    if "--traced-k2" in argv:
+        return traced_k2_alone()
     if "--mesh" in argv:
         return mesh_alone()
     if "--slice-g" in argv:
@@ -5210,15 +5613,17 @@ def main(argv):
     log(f"[card] torch: {kind}, count={torch.cuda.device_count()}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 2. build
+    # 2. build, and beside it K2's traced ODEs traced, lowered and built
     t0 = time.perf_counter()
-    ck.build_library()
+    traced_specs = build_beside(ck, lambda: build_traced_k2(ck, dev))
     torch.cuda.synchronize()
-    log(f"[build] {time.perf_counter() - t0:.2f} s -> {ck.BUILD_INFO['path']}")
+    log(f"[build] {time.perf_counter() - t0:.2f} s -> {ck.BUILD_INFO['path']}"
+        f" (the traced units' included)")
     log_ptxas(ck)
 
-    # 3-4. kernels against their plain versions
+    # 3-4. kernels against their plain versions; K2 traced for any ODE
     k1_err, k2_err = check_kernels(ck, four_tank_ode, dev)
+    check_traced_k2(ck, dev, traced_specs)
 
     # 5. the main path
     mpc = build_slice(dev, RTI)
@@ -5269,7 +5674,7 @@ def main(argv):
     step_ms = cuda_time_ms(rti_step, reps=10)
     log(f"[time] RTI control step (solve_step + plant step), CUDA events "
         f"after warm-up: {step_ms:.3f} ms/step on {card}")
-    prof = profile_steps(rti_step)
+    prof = profile_steps(rti_step, n=MAIN_PROFILED)
     log(f"[profile] per RTI control step: {prof['kernels_per_step']:.0f} "
         f"device kernels, {prof['device_ms_per_step']:.3f} ms device time "
         f"({prof['all_rows_ms_per_step']:.3f} ms summed over every row, "
@@ -5277,8 +5682,12 @@ def main(argv):
         f"{prof['wall_ms_per_step']:.3f} ms wall under the profiler; device "
         f"busy {100 * prof['busy_share']:.2f}% on {card}")
     for name, count, us in prof["top"]:
-        log(f"[profile]   {name:60s} {count:6d} launches/3 steps "
-            f"{us:9.1f} us/step")
+        log(f"[profile]   {name:60s} {count:6d} launches/{MAIN_PROFILED} "
+            f"steps {us:9.1f} us/step")
+
+    # 21. the main path as the JAX package builds it and the quadrotor's
+    # loop, each plant's ODE traced into K2
+    traced_launches, quad_gp = traced_k2_phase(ck, dev, card, xs_np)
 
     # 7. the GP path's kernels against their plain versions
     errs = check_gp_kernels(gc, dev)
@@ -5315,7 +5724,7 @@ def main(argv):
 
         # 16. slice F, part 2a: the tank's output-feedback loop, K1 built
         # on demand, the quadrotor's hybrid mismatch
-        slice_f2_rows = slice_f2_phase(ck, dev, card)
+        slice_f2_rows = slice_f2_phase(ck, dev, card, quad_gp)
 
         # 17. slice F, part 3: solve_mc and the chance calibration, UT
         # under solve_mc (K3 vmapped), the adaptive plant and the DAE, the
@@ -5343,6 +5752,7 @@ def main(argv):
     k3_times(gc, dev, card)
     k2_times(ck, four_tank_ode, dev, card)
     k2_chain_cycles(ck, dev, card)
+    traced_times = traced_k2_times(ck, dev, card, traced_specs)
     path_launches = {"riccati_sweep": launches["riccati_sweep"],
                      "rk4_substeps": launches["rk4_substeps"],
                      "se_ard_gram": train_launches["se_ard_gram"],
@@ -5378,6 +5788,7 @@ def main(argv):
                      "bound_by": r["bound"][1], "library_ms": None})
     rows += study_kernel_rows(ck, dev, card, study_launches, study_res,
                               sources)
+    rows += traced_k2_rows(traced_specs, traced_launches, traced_times)
     rows += (slice_f_rows + slice_f2_rows + slice_f3_rows + slice_g_rows
              + mesh_rows_19 + examples_rows)
     print(card_line(), flush=True)

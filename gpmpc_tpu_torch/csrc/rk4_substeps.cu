@@ -8,8 +8,17 @@
 // evaluations of a 4-state ODE (a few hundred flops, 24 bytes in, 16 out),
 // each depending on the one before, so the time of a call is one load round
 // trip, the dependent chain of 40 evaluations, and one store.  The JAX
-// kernel traces any jnp ODE into its body; here each ODE is a functor
-// compiled in, and the Python side maps an ODE to its functor id.
+// kernel traces any jnp ODE into its body; here an ODE is a functor:
+// FourTank and Car below are written by hand and compiled into the main
+// library, and any other ODE is traced by gpmpc_tpu_torch/ops/ode_trace.py
+// into a generated functor that a unit of its own defines before it
+// includes this file with GPMPC_RK4_TRACED naming it (as the K1 unit
+// defines GPMPC_RICCATI_NX/NU): that unit's library holds the entries
+// gpmpc_rk4_traced_f32 and gpmpc_rk4_traced_chain_cycles_f32 for that
+// functor alone, built at first launch with --fmad=false.  A traced
+// functor rounds as the plain version does: each ATen op once, and the RK4
+// stages combined in the plain version's order (rk4_chain.h); the design
+// below is the hand-written functors'.
 //
 // Design: one thread per rollout, the state in registers for the whole
 // chain, 32-thread blocks so that a batch of rollouts spreads over as many
@@ -37,31 +46,32 @@
 // rsqrt form, the different folding and nvcc's FMA contraction round
 // differently from the plain version, by a few ulps per evaluation.
 //
-// Two functors: FourTank (ode_id 0, the four-tank main path) and Car
-// (ode_id 1, the kinematic bicycle of the car bench).  Car takes the
-// accurate tanf, atanf and sincosf (no __ intrinsics, no fast-math
+// Two hand-written functors: FourTank (ode_id 0, the four-tank main path)
+// and Car (ode_id 1, the kinematic bicycle of the car bench).  Car takes
+// the accurate tanf, atanf and sincosf (no __ intrinsics, no fast-math
 // flags): its steering reaches +-0.5 rad and its heading any angle, where
-// the approximate forms lose digits.
+// the approximate forms lose digits.  A traced functor follows the same
+// rule.  The functor protocol and the substep chain are in rk4_chain.h.
 
 #include <cuda_runtime.h>
 
+#include "rk4_chain.h"
+
 namespace {
+
+using gpmpc_rk4::rk4_chain;
 
 constexpr int THREADS = 32;
 // the main path's substep count, compiled in
 constexpr int MAIN_N_SUB = 10;
 
+#ifndef GPMPC_RK4_TRACED
 // 1/sqrt(v) by MUFU.RSQ alone (relative error ~2^-23 for a normal v)
 __device__ __forceinline__ float rsqrt_approx(float v) {
   float r;
   asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
   return r;
 }
-
-// A functor has NX states, NU inputs and NW input terms: prep(u, w) forms
-// once per rollout what the ODE needs of the input, which is constant over
-// the substeps, and eval(x, w, f) the right-hand side from the state and
-// those terms.
 
 // Quadruple-tank process with the default TANK_PARAMS (systems.py).
 struct FourTank {
@@ -128,52 +138,7 @@ struct Car {
   }
 };
 
-// One RK4 substep of size h of Ode, in place on xv; wv the input terms.
-template <class Ode>
-__device__ __forceinline__ void rk4_step(float* xv, const float* wv, float h,
-                                         float h_half, float h_sixth) {
-  constexpr int NX = Ode::NX;
-  float k[NX], acc[NX], tmp[NX];
-  Ode::eval(xv, wv, k);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    acc[i] = k[i];
-    tmp[i] = fmaf(h_half, k[i], xv[i]);
-  }
-  Ode::eval(tmp, wv, k);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    acc[i] = fmaf(2.f, k[i], acc[i]);
-    tmp[i] = fmaf(h_half, k[i], xv[i]);
-  }
-  Ode::eval(tmp, wv, k);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    acc[i] = fmaf(2.f, k[i], acc[i]);
-    tmp[i] = fmaf(h, k[i], xv[i]);
-  }
-  Ode::eval(tmp, wv, k);
-  // x + h/6 (k1 + 2 k2 + 2 k3 + k4), the k4 term last
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-    xv[i] = fmaf(h_sixth, k[i], fmaf(h_sixth, acc[i], xv[i]));
-}
-
-// n_sub substeps: NSUB of them when NSUB > 0 (unrolled), else the run-time
-// count.
-template <class Ode, int NSUB>
-__device__ __forceinline__ void rk4_chain(float* xv, const float* wv,
-                                          int n_sub, float h, float h_half,
-                                          float h_sixth) {
-  if (NSUB > 0) {
-#pragma unroll
-    for (int s = 0; s < NSUB; ++s) rk4_step<Ode>(xv, wv, h, h_half, h_sixth);
-  } else {
-#pragma unroll 1
-    for (int s = 0; s < n_sub; ++s)
-      rk4_step<Ode>(xv, wv, h, h_half, h_sixth);
-  }
-}
+#endif  // GPMPC_RK4_TRACED
 
 template <class Ode, int NSUB>
 __global__ void __launch_bounds__(THREADS)
@@ -252,6 +217,29 @@ cudaError_t chain_cycles(const float* x, const float* u, float* out,
 
 }  // namespace
 
+#ifdef GPMPC_RK4_TRACED
+// C interface of a traced functor's own library, loaded with ctypes: x
+// (batch, NX), u (batch, NU), out (batch, NX), all contiguous float32 on
+// the device.
+extern "C" int gpmpc_rk4_traced_f32(const float* x, const float* u,
+                                    float* out, int batch, int n_sub,
+                                    double h, void* stream) {
+  if (batch <= 0 || n_sub < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch<GPMPC_RK4_TRACED>(
+      x, u, out, batch, n_sub, h, static_cast<cudaStream_t>(stream)));
+}
+
+// Its measurement entry, as gpmpc_rk4_chain_cycles_f32 below.
+extern "C" int gpmpc_rk4_traced_chain_cycles_f32(const float* x,
+                                                 const float* u, float* out,
+                                                 long long* cycles,
+                                                 int n_sub, double h,
+                                                 void* stream) {
+  if (n_sub < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(chain_cycles<GPMPC_RK4_TRACED>(
+      x, u, out, cycles, n_sub, h, static_cast<cudaStream_t>(stream)));
+}
+#else
 // C interface, loaded with ctypes.  ode_id 0 = FourTank, 1 = Car.  x (batch, NX),
 // u (batch, NU), out (batch, NX), all contiguous float32 on the device.
 extern "C" int gpmpc_rk4_substeps_f32(int ode_id, const float* x,
@@ -290,3 +278,4 @@ extern "C" int gpmpc_rk4_chain_cycles_f32(int ode_id, const float* x,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+#endif  // GPMPC_RK4_TRACED

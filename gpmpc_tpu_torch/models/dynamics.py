@@ -94,9 +94,13 @@ class Model:
             raise ValueError(f"unknown integrator {integrator!r} "
                              "(expected 'rk4' or 'adaptive')")
         # fused_integrator runs the RK4 substep chain as one CUDA kernel
-        # launch (csrc/rk4_substeps.cu) on a CUDA device, and as its plain
-        # version on the CPU.  f32 only, not differentiable: plant truth,
-        # never the NLP-embedded map.
+        # launch (K2, csrc/rk4_substeps.cu) on a CUDA device, and as its
+        # plain version on the CPU.  f32 only, not differentiable: plant
+        # truth, never the NLP-embedded map.  On the card the ODE's functor
+        # is registered here: systems.four_tank_ode and car_ode (tagged)
+        # take their hand-written ones, any other ODE is traced on one
+        # point and lowered now (an op outside the lowering, or a branch
+        # on the data, raises here), and built at its first launch.
         self.fused_integrator = bool(fused_integrator)
         if self.fused_integrator:
             if dtype == torch.float64:
@@ -113,15 +117,12 @@ class Model:
                     "fused_integrator=True applies to the fixed-step RK4 "
                     "chain; integrator='adaptive' would silently bypass it "
                     "— pick one")
-            if (self.device.type == "cuda"
-                    and cuda_kernels.kernel_ode_id(ode) is None):
-                raise ValueError(
-                    "fused_integrator=True on a CUDA device needs an ODE "
-                    "compiled into the RK4 kernel (have "
-                    f"{sorted(cuda_kernels.CUDA_ODES)}: "
-                    "systems.four_tank_ode or systems.car_ode passed "
-                    "directly, not wrapped); other ODEs are ROADMAP work "
-                    "(the quadrotor's K2 functor, §2 item 2)")
+        #: K2's functor on the card (``cuda_kernels.register_ode``), which
+        #: ``integrate`` launches; None on the CPU
+        self.k2 = (cuda_kernels.register_ode(ode, self.Nx, self.Nu,
+                                             self.device)
+                   if self.fused_integrator and self.device.type == "cuda"
+                   else None)
         self.integrator = integrator
         self.rtol = float(rtol)
         self.atol = float(atol)
@@ -199,7 +200,7 @@ class Model:
         if self.fused_integrator:
             return cuda_kernels.rk4_substeps(
                 self.ode, x.contiguous(), u.contiguous(), h,
-                self.integrator_substeps)
+                self.integrator_substeps, spec=self.k2)
         return cuda_kernels.rk4_substeps_reference(
             self.ode, x, u, h, self.integrator_substeps)
 

@@ -720,10 +720,11 @@ class MPC:
 
     def _plant(self, x, u):
         """The plant step of every lane at once: x (L, Nx), u (L, Nu).  The
-        fused RK4 chain (one K2 launch) and the adaptive integrator (its
-        per-lane masks and host-side stop flag) take the batch as it is;
-        the unfused RK4 chain is mapped over the lanes, so an ODE written
-        for one state serves too."""
+        fused RK4 chain (one K2 launch, which maps the ODE over the lanes,
+        as its plain version does on the CPU) and the adaptive integrator
+        (its per-lane masks and host-side stop flag) take the batch as it
+        is; the unfused RK4 chain is mapped over the lanes, so an ODE
+        written for one state serves in each case."""
         if self.model.fused_integrator or self.model.integrator == "adaptive":
             return self.model.integrate(x, u)
         return vmap(self.model.integrate)(x, u)

@@ -9,7 +9,13 @@ CUDA C++ for ``sm_90a`` in ``gpmpc_tpu_torch/csrc/``:
   the whole backward Riccati factorization of the stage-QP KKT system plus
   the forward rollout, in one launch.
 * K2 ``rk4_substeps`` replaces ``pallas_kernels.py:rk4_substeps_pallas``:
-  ``n_sub`` RK4 substeps of the plant ODE in one launch.
+  ``n_sub`` RK4 substeps of the plant ODE in one launch, for any ODE the
+  Pallas kernel takes.  ``systems.four_tank_ode`` and ``car_ode``, passed
+  as they are (their ``cuda_ode`` tag), take the hand-written functors
+  ``FourTank`` and ``Car``; any other ODE is traced on one point into a
+  functor of its own (:mod:`gpmpc_tpu_torch.ops.ode_trace`), built at its
+  first launch into a library of its own (:func:`register_ode`,
+  :func:`k2_entry`).
 
 The GP path's kernels (K3, K4, K5) are in :mod:`gpmpc_tpu_torch.ops.gp_cuda`
 and build into the same library.
@@ -23,8 +29,9 @@ lanes share each stage's products, and the stage arrays reach shared
 memory in chunks of :data:`RICCATI_CHUNK` stages by ``cp.async``, the next
 chunk's copy in flight while one is solved, so Nt <= RICCATI_CHUNK pays
 one memory round trip in all.  K2 runs one thread per rollout with the
-state in registers, its square roots by one MUFU.RSQ each and the main
-path's n_sub = 10 compiled in.  The source files say more.
+state in registers and the main path's n_sub = 10 compiled in; FourTank
+takes its square roots by one MUFU.RSQ each, a traced functor rounds
+each op as PyTorch does.  The source files say more.
 
 The wrappers: on a CPU tensor they run the plain version; on a CUDA tensor
 they launch the kernel or raise.  There is no fallback.  Under a
@@ -44,7 +51,7 @@ It holds K1 at the (nx, nu) pairs of :data:`RICCATI_SHAPES`; K1 at any
 other pair the kernel admits (:func:`riccati_layout`) is built at its
 first launch into a library of its own (:func:`riccati_entry`).
 ``LAUNCHES`` counts kernel launches, one per launch (a vmapped call of a
-whole batch is one).
+whole batch is one); ``K2_LAUNCHES`` K2's by functor id.
 ``check_riccati_sweep`` and ``check_rk4_substeps`` hold a kernel against
 its plain version on the card, for the tests and the smoke script alike.
 """
@@ -57,6 +64,7 @@ import os
 import shutil
 import subprocess
 import time
+import typing
 from pathlib import Path
 
 import numpy as np
@@ -70,11 +78,17 @@ LAUNCHES = {"riccati_sweep": 0, "rk4_substeps": 0, "se_ard_gram": 0,
             "cholesky": 0, "gp_predict_batch": 0}
 #: K1's launches by (nx, nu), counted with LAUNCHES["riccati_sweep"]
 RICCATI_LAUNCHES = {}
+#: K2's launches by ode_id, counted with LAUNCHES["rk4_substeps"]
+K2_LAUNCHES = {}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: a traced K2 unit's flags besides NVCC_FLAGS: no contraction of a product
+#: and a sum into an FMA, so that each ATen op rounds once as PyTorch's
+#: elementwise kernels do (the RK4 chain's own ``fmaf`` stay fused)
+K2_TRACED_FLAGS = ("--fmad=false",)
 
 #: (nx, nu) pairs the main library instantiates the Riccati kernel for
 #: (and ``chip_smoke.py`` phase 3 holds): the four-tank main path, the JAX
@@ -93,7 +107,8 @@ RICCATI_CHUNK = 32
 #: bytes (227 KB): ``SMEM_OPTIN`` of ``csrc/riccati_sweep.cu``
 RICCATI_SMEM_OPTIN = 232448
 
-#: ODE functors compiled into the RK4 kernel: id name -> (ode_id, nx, nu)
+#: the hand-written functors compiled into the RK4 kernel: the ``cuda_ode``
+#: tag -> (ode_id, nx, nu)
 CUDA_ODES = {"four_tank": (0, 4, 2), "car": (1, 4, 2)}
 
 _lib = None
@@ -108,6 +123,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     RICCATI_LAUNCHES.clear()
+    K2_LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -144,7 +160,7 @@ def build_library() -> ctypes.CDLL:
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.h")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     so = BUILD_DIR / f"libgpmpc_cuda_{digest.hexdigest()[:16]}.so"
@@ -499,10 +515,163 @@ def _riccati_sweep_vmap(info, in_dims, *args):
 
 # ----------------------------------------------------------------- K2: RK4
 
-def kernel_ode_id(ode):
-    """``(ode_id, nx, nu)`` of the functor compiled for ``ode``, or None
-    when the RK4 kernel has no functor for it."""
-    return CUDA_ODES.get(getattr(ode, "cuda_ode", None))
+class K2Spec(typing.NamedTuple):
+    """One functor of K2: ``ode_id`` (0 ``FourTank``, 1 ``Car``, >= 2 a
+    traced one), a name, its (nx, nu), the callable whose plain version it
+    computes and, for a traced functor, its generated
+    :class:`~gpmpc_tpu_torch.ops.ode_trace.Functor`."""
+    ode_id: int
+    name: str
+    nx: int
+    nu: int
+    ode: typing.Callable
+    functor: typing.Any = None
+
+
+#: K2's functors by ode_id: the hand-written ones, then each traced one
+#: as :func:`register_ode` meets it
+K2_SPECS = {}
+#: a traced functor's ode_id by the SHA-256 of its text
+_K2_BY_DIGEST = {}
+#: the traced functors' libraries, by ode_id: the library and what its
+#: build did (seconds, path, compiler output)
+K2_BUILDS = {}
+
+
+def _compiled_in_spec(tag):
+    """The spec of a hand-written functor (its ODE from ``systems``)."""
+    from gpmpc_tpu_torch import systems
+    ode_id, nx, nu = CUDA_ODES[tag]
+    if ode_id not in K2_SPECS:
+        K2_SPECS[ode_id] = K2Spec(ode_id, tag, nx, nu,
+                                  getattr(systems, f"{tag}_ode"))
+    return K2_SPECS[ode_id]
+
+
+def register_ode(ode, nx: int, nu: int, device=None) -> K2Spec:
+    """K2's functor for ``ode`` at (nx, nu).  An ODE with a ``cuda_ode``
+    tag of :data:`CUDA_ODES` (``systems.four_tank_ode``, ``car_ode`` as
+    they are) takes its hand-written functor.  Any other is traced on one
+    point on ``device`` and lowered into a generated functor
+    (:func:`gpmpc_tpu_torch.ops.ode_trace.compile_ode`; an op outside the
+    lowering or a branch on the data raises ``ValueError`` naming it) at
+    each call; equal programs share one ode_id and one library.  A
+    closure's tensors are read here.  A caller that launches again keeps
+    the spec and hands it to :func:`rk4_substeps`, as ``Model`` does."""
+    tag = getattr(ode, "cuda_ode", None)
+    if tag in CUDA_ODES:
+        spec = _compiled_in_spec(tag)
+    else:
+        from gpmpc_tpu_torch.ops.ode_trace import compile_ode
+        functor = compile_ode(ode, nx, nu, device)
+        if functor.digest in _K2_BY_DIGEST:
+            spec = K2_SPECS[_K2_BY_DIGEST[functor.digest]]
+        else:
+            ode_id = max([len(CUDA_ODES) - 1, *K2_SPECS]) + 1
+            spec = K2Spec(ode_id, f"traced_{functor.digest[:16]}", nx, nu,
+                          ode, functor)
+            K2_SPECS[ode_id] = spec
+            _K2_BY_DIGEST[functor.digest] = ode_id
+    if (spec.nx, spec.nu) != (nx, nu):
+        raise ValueError(f"rk4_substeps: the {spec.name} functor takes (nx, "
+                         f"nu) = ({spec.nx}, {spec.nu}), got ({nx}, {nu})")
+    return spec
+
+
+def traced_unit_source(functor) -> str:
+    """The compilation unit of a traced functor: its source, then
+    ``csrc/rk4_substeps.cu`` with its traced entries instantiated for it
+    alone."""
+    return (f"// K2 for a traced plant ODE alone, built at its first launch "
+            f"by\n// gpmpc_tpu_torch/ops/cuda_kernels.py.\n"
+            f'#include "rk4_chain.h"\n\n{functor.source}\n'
+            f"#define GPMPC_RK4_TRACED {functor.name}\n"
+            f'#include "rk4_substeps.cu"\n')
+
+
+def k2_library_path(functor) -> Path:
+    """Where a traced functor's library is built: keyed by the functor's
+    name and a hash of its unit, the flags, ``csrc/rk4_substeps.cu`` and
+    ``csrc/rk4_chain.h``."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + K2_TRACED_FLAGS).encode())
+    digest.update(traced_unit_source(functor).encode())
+    for src in ("rk4_substeps.cu", "rk4_chain.h"):
+        digest.update((CSRC / src).read_bytes())
+    return BUILD_DIR / (f"libgpmpc_rk4_{functor.name}_"
+                        f"{digest.hexdigest()[:16]}.so")
+
+
+def _bind_k2_traced(lib) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gpmpc_rk4_traced_f32.argtypes = [ptr] * 3 + [i32, i32,
+                                                     ctypes.c_double, ptr]
+    lib.gpmpc_rk4_traced_f32.restype = i32
+    lib.gpmpc_rk4_traced_chain_cycles_f32.argtypes = [ptr] * 4 + [
+        i32, ctypes.c_double, ptr]
+    lib.gpmpc_rk4_traced_chain_cycles_f32.restype = i32
+
+
+def prebuild(specs) -> dict:
+    """Build the traced functors of ``specs`` not yet loaded, one ``nvcc``
+    each, all at once, and load them.  Returns {ode_id: seconds of the
+    build} for those it loaded (0 where the library was already on disk)."""
+    todo = {}
+    for spec in specs:
+        if spec.functor is not None and spec.ode_id not in K2_BUILDS:
+            todo.setdefault(spec.ode_id, spec)
+    if not todo:
+        return {}
+    t0 = time.perf_counter()
+    cmds, units, tmps = [], [], {}
+    for ode_id, spec in todo.items():
+        so = k2_library_path(spec.functor)
+        if so.exists():
+            continue
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        unit = so.with_suffix(f".{os.getpid()}.cu")
+        unit.write_text(traced_unit_source(spec.functor))
+        units.append(unit)
+        tmps[ode_id] = (tmp, so, spec.functor.name)
+        cmds.append([nvcc, *NVCC_FLAGS, *K2_TRACED_FLAGS, "-I", str(CSRC),
+                     "-shared", "-o", str(tmp), str(unit)])
+    log = ""
+    try:
+        if cmds:
+            log = _run_at_once(cmds)
+    finally:
+        for unit in units:
+            unit.unlink(missing_ok=True)
+    for tmp, so, name in tmps.values():
+        os.replace(tmp, so)
+        for stale in BUILD_DIR.glob(f"libgpmpc_rk4_{name}_*.so"):
+            if stale != so:
+                stale.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
+    out = {}
+    for ode_id, spec in todo.items():
+        so = k2_library_path(spec.functor)
+        lib = ctypes.CDLL(str(so))
+        _bind_k2_traced(lib)
+        out[ode_id] = seconds if ode_id in tmps else 0.0
+        K2_BUILDS[ode_id] = dict(lib=lib, seconds=out[ode_id], path=str(so),
+                                 log=log)
+    return out
+
+
+def k2_entry(spec: K2Spec):
+    """The C entry that launches K2 for ``spec``: the main library's
+    ``gpmpc_rk4_substeps_f32`` bound to a hand-written functor's ode_id, or
+    a traced functor's ``gpmpc_rk4_traced_f32`` from its own library,
+    built at its first use.  Both take (x, u, out, batch, n_sub, h,
+    stream)."""
+    if spec.functor is None:
+        fn = build_library().gpmpc_rk4_substeps_f32
+        return lambda *a: fn(spec.ode_id, *a)
+    if spec.ode_id not in K2_BUILDS:
+        prebuild([spec])
+    return K2_BUILDS[spec.ode_id]["lib"].gpmpc_rk4_traced_f32
 
 
 def rk4_substeps_reference(ode, x, u, h: float, n_sub: int):
@@ -517,70 +686,104 @@ def rk4_substeps_reference(ode, x, u, h: float, n_sub: int):
     return x
 
 
-def rk4_substeps(ode, x, u, h: float, n_sub: int):
-    """K2 wrapper: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors.  x (nx,) or (B, nx), u (nu,) or (B, nu); on CUDA both
-    contiguous float32 on the card and ``ode`` one with a compiled functor
-    (:data:`CUDA_ODES`).  Under ``torch.func.vmap`` on the card the call
+def rk4_substeps_rollouts(ode, x, u, h: float, n_sub: int):
+    """The plain version as the kernel maps it: over each rollout of a
+    batch (B, nx), (B, nu) on its own (an ODE written for one point
+    serves), else on the one point."""
+    if x.ndim == 2:
+        return torch.func.vmap(
+            lambda a, b: rk4_substeps_reference(ode, a, b, h, n_sub))(x, u)
+    return rk4_substeps_reference(ode, x, u, h, n_sub)
+
+
+#: a traced functor's id is a number of this process: an exported graph
+#: cannot carry it
+TRACED_EXPORT_LIMIT = (
+    "a traced ODE's K2 cannot be recorded into an exported graph: its "
+    "ode_id names a functor traced and built in this process and means "
+    "nothing in another (ROADMAP §2 item 2, traced K2 under export); "
+    "export a step without the plant, or a plant with a hand-written "
+    "functor")
+
+
+def rk4_substeps(ode, x, u, h: float, n_sub: int, spec: K2Spec = None):
+    """K2 wrapper: the plain version for CPU tensors (over each rollout of
+    a batch, as the kernel maps it), the CUDA kernel for CUDA tensors.
+    x (nx,) or (B, nx), u (nu,) or (B, nu); on CUDA both
+    contiguous float32 on the card; ``ode`` any ODE, its functor ``spec``
+    from :func:`register_ode` (hand-written for a tagged ODE, else traced,
+    and built at its first launch), registered here when not given.  Under ``torch.func.vmap`` on the card the call
     goes through the custom operator ``gpmpc::rk4_substeps``, whose vmap
     rule makes one batched launch; while a trace records (:func:`tracing`)
-    it goes through the operator on either device."""
+    it goes through the operator on either device for a hand-written
+    functor, raises for a traced one on the card, and runs the plain
+    version on the CPU otherwise."""
     traced = tracing()
-    if x.device.type == "cpu" and not (traced and kernel_ode_id(ode)):
-        return rk4_substeps_reference(ode, x, u, h, n_sub)
+    tag = getattr(ode, "cuda_ode", None)
+    if x.device.type == "cpu" and not (traced and tag in CUDA_ODES):
+        return rk4_substeps_rollouts(ode, x, u, h, n_sub)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rk4_substeps: no kernel for device {x.device}")
-    spec = kernel_ode_id(ode)
     if spec is None:
-        raise ValueError(
-            f"rk4_substeps: no CUDA functor for ODE {ode!r}; the kernel "
-            f"compiles its ODEs in (have {sorted(CUDA_ODES)}; a quadrotor "
-            "functor is ROADMAP §2 item 2)")
+        spec = register_ode(ode, x.shape[-1], u.shape[-1], x.device)
+    if traced and spec.functor is not None:
+        raise RuntimeError(f"rk4_substeps: {TRACED_EXPORT_LIMIT}")
     if traced or _functorch_wrapped(x, u):
-        return rk4_substeps_op(x, u, spec[0], float(h), int(n_sub))
+        return rk4_substeps_op(x, u, spec.ode_id, float(h), int(n_sub))
     return _rk4_substeps_launch(spec, x, u, h, n_sub)
 
 
 def _rk4_substeps_launch(spec, x, u, h: float, n_sub: int):
     """Launch K2 on plain CUDA tensors for the functor ``spec``."""
-    ode_id, nx, nu = spec
     batched = x.ndim == 2
     bsz = x.shape[0] if batched else 1
     lead = (bsz,) if batched else ()
-    _check_cuda("rk4_substeps", (x, u), dict(x=lead + (nx,), u=lead + (nu,)))
+    _check_cuda("rk4_substeps", (x, u),
+                dict(x=lead + (spec.nx,), u=lead + (spec.nu,)))
     _refuse_launch_under_trace("rk4_substeps")
-    lib = build_library()
+    entry = k2_entry(spec)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.gpmpc_rk4_substeps_f32(ode_id, x.data_ptr(), u.data_ptr(),
-                                          out.data_ptr(), bsz, int(n_sub),
-                                          float(h), stream)
+        code = entry(x.data_ptr(), u.data_ptr(), out.data_ptr(), bsz,
+                     int(n_sub), float(h), stream)
     _raise_on_error("rk4_substeps", code)
     LAUNCHES["rk4_substeps"] += 1
+    K2_LAUNCHES[spec.ode_id] = K2_LAUNCHES.get(spec.ode_id, 0) + 1
     return out
 
 
-def _spec_of_id(ode_id: int):
-    """``(ode_id, nx, nu)`` and the ODE name of a compiled functor id."""
-    for name, spec in CUDA_ODES.items():
-        if spec[0] == ode_id:
-            return name, spec
-    raise ValueError(f"rk4_substeps: no functor with ode_id {ode_id}")
+def is_traced_ode_id(ode_id: int) -> bool:
+    """Whether ``ode_id`` names a traced functor (one of this process), not
+    a hand-written one."""
+    return ode_id not in {i for i, _, _ in CUDA_ODES.values()}
+
+
+def _spec_of_id(ode_id: int) -> K2Spec:
+    """The functor registered as ``ode_id``."""
+    for tag, (i, _, _) in CUDA_ODES.items():
+        if i == ode_id:
+            return _compiled_in_spec(tag)
+    if ode_id not in K2_SPECS:
+        raise ValueError(f"rk4_substeps: no functor with ode_id {ode_id} in "
+                         f"this process")
+    return K2_SPECS[ode_id]
 
 
 @torch.library.custom_op("gpmpc::rk4_substeps", mutates_args=())
 def rk4_substeps_op(x: torch.Tensor, u: torch.Tensor, ode_id: int, h: float,
                     n_sub: int) -> torch.Tensor:
-    """K2 as a custom operator over the compiled functor ``ode_id``, the
-    form :func:`rk4_substeps` takes under ``torch.func.vmap`` on the card
-    and in a traced step: the kernel for CUDA tensors, the plain version
-    (the port's ODE of that name) for CPU tensors."""
-    name, spec = _spec_of_id(ode_id)
+    """K2 as a custom operator over the functor ``ode_id``, the form
+    :func:`rk4_substeps` takes under ``torch.func.vmap`` on the card and in
+    a traced step: the kernel for CUDA tensors; for CPU tensors the plain
+    version of the registered callable (a traced functor's over each
+    rollout of a batch, as its kernel maps it: its ODE may be written for
+    one point; a hand-written functor's ODE takes the batch as it is)."""
+    spec = _spec_of_id(ode_id)
     if x.device.type == "cpu":
-        from gpmpc_tpu_torch import systems
-        return rk4_substeps_reference(getattr(systems, f"{name}_ode"),
-                                      x, u, h, n_sub).clone()
+        plain = (rk4_substeps_reference if spec.functor is None
+                 else rk4_substeps_rollouts)
+        return plain(spec.ode, x, u, h, n_sub).clone()
     return _rk4_substeps_launch(spec, x, u, h, n_sub)
 
 
@@ -702,14 +905,18 @@ def check_riccati_sweep_bad_pivot(kind: str, device=None,
                              f"H_uu pivot")
 
 
-def check_rk4_substeps(ode, x, u, h: float, n_sub: int) -> float:
-    """Launch K2 on CUDA tensors and its plain version on the same tensors;
-    raise unless they agree within rtol 1e-5, atol 1e-6 (looser than on the
-    CPU: the kernel takes its square roots by MUFU.RSQ and fuses products
-    into FMAs, which round differently from the plain version's ops).
-    Returns the largest absolute difference."""
-    got = rk4_substeps(ode, x, u, h, n_sub)
-    ref = rk4_substeps_reference(ode, x, u, h, n_sub)
+def check_rk4_substeps(ode, x, u, h: float, n_sub: int,
+                       spec: K2Spec = None) -> float:
+    """Launch K2 on CUDA tensors and its plain version on the same tensors
+    (over each rollout of a batch, as the kernel maps it); raise unless
+    they agree within rtol 1e-5, atol 1e-6 (looser than on the CPU: the
+    hand-written functors combine the RK4 stages by FMAs and FourTank
+    takes its square roots by MUFU.RSQ; a traced functor divides where
+    PyTorch's CUDA kernel multiplies by a scalar divisor's reciprocal).
+    ``spec`` as :func:`rk4_substeps` takes it.  Returns the largest
+    absolute difference."""
+    got = rk4_substeps(ode, x, u, h, n_sub, spec=spec)
+    ref = rk4_substeps_rollouts(ode, x, u, h, n_sub)
     err = float((got - ref).abs().max())
     if got.shape != ref.shape or not bool(
             torch.all((got - ref).abs() <= 1e-6 + 1e-5 * ref.abs())):

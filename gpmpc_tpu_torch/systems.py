@@ -43,9 +43,11 @@ def four_tank_ode(x, u, p=None):
     return torch.stack([h1, h2, h3, h4], dim=-1)
 
 
-#: The fused RK4 kernel compiles its ODE in; this id names the functor in
-#: ``csrc/rk4_substeps.cu`` that computes this function with the default
-#: ``TANK_PARAMS``.
+#: The fused RK4 kernel (K2) takes this ODE, passed as it is, through the
+#: hand-written functor this id names in ``csrc/rk4_substeps.cu`` (this
+#: function with the default ``TANK_PARAMS``); a wrapped or reparameterized
+#: four-tank ODE is traced into a functor of its own
+#: (``ops/ode_trace.py``).
 four_tank_ode.cuda_ode = "four_tank"
 
 
@@ -74,8 +76,9 @@ def car_ode(x, u, p=None):
     ], dim=-1)
 
 
-#: the id of the functor in ``csrc/rk4_substeps.cu`` that computes this
-#: function with the default ``CAR_PARAMS``
+#: the id of the hand-written functor in ``csrc/rk4_substeps.cu`` that
+#: computes this function with the default ``CAR_PARAMS`` (a wrapped car
+#: ODE is traced, as any other)
 car_ode.cuda_ode = "car"
 
 
@@ -141,9 +144,11 @@ def planar_quadrotor_ode(x, u, p=None):
         v̇z =  (T1+T2) cos(theta) / m - g
         ω̇  =  l (T1 - T2) / J
 
-    The products and quotients go in the JAX version's order.  No CUDA
-    functor computes it (no ``cuda_ode`` tag): a fused quadrotor plant is
-    ROADMAP §2 item 2, and the quadrotor's plant integrates unfused."""
+    The products and quotients go in the JAX version's order.  It has no
+    hand-written K2 functor (no ``cuda_ode`` tag): a fused quadrotor plant
+    on the card traces it, with its parameters, into a functor of its own
+    (``ops/ode_trace.py``; the thrust terms, which read the input alone,
+    are formed once a rollout)."""
     p = p or QUAD_PARAMS
     theta, vx, vz, omega = x[..., 2], x[..., 3], x[..., 4], x[..., 5]
     thrust = u[..., 0] + u[..., 1]

@@ -116,6 +116,19 @@ def op_counts(graph) -> collections.Counter:
                   if n.op == "call_function"))
 
 
+def refuse_traced_k2(graph) -> None:
+    """Raise ``ValueError`` where ``graph`` calls ``gpmpc::rk4_substeps`` on
+    a traced functor: its ode_id names a functor traced and built in this
+    process, which a loading process would not have (ROADMAP §2 item 2).
+    A hand-written functor's ode_id is the same in every process."""
+    for n in graph.nodes:
+        if (n.op == "call_function"
+                and n.target is torch.ops.gpmpc.rk4_substeps.default
+                and cuda_kernels.is_traced_ode_id(n.args[2])):
+            raise ValueError(
+                f"export_solve_step: {cuda_kernels.TRACED_EXPORT_LIMIT}")
+
+
 def _prune(gm) -> None:
     """Drop the nodes the outputs do not read, then the tensor constants
     no node reads any more (the ZeroTensor tangents, which
@@ -170,7 +183,8 @@ def export_solve_step(mpc, path: str | None = None, device=None) -> bytes:
     Raises ``ValueError`` for a step that reads a value on the host
     (``discrete_method="exact"`` with ``integrator="adaptive"``: its
     stop test; ROADMAP §1), which a trace would freeze at the example's
-    value."""
+    value, and for a graph that would carry a traced ODE's K2
+    (:func:`refuse_traced_k2`)."""
     if mpc.discrete_method == "exact" and mpc.model.integrator == "adaptive":
         raise ValueError(
             "export_solve_step: discrete_method='exact' with "
@@ -198,6 +212,7 @@ def export_solve_step(mpc, path: str | None = None, device=None) -> bytes:
     with _no_stack_traces(), torch.enable_grad(), tracing(TracingContext(
             FakeTensorMode(allow_fallback_kernels=True))):
         gm = make_fx(flat_step, tracing_mode="real")(*leaves)
+    refuse_traced_k2(gm.graph)
     _prune(gm)
     t1 = time.perf_counter()
     with _no_stack_traces():

@@ -140,15 +140,114 @@ def test_rk4_kernel_car_functor_matches_plain_version(dev, batch, n_sub):
     assert ck.LAUNCHES["rk4_substeps"] == before + 1
 
 
-def test_fused_integrator_without_a_functor_raises_on_the_card(dev):
+def test_traced_k2_runs_a_wrapped_car_ode_on_the_card(dev, monkeypatch):
+    """A wrapped car ODE (no tag) is traced into a functor of its own at
+    Model construction, and ``integrate`` launches that spec without
+    registering again: fused on the card it agrees with the plain version
+    and with the hand-written Car functor, one launch each, counted by its
+    ode_id; an op outside the lowering raises at Model construction,
+    before any launch."""
     from gpmpc_tpu_torch import Model
     from gpmpc_tpu_torch.systems import car_ode
-    with pytest.raises(ValueError, match="compiled into the RK4 kernel"):
-        Model(Nx=4, Nu=2, ode=lambda x, u: car_ode(x, u), dt=0.1,
-              fused_integrator=True, device=dev)
-    x, u = ck.car_inputs(8, 0, dev)
-    with pytest.raises(ValueError, match="no CUDA functor"):
-        ck.rk4_substeps(lambda a, b: car_ode(a, b), x, u, 0.01, 10)
+    ck.reset_launches()
+    m = Model(Nx=4, Nu=2, ode=lambda x, u: car_ode(x, u), dt=0.1,
+              integrator_substeps=10, fused_integrator=True, device=dev)
+    assert m.k2.functor is not None and m.k2.ode_id >= len(ck.CUDA_ODES)
+    x, u = ck.car_inputs(200, 3, dev)
+    with monkeypatch.context() as mp:
+        mp.setattr(ck, "register_ode", None)    # integrate must not call it
+        got = m.integrate(x, u)
+    ref = ck.rk4_substeps_rollouts(m.ode, x, u, 0.01, 10)
+    car = ck.rk4_substeps(car_ode, x, u, 0.01, 10)
+    torch.cuda.synchronize()
+    assert torch.all((got - ref).abs() <= 1e-6 + 1e-5 * ref.abs())
+    assert torch.all((got - car).abs() <= 1e-6 + 1e-5 * car.abs())
+    assert ck.K2_LAUNCHES == {m.k2.ode_id: 1, ck.CUDA_ODES["car"][0]: 1}
+    with pytest.raises(ValueError, match=r"aten\.cumsum"):
+        Model(Nx=4, Nu=2, ode=lambda x, u: torch.cumsum(car_ode(x, u), 0),
+              dt=0.1, fused_integrator=True, device=dev)
+    assert ck.LAUNCHES["rk4_substeps"] == 2
+
+
+@pytest.mark.parametrize("batch", [None, 8, 1024])
+@pytest.mark.parametrize("which", ["four_tank", "quadrotor", "pendulum",
+                                   "closure"])
+def test_traced_k2_matches_plain_version(dev, which, batch):
+    """K2 traced for the lambda-wrapped four-tank ODE (bench.py's plant),
+    the 1.3 kg quadrotor through functools.partial, the pendulum
+    walkthrough's ODE (written for one point) and a closure over a CUDA
+    tensor, against the plain version over each rollout, at K2's card
+    tolerance (rtol 1e-5, atol 1e-6); one launch a call."""
+    import functools
+    from gpmpc_tpu_torch.examples.pendulum import pendulum_ode
+    from gpmpc_tpu_torch.systems import QUAD_PARAMS, planar_quadrotor_ode
+    c = torch.tensor([1.0, 2.0, 3.0], device=dev)
+    rng = np.random.default_rng(11)
+    lead = () if batch is None else (batch,)
+    ode, nx, nu, h, n_sub, x, u = {
+        "four_tank": (lambda a, b: four_tank_ode(a, b), 4, 2, 0.3, 10,
+                      np.abs(rng.standard_normal(lead + (4,))) * 4 + 0.5,
+                      np.abs(rng.standard_normal(lead + (2,))) * 3),
+        "quadrotor": (functools.partial(planar_quadrotor_ode,
+                                        p=dict(QUAD_PARAMS, m=1.3)),
+                      6, 2, 0.0125, 4,
+                      rng.uniform(-1.0, 1.0, lead + (6,)),
+                      rng.uniform(2.0, 9.0, lead + (2,))),
+        "pendulum": (pendulum_ode, 2, 1, 0.01, 10,
+                     rng.uniform(-3.0, 3.0, lead + (2,)),
+                     rng.uniform(-5.0, 5.0, lead + (1,))),
+        "closure": (lambda a, b: torch.where(
+            a > 1.0, torch.clamp(a * c, 0.1, 5.0) ** 2, (1.0 - a) / 2.0
+            + b[..., 0:1]), 3, 1, 0.05, 10,
+            rng.uniform(-2.0, 2.5, lead + (3,)),
+            rng.uniform(-1.0, 1.0, lead + (1,))),
+    }[which]
+    kw = dict(dtype=torch.float32, device=dev)
+    x, u = torch.tensor(x, **kw), torch.tensor(u, **kw)
+    spec = ck.register_ode(ode, nx, nu, dev)
+    assert spec.functor is not None
+    before = ck.K2_LAUNCHES.get(spec.ode_id, 0)
+    ck.check_rk4_substeps(ode, x, u, h, n_sub, spec=spec)
+    torch.cuda.synchronize()
+    assert ck.K2_LAUNCHES[spec.ode_id] == before + 1
+
+
+def test_traced_k2_vmap_rule_is_one_launch(dev):
+    """Under vmap a traced functor goes through gpmpc::rk4_substeps, whose
+    vmap rule launches it once for the batch (the quadrotor's residual
+    data, as examples/quadrotor.py draws it)."""
+    import functools
+    from gpmpc_tpu_torch.systems import QUAD_PARAMS, planar_quadrotor_ode
+    from gpmpc_tpu_torch import Model
+    plant = Model(Nx=6, Nu=2, dt=0.05, integrator_substeps=4,
+                  ode=functools.partial(planar_quadrotor_ode,
+                                        p=dict(QUAD_PARAMS, m=1.3)),
+                  fused_integrator=True, device=dev)
+    rng = np.random.default_rng(12)
+    kw = dict(dtype=torch.float32, device=dev)
+    x = torch.tensor(rng.uniform(-1.0, 1.0, (40, 6)), **kw)
+    u = torch.tensor(rng.uniform(2.0, 9.0, (40, 2)), **kw)
+    ck.reset_launches()
+    got = torch.func.vmap(plant.integrate)(x, u)
+    torch.cuda.synchronize()
+    assert ck.K2_LAUNCHES == {plant.k2.ode_id: 1}
+    ref = ck.rk4_substeps_rollouts(plant.ode, x, u, 0.0125, 4)
+    assert torch.all((got - ref).abs() <= 1e-6 + 1e-5 * ref.abs())
+
+
+def test_traced_k2_refuses_a_trace_on_the_card(dev):
+    """Recording a traced functor's K2 into a graph raises (its ode_id
+    means nothing in another process); a hand-written one's is recorded
+    as gpmpc::rk4_substeps."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    x, u = ck.rk4_inputs(None, 1, dev)
+    with pytest.raises(RuntimeError, match="ROADMAP §2 item 2"):
+        make_fx(lambda a, b: ck.rk4_substeps(
+            lambda p, q: four_tank_ode(p, q), a, b, 0.3, 10))(x, u)
+    g = make_fx(lambda a, b: ck.rk4_substeps(four_tank_ode, a, b, 0.3,
+                                             10))(x, u)
+    assert any(n.target is torch.ops.gpmpc.rk4_substeps.default
+               for n in g.graph.nodes)
 
 
 def test_car_closed_loop_on_the_card_counts_its_launches(dev):
@@ -463,17 +562,17 @@ def test_training_and_validation_on_the_card_count_their_launches(dev):
     assert np.all(np.isfinite(mnlp)) and np.all(smse < 0.1)
 
 
-def _study(dev, fused, b, mesh=None):
+def _study(dev, fused, b, mesh=None, ode=four_tank_ode):
     """Bench config 5's study (the fixture GP, capacity 128, Nt=8, the
     al1 x mi3 x ls4 budget) on the card, f32; with ``fused`` the KKT sweep
-    kernel and the fused plant; sharded over ``mesh``.  Returns the study,
-    x0s and 2 steps of noise."""
+    kernel and the fused plant (of ``ode``); sharded over ``mesh``.
+    Returns the study, x0s and 2 steps of noise."""
     from benchmarks.bench_spec import DT, MODEL_R
     from gpmpc_tpu_torch import Model
     from gpmpc_tpu_torch.models.convert import gp_from_fixture
     from gpmpc_tpu_torch.parallel import BatchedStudy
 
-    model = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT, R=MODEL_R,
+    model = Model(Nx=4, Nu=2, ode=ode, dt=DT, R=MODEL_R,
                   clip_negative=True, integrator_substeps=10,
                   fused_integrator=fused, device=dev)
     gp = gp_from_fixture(device=dev, optimizer_opts=dict(jitter=1e-5,
@@ -596,15 +695,15 @@ def _to_cpu(v):
     return type(v)(*map(_to_cpu, v)) if hasattr(v, "_fields") else v
 
 
-def _sigma_point_mpc(dev, method, **kw):
+def _sigma_point_mpc(dev, method, ode=four_tank_ode, **kw):
     """The fixture GP (N=100) at Nt=5 with UT or GH propagation, tightening
-    and feedback, f32 on the card, fused KKT and plant."""
+    and feedback, f32 on the card, fused KKT and plant (of ``ode``)."""
     from benchmarks.bench_spec import (DT, MODEL_R, Q_W, R_W, ULB, UUB, XLB,
                                        XSP, XUB)
     from gpmpc_tpu_torch import MPC, Model
     from gpmpc_tpu_torch.models.convert import gp_from_fixture
 
-    m = Model(Nx=4, Nu=2, ode=four_tank_ode, dt=DT, R=MODEL_R,
+    m = Model(Nx=4, Nu=2, ode=ode, dt=DT, R=MODEL_R,
               clip_negative=True, integrator_substeps=10,
               fused_integrator=True, device=dev)
     g = gp_from_fixture(device=dev, gp_method=method,
@@ -775,6 +874,32 @@ def test_solve_mc_on_the_card_counts_its_launches(dev, method):
                                                 else 0)}
     assert xs.shape == (8, 4, 4) and bool(torch.all(torch.isfinite(xs)))
     assert mpc.last_mc["converged"].shape == (8, 3)
+
+
+def test_traced_plant_under_the_study_and_solve_mc(dev):
+    """The fused plant's other consumers with its ODE traced (a lambda, as
+    bench.py builds it): a BatchedStudy step at B=64 (the plant under
+    vmap: one K2 launch for all rollouts) within 1e-3 of the same step
+    with the hand-written FourTank, and solve_mc (8 lanes x 2 steps: one
+    batched K2 launch a step)."""
+    from benchmarks.bench_spec import DT, X0
+    lam = lambda x, u: four_tank_ode(x, u)                  # noqa: E731
+    traced, x0s, noise = _study(dev, True, 64, ode=lam)
+    hand, _, _ = _study(dev, True, 64)
+    ck.reset_launches()
+    got = traced.run(x0s, XSP, 1, noise_ws=noise[:, :1])
+    torch.cuda.synchronize()
+    assert ck.K2_LAUNCHES == {traced.model.k2.ode_id: 1}
+    assert traced.model.k2.ode_id >= len(ck.CUDA_ODES)
+    ref = hand.run(x0s, XSP, 1, noise_ws=noise[:, :1])
+    x, r = got.x_traj[:, -1].cpu(), ref.x_traj[:, -1].cpu()
+    assert bool(torch.all((x - r).abs() <= 1e-3 * (1.0 + r.abs())))
+    mpc = _sigma_point_mpc(dev, "TA", ode=lam)
+    ck.reset_launches()
+    xs, _ = mpc.solve_mc(X0, 2 * DT, XSP, 8)
+    torch.cuda.synchronize()
+    assert ck.K2_LAUNCHES == {mpc.model.k2.ode_id: 2}
+    assert bool(torch.all(torch.isfinite(xs)))
 
 
 def test_adaptive_plant_on_the_card_matches_the_cpu(dev):

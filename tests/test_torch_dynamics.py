@@ -163,13 +163,16 @@ def test_fused_integrator_guards():
 def test_car_ode_functor_is_registered_and_in_the_source():
     """The car ODE maps to ode_id 1 of csrc/rk4_substeps.cu (both of its C
     entries switch on it), with the car's (nx, nu); its plain fused path on
-    the CPU is the plain RK4 loop, and a wrapped ODE has no functor."""
+    the CPU is the plain RK4 loop, and a wrapped ODE has no hand-written
+    functor (it is traced into one of its own)."""
     import re
-    from gpmpc_tpu_torch.ops.cuda_kernels import CSRC, CUDA_ODES, kernel_ode_id
+    from gpmpc_tpu_torch.ops.cuda_kernels import CSRC, CUDA_ODES, register_ode
     from gpmpc_tpu_torch.systems import car_ode
 
-    assert kernel_ode_id(car_ode) == CUDA_ODES["car"] == (1, 4, 2)
-    assert kernel_ode_id(lambda x, u: car_ode(x, u)) is None
+    spec = register_ode(car_ode, 4, 2)
+    assert (spec.ode_id, spec.nx, spec.nu) == CUDA_ODES["car"] == (1, 4, 2)
+    assert spec.functor is None
+    assert register_ode(lambda x, u: car_ode(x, u), 4, 2).functor is not None
     src = (CSRC / "rk4_substeps.cu").read_text()
     assert re.findall(r"case 1:\s*return static_cast<int>\(\s*(\w+)<Car>",
                       src) == ["launch", "chain_cycles"]

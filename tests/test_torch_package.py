@@ -45,14 +45,17 @@ def test_import_pulls_in_no_jax():
 
 
 def test_fused_integrator_without_kernel_ode_raises_on_cuda():
-    """On a CUDA device the fused integrator needs an ODE compiled into the
-    RK4 kernel; a wrapped or foreign ODE is refused at construction (before
-    any tensor is placed, so this runs without a card)."""
+    """An ODE with no K2 functor, which the lowering cannot take either (an
+    op outside it), raises on a CUDA device at construction, before any
+    tensor is placed (this runs without a card: a build without CUDA
+    traces on the CPU).  Any other ODE gets a functor there: a tagged one
+    its hand-written one, an untagged one a traced one."""
     kw = dict(Nx=4, Nu=2, dt=3.0, fused_integrator=True, device="cuda")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        Model(ode=lambda x, u: four_tank_ode(x, u), **kw)
-    assert ck.kernel_ode_id(four_tank_ode) == (0, 4, 2)
-    assert ck.kernel_ode_id(lambda x, u: x) is None
+    with pytest.raises(ValueError, match=r"aten\.cumsum"):
+        Model(ode=lambda x, u: torch.cumsum(four_tank_ode(x, u), 0), **kw)
+    assert ck.register_ode(four_tank_ode, 4, 2, "cuda").ode_id == 0
+    wrapped = ck.register_ode(lambda x, u: four_tank_ode(x, u), 4, 2, "cuda")
+    assert wrapped.ode_id >= len(ck.CUDA_ODES) and wrapped.functor.nx == 4
     # on the CPU any ODE is fine: the wrapper runs the plain loop there
     Model(ode=lambda x, u: four_tank_ode(x, u), Nx=4, Nu=2, dt=3.0,
           fused_integrator=True, device="cpu")

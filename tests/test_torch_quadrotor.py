@@ -84,14 +84,25 @@ def test_model_maps_match_jax(params):
 
 
 def test_fused_quadrotor_plant_is_refused_on_the_card():
-    """The RK4 kernel has no quadrotor functor (ROADMAP §2 item 2): a fused
-    quadrotor Model on a CUDA device raises at construction (before any
-    tensor is placed, so this runs without a card); on the CPU the fused
-    path is the plain loop."""
-    assert not hasattr(planar_quadrotor_ode, "cuda_ode")
+    """A fused quadrotor plant that the lowering cannot take (a branch on
+    the state) is refused on a CUDA device at construction, before any
+    tensor is placed, so this runs without a card.  The quadrotor ODE as
+    it is has no hand-written functor (no tag) and is traced into one of
+    its own (ROADMAP §2 item 2); on the CPU the fused path is the plain
+    loop."""
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
     kw = dict(Nx=6, Nu=2, dt=0.05, fused_integrator=True)
-    with pytest.raises(ValueError, match="§2 item 2"):
-        Model(ode=planar_quadrotor_ode, device="cuda", **kw)
+
+    def grounded(x, u):
+        if x[1] < 0.0:                      # on the ground: a branch
+            return torch.zeros_like(x)
+        return planar_quadrotor_ode(x, u)
+
+    with pytest.raises(ValueError, match="grounded.*branches"):
+        Model(ode=grounded, device="cuda", **kw)
+    assert not hasattr(planar_quadrotor_ode, "cuda_ode")
+    spec = ck.register_ode(planar_quadrotor_ode, 6, 2, "cuda")
+    assert spec.functor is not None and spec.functor.nx == 6
     m = Model(ode=planar_quadrotor_ode, device="cpu", **kw)
     x = torch.tensor([0.0, 1.0, 0.1, 0.0, 0.0, 0.0])
     assert torch.all(torch.isfinite(m.integrate(x, torch.tensor([5.0, 5.0]))))
