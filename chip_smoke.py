@@ -5,9 +5,10 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each ends in torch.cuda.synchronize(); any failure raises and the
 script exits non-zero before its last line):
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the CUDA kernels from gpmpc_tpu_torch/csrc/ (nvcc, sm_90a),
-     and beside that build phase 4's traced K2 ODEs traced, lowered and
-     built (one nvcc each, all at once; the seconds printed);
+  2. build the CUDA kernels from gpmpc_tpu_torch/csrc/ (nvcc, sm_90a;
+     K1's block path among them), and beside that phase 4's traced K2
+     ODEs traced, lowered and built (one nvcc each, all at once; the
+     seconds printed);
   3. K1 (Riccati sweep) against its plain PyTorch version on the card, at
      the three shapes of the JAX package's kernel test, at Nt=300 (across
      the kernel's shared-memory chunks) and at B=1024 (Nt=20, and the
@@ -72,10 +73,10 @@ script exits non-zero before its last line):
      k*; K2 at B = 1, 64 and 1024, and the SM cycles
      of its dependent chain (one thread between two clock64() reads); the
      traced K2 of phase 4's four-tank and quadrotor at B = 1, 64 and 1024
-     (after FourTank's lines) and of the pendulum and the closure at
-     B = 1, and the chain cycles of the traced four-tank and quadrotor;
-     each beside the launch floor (a one-element add_) and nvidia-smi's
-     SM clock and power draw over its window; the car's instantiations, K1
+     (after FourTank's lines) and of the pendulum, the closure and phase
+     22's network at B = 1, and the chain cycles of the traced four-tank
+     and quadrotor; each beside the launch floor (a one-element add_) and
+     nvidia-smi's SM clock and power draw over its window; the car's instantiations, K1
      at (6, 2) (Nt=20, B=1) and K2 Car at B = 1 and 200, and K3, K4, K5 at
      the car GP's shapes.  A profiler window that shows no device event is
      run once more, and the line says so;
@@ -139,8 +140,9 @@ script exits non-zero before its last line):
      its first launch at (3, 3): the linear MHE of tests/test_mhe.py
      filtering 12 measurements (exact launches, against the CPU), K1 at
      (3, 3) and (4, 4) against the plain version at B = 1 and under vmap
-     at B = 64, a zero and an indefinite pivot at both, pairs past the
-     lane limits raising before any launch, the build's seconds; (c) the
+     at B = 64, a zero and an indefinite pivot at both, the pairs just
+     past the warp kernel's lane limits, (31, 2) and (4, 33), launching
+     once on K1's block path, the build's seconds; (c) the
      quadrotor golden's configuration (run_quad_golden): its residual GP
      fitted on the card on 40 points drawn in its box (exact K4 and K5
      launches; in the whole smoke phase 21 (b)'s fit, the same recipe on
@@ -226,14 +228,38 @@ script exits non-zero before its last line):
      plant fused (the lambda over the 1.3 kg parameters traced): the
      residual data through vmap(plant.integrate) (one K2 launch), the
      fit (exact K4, K5), QUAD_STEPS hybrid steps (one K2 launch a step),
-     every step replayed on the CPU under phase 16 (c)'s bounds.
-Phases 12-21 run before phase 11, whose JSON rows carry their launch
+     every step replayed on the CPU under phase 16 (c)'s bounds.  Phase
+     21 is a child process (``--phase-child traced_k2``) on phase 5's
+     trajectory, started after phase 6, that runs beside phases 7-14 and
+     is checked before phase 15; its fitted GP goes to phase 16 (c).
+ 22. K1 at any (nx, nu): a child process (``--phase-child network``)
+     started before phase 15 that runs beside phases 15-18, checked
+     after phase 18: (a) NET_UNITS = 10 four-tank units side by side
+     (nx = 40, nu = 20; the plant's ODE a lambda of slices and a cat,
+     traced into K2, 10 substeps; its unit built at its first launch and
+     held against its plain version at 1 and 64 rollouts), each unit
+     phase 16 (a)'s configuration with numpy-seeded offsets, under
+     output feedback in f32 for NET_STEPS = 6 steps: the MHE (window 4,
+     each unit's two lower levels measured, rk4, the filtered arrival cost;
+     al2 x mi5) through K1 at (40, 40), the rk4 MPC (no GP, Nt = 20, a
+     dense off-block state weight; RTI after a fused al2 x mi10 cold start)
+     through K1 at (40, 20), both on K1's block path
+     (csrc/riccati_sweep_block.cu), the traced K2 once a step: launch
+     counts exact, finite, every step replayed on the CPU (phase 16 (a)'s
+     bounds), the estimate error per step, ms per MHE and per MPC step; (b)
+     K1's block path against its plain version at (nx, nu) = (31, 2), (4,
+     33), (40, 20), (40, 40) and (96, 48) (its working set in a workspace
+     in device memory), B = 1 and 64 (through the vmap rule), Nt = 3, 20
+     and 33, one launch each, an indefinite and a zero pivot at each pair,
+     and the kernel's layout against the wrapper's mirror at 301 pairs.
+Phases 12-22 run before phase 11, whose JSON rows carry their launch
 counts (K1 at (1024, 8, 4, 2) and K2 at B=1024 get rows of their own, as
 do K3 at the UT and GH sigma points, K5 under the Matérn-5/2 fit, and K1
 at (4, 4) under the MHE, at (3, 3) built on demand and at (6, 2) under the
 quadrotor, K1, K2, K4 and K5 at phase 19's two-rank block sizes, K4
-and K5 at phase 20's two fits, and the traced K2 of phase 21 (a) and
-(b)).
+and K5 at phase 20's two fits, the traced K2 of phase 21 (a) and (b) and
+of phase 22's network, and K1's block path at phase 22's (40, 20) and
+(40, 40); its lines at (40, 20) with B = 64 and at (96, 48) are logged).
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object with the kernels' rows, and {"ok": true, "device": {...}}.
 
@@ -257,10 +283,12 @@ k1 also each pre-built (nx, nu) of both builds, bitwise); for
 k2 it also writes both builds' SASS (cuobjdump) under the build
 directory, counts the K2 kernels' instructions by opcode and reads the
 repository K2's chain in SM cycles;
-``python3 chip_smoke.py --k1 [OTHER_SRC]`` runs phase 3's K1 and K2 checks
-and phase 11's K1 lines alone, and with OTHER_SRC is ``--compare k1``;
+``python3 chip_smoke.py --k1 [OTHER_SRC]`` runs phase 3's K1 and K2 checks,
+phase 22 (b)'s block-path checks and phase 11's K1 lines and block-path
+rows alone, and with OTHER_SRC is ``--compare k1``;
 ``python3 chip_smoke.py --study`` runs phases 1-2 and 14 and the study's
-kernel rows alone; ``--traced-k2`` phases 1-2, phase 4's traced K2,
+kernel rows alone; ``--network`` phases 1-2, phase 22 and its block-path
+rows; ``--traced-k2`` phases 1-2, phase 4's traced K2,
 phase 5's loop, phase 21 and phase 11's traced K2 lines and rows;
 ``python3 chip_smoke.py --slice-f`` phases 1-2 and 15 and their kernel
 rows; ``python3 chip_smoke.py --slice-f2`` phases 1-2
@@ -2553,9 +2581,10 @@ def k1_on_demand(ck, dev, card):
     built at its first launch (exact launches; against the same filter on
     the CPU within 1e-3 of 1 + |x|); K1 at (3, 3) and (4, 4) against the
     plain version at B = 1 and under vmap at B = 64; a zero and an
-    indefinite H_uu pivot at both (non-finite gains); pairs past the lane
-    limits raising before any launch.  Returns (3, 3)'s path launches, its
-    build seconds and the max abs errors by pair."""
+    indefinite H_uu pivot at both (non-finite gains); pairs past the warp
+    kernel's lane limits launching once on the block path.  Returns (3,
+    3)'s path launches, its build seconds and the max abs errors by
+    pair."""
     built_before = (3, 3) in ck.RICCATI_BUILDS
     xs, us, ys = linear_record(LIN_STEPS)
     mhe = linear_mhe(dev)
@@ -2608,16 +2637,18 @@ def k1_on_demand(ck, dev, card):
             f"pivot -> non-finite gains: ok")
     for nx, nu in [(31, 2), (4, 33)]:
         before = ck.LAUNCHES["riccati_sweep"]
-        try:
-            ck.riccati_sweep(*ck.stage_qp_inputs(4, nx, nu, 0, device=dev),
-                             torch.tensor(1e-6, device=dev))
-        except ValueError as e:
-            log(f"[slice F2] (b) K1 ({nx}, {nu}) raises before any launch: "
-                f"{e}")
-        else:
-            raise AssertionError(f"K1 ({nx}, {nu}) did not raise")
-        if ck.LAUNCHES["riccati_sweep"] != before:
-            raise AssertionError("an over-limit pair launched")
+        err = ck.check_riccati_sweep(
+            ck.stage_qp_inputs(4, nx, nu, 0, device=dev),
+            torch.tensor(1e-6, device=dev))
+        torch.cuda.synchronize()
+        log(f"[slice F2] (b) K1 ({nx}, {nu}), past the warp kernel's lane "
+            f"limits: path {ck.riccati_path(nx, nu)}, one launch, max|err| "
+            f"{err:.3e} against the plain version")
+        if (ck.LAUNCHES["riccati_sweep"] != before + 1
+                or ck.riccati_path(nx, nu) != "block"
+                or (nx, nu) in ck.RICCATI_BUILDS):
+            raise AssertionError(f"K1 ({nx}, {nu}) did not launch once on "
+                                 f"the block path")
     return expect[(3, 3)], build["seconds"], errs
 
 
@@ -2760,7 +2791,8 @@ def quad_phase(ck, dev, card, fused=False, gp=None):
     else:
         log(f"{tag} residual GP: phase 21 (b)'s fit with this recipe on "
             f"the same 40 draws ({gp.n_evals} batched evaluations, its "
-            f"launches checked there)")
+            f"launches checked there; its posterior recomputed here from "
+            f"its training set and hypers)")
     if not fused:
         xt, yt = quad_data(dev, 200, 1)
         ck.reset_launches()
@@ -5174,8 +5206,9 @@ def k1_bitwise(ck, dev, through):
 
 
 def k1_alone(other_src=None):
-    """Phase 3's K1 and K2 checks and phase 11's K1 lines alone; with
-    ``other_src``, ``compare("k1", other_src)``."""
+    """Phase 3's K1 and K2 checks, phase 22 (b)'s block-path checks and
+    phase 11's K1 lines and block-path rows alone; with ``other_src``,
+    ``compare("k1", other_src)``."""
     from gpmpc_tpu_torch.ops import cuda_kernels as ck
     from gpmpc_tpu_torch.systems import four_tank_ode
 
@@ -5184,10 +5217,19 @@ def k1_alone(other_src=None):
     card = card_line()
     dev = torch.device("cuda")
     log(f"[card] nvidia-smi: {card}")
+    kind = torch.cuda.get_device_name(0)
     ck.build_library()
     log_ptxas(ck)
     check_kernels(ck, four_tank_ode, dev)
+    errs = k1_block_checks(ck, dev)
+    log(f"[K1 block] max|err| by pair {errs}")
     k1_times(ck, dev, card)
+    rows = k1_block_rows(ck, dev, card, {})
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
@@ -5225,8 +5267,9 @@ def traced_odes(dev):
     nu, h, n_sub).  The four-tank plant as bench.py:460-462 and
     tests/test_pallas.py:47 build it (a lambda, no tag), the 1.3 kg
     quadrotor as phase 21 (b)'s plant builds it, the pendulum
-    walkthrough's ODE (written for one point) and a closure over a CUDA
-    tensor."""
+    walkthrough's ODE (written for one point), a closure over a CUDA
+    tensor and phase 22's network of NET_UNITS four-tank units (slices
+    and a cat)."""
     from benchmarks.bench_spec import DT
     from gpmpc_tpu_torch.examples import pendulum
     from gpmpc_tpu_torch.systems import (QUAD_PARAMS, four_tank_ode,
@@ -5243,20 +5286,29 @@ def traced_odes(dev):
             "quadrotor": (lambda x, u: planar_quadrotor_ode(x, u, heavy), 6,
                           2, QUAD_DT / 4, 4),
             "pendulum": (pendulum.pendulum_ode, 2, 1, pendulum.DT / 10, 10),
-            "closure": (closure, 3, 1, 0.05, 10)}
+            "closure": (closure, 3, 1, 0.05, 10),
+            "network": (tank_network_ode(), 4 * NET_UNITS, 2 * NET_UNITS,
+                        DT / 10, 10)}
 
 
 def traced_inputs(name, batch, seed, dev):
     """K2 check inputs for a traced ODE: the four-tank's of
     ``cuda_kernels.rk4_inputs`` (a drained tank in a batch's first
     rollout), the quadrotor in its golden's box with thrusts in [2, 9],
-    the pendulum over a swing, the closure across its branch; f32 (n,) for
+    the pendulum over a swing, the closure across its branch, the network
+    as the four-tank's with unit 0's fourth tank drained; f32 (n,) for
     one rollout when ``batch`` is None."""
     if name == "four_tank":
         from gpmpc_tpu_torch.ops import cuda_kernels as ck
         return ck.rk4_inputs(batch, seed, dev)
     rng = np.random.default_rng(seed)
     lead = () if batch is None else (batch,)
+    if name == "network":
+        x = np.abs(rng.standard_normal(lead + (4 * NET_UNITS,))) * 4 + 0.5
+        x[..., 3] = 0.0
+        u = np.abs(rng.standard_normal(lead + (2 * NET_UNITS,))) * 3
+        kw = dict(dtype=torch.float32, device=dev)
+        return torch.tensor(x, **kw), torch.tensor(u, **kw)
     x, u = {"quadrotor": (rng.uniform(QUAD_X_LO, QUAD_X_HI, lead + (6,)),
                           rng.uniform(2.0, 9.0, lead + (2,))),
             "pendulum": (rng.uniform([-np.pi, -3.0], [np.pi, 3.0],
@@ -5269,14 +5321,16 @@ def traced_inputs(name, batch, seed, dev):
 
 
 def build_traced_k2(ck, dev):
-    """Phase 2's traced K2: each ODE of :func:`traced_odes` traced and
-    lowered, and every unit built at once (one nvcc each; the whole smoke
-    runs this beside the main library's build).  Returns the specs by
-    name."""
+    """Phase 2's traced K2: each ODE of :func:`traced_odes` but the
+    network traced and lowered, and every unit built at once (one nvcc
+    each; the whole smoke runs this beside the main library's build).
+    The network's unit, ~30 s of nvcc on the H100's host, is built by
+    phase 22's child at its first launch, off the main process.  Returns
+    the specs by name."""
     odes = traced_odes(dev)
     t0 = time.perf_counter()
     specs = {k: ck.register_ode(o, nx, nu, dev)
-             for k, (o, nx, nu, _, _) in odes.items()}
+             for k, (o, nx, nu, _, _) in odes.items() if k != "network"}
     t_trace = time.perf_counter() - t0
     built = ck.prebuild(specs.values())
     log(f"[K2 traced] {len(specs)} ODEs traced and lowered in {t_trace:.2f} "
@@ -5322,7 +5376,7 @@ def check_traced_k2(ck, dev, specs):
     the four-tank lambda at B = 1, 8 (n_sub = 7, the run-time loop, a
     drained tank) and 1024, also against the hand-written FourTank; the
     quadrotor at B = 1, 64 and 1024; the pendulum and the closure at B = 1
-    and 64."""
+    and 64 (the network's in phase 22 (a))."""
     from gpmpc_tpu_torch.systems import four_tank_ode
     odes = traced_odes(dev)
     cases = ([("four_tank", b, n) for b, n in ((None, 10), (8, 7),
@@ -5424,13 +5478,17 @@ def traced_k2_times(ck, dev, card, specs):
     (:func:`k2_times`, :func:`k2_chain_cycles`) in the same call: each
     traced functor's event ms over 200 calls, device ms per launch
     (mean/median over 200) and its plain version's ms beside the bound,
-    the four-tank and the quadrotor at K2_TIME_BATCHES and the pendulum
-    and the closure at B = 1; the chain's SM cycles of the traced
+    the four-tank and the quadrotor at K2_TIME_BATCHES and the pendulum,
+    the closure and (where ``specs`` has it) the network at B = 1; the
+    chain's SM cycles of the traced
     four-tank and quadrotor.  Returns {name: row numbers at B = 1}."""
     odes = traced_odes(dev)
     rows = {}
     with SmiSampler() as smi:
-        for name in ("four_tank", "quadrotor", "pendulum", "closure"):
+        for name in ("four_tank", "quadrotor", "pendulum", "closure",
+                     "network"):
+            if name not in specs:
+                continue
             ode, nx, nu, h, n_sub = odes[name]
             spec = specs[name]
             f = spec.functor
@@ -5477,8 +5535,9 @@ def traced_k2_times(ck, dev, card, specs):
 
 
 def traced_k2_rows(specs, launches, times):
-    """The JSON rows of the traced K2 on phase 21's paths: the four-tank
-    (a) and the quadrotor (b), at B = 1."""
+    """The JSON rows of the traced K2 on its paths, at B = 1: phase 21's
+    four-tank (a) and quadrotor (b) and, in the whole smoke, phase 22's
+    network (``launches`` by name)."""
     return [{"name": f"rk4_substeps[traced,{name}]", "route": "cuda",
              "source": "gpmpc_tpu_torch/csrc/rk4_substeps.cu",
              "generated_by": "gpmpc_tpu_torch/ops/ode_trace.py",
@@ -5489,8 +5548,8 @@ def traced_k2_rows(specs, launches, times):
              "device_ms": times[name]["device_ms"],
              "bound_ms": times[name]["bound"][0],
              "bound_by": times[name]["bound"][1], "library_ms": None,
-             "chain_cycles": times[name]["chain_cycles"]}
-            for name in ("four_tank", "quadrotor")]
+             "chain_cycles": times[name].get("chain_cycles")}
+            for name in launches]
 
 
 def traced_k2_alone():
@@ -5524,6 +5583,432 @@ def traced_k2_alone():
     return 0
 
 
+# ------------------------------------------------------------ phase 22
+
+#: phase 22: NET_UNITS four-tank units side by side (nx = 40, nu = 20),
+#: each unit phase 16 (a)'s tank_mhe_ofb configuration with small
+#: numpy-seeded offsets (NET_SEED) to its start, prior and setpoint, and a
+#: dense off-block state weight; the MPC's horizon, and NET_STEPS steps of
+#: the output-feedback loop
+NET_UNITS = 10
+NET_NT = 20
+NET_STEPS = 6
+NET_SEED = 22
+#: per unit: phase 16 (a)'s state weight
+NET_Q_UNIT = np.array([10.0, 10.0, 0.1, 0.1])
+#: phase 22 (b): K1's block path against its plain version at these (nx,
+#: nu) (past each lane limit, the network's MPC and MHE, a pair whose
+#: working set passes shared memory), batches and horizons
+K1_BLOCK_SHAPES = ((31, 2), (4, 33), (40, 20), (40, 40), (96, 48))
+K1_BLOCK_BATCHES = (None, 64)
+K1_BLOCK_NTS = (3, 20, 33)
+#: seconds a phase's child process may take (on an H100: phase 21 ~70 s
+#: as a child, phase 22 ~4-6 min beside phases 15-18)
+PHASE_CHILD_TIMEOUT = 900
+
+
+def tank_network_ode(units=NET_UNITS):
+    """``units`` four-tank processes side by side: ``four_tank_ode`` of
+    unit i on x[4i:4i+4] and u[2i:2i+2], concatenated (a lambda, so K2
+    traces it into a functor of its own)."""
+    from gpmpc_tpu_torch.systems import four_tank_ode
+    return lambda x, u: torch.cat(
+        [four_tank_ode(x[..., 4 * i:4 * i + 4], u[..., 2 * i:2 * i + 2])
+         for i in range(units)], dim=-1)
+
+
+def tank_network_setup(units=NET_UNITS):
+    """Each unit's start, prior and setpoint (phase 16 (a)'s plus offsets
+    uniform in +-0.4, half of them on the setpoint; numpy, NET_SEED), the
+    state weight kron(I, diag(NET_Q_UNIT)) + 0.1 mean(NET_Q_UNIT) 11'/nx
+    (positive definite and dense, so that K1's matrices are full) and the
+    measurement matrix (each unit's two lower levels)."""
+    rng = np.random.default_rng(NET_SEED)
+    off = rng.uniform(-0.4, 0.4, (units, 4))
+    nx = 4 * units
+    q = (np.kron(np.eye(units), np.diag(NET_Q_UNIT))
+         + 0.1 * NET_Q_UNIT.mean() * np.ones((nx, nx)) / nx)
+    c = np.zeros((2 * units, nx))
+    for i in range(units):
+        c[2 * i, 4 * i] = c[2 * i + 1, 4 * i + 1] = 1.0
+    return ((OFB_X0 + off).ravel(), (OFB_XBAR + off).ravel(),
+            (OFB_XSP + 0.5 * off).ravel(), q, c)
+
+
+def build_tank_network(dev, units=NET_UNITS):
+    """Phase 22's plant, estimator and controller on ``dev``, f32: the
+    network's fused plant (K2 traced, 10 substeps, R = 1e-3 I), the MHE
+    (window 4, each unit's lower two levels measured, rk4 dynamics, the
+    filtered arrival cost, levels >= 0; OFB_MHE_OPTS: K1 at (nx, nx)) and
+    the rk4 MPC (no GP, Nt = NET_NT, R = 0.01 I, phase 16 (a)'s bounds per
+    unit; the main path's RTI budget after OFB_MPC_INIT: K1 at (nx,
+    nu))."""
+    from gpmpc_tpu_torch import MHE, MPC, Model
+    nx, nu = 4 * units, 2 * units
+    _, _, _, q, c = tank_network_setup(units)
+    model = Model(Nx=nx, Nu=nu, ode=tank_network_ode(units), dt=3.0,
+                  R=np.diag([1e-3] * nx), clip_negative=True,
+                  integrator_substeps=10, fused_integrator=True, device=dev,
+                  dtype=torch.float32)
+    ct = torch.tensor(c, dtype=torch.float32, device=dev)
+    mhe = MHE(model, window=4, Q_noise=model.R,
+              R_meas=np.diag([2.5e-3] * 2 * units),
+              P_arrival=np.diag([0.5] * nx), h=lambda x: ct @ x,
+              xlb=[0.0] * nx, discrete_method="rk4", arrival_update=True,
+              solver_opts=OFB_MHE_OPTS)
+    mpc = MPC(horizon=NET_NT * 3.0, model=model, gp=None, gp_method="ME",
+              discrete_method="rk4", Q=q, R=0.01 * np.eye(nu),
+              ulb=[0.0] * nu, uub=[8.0] * nu,
+              xlb=[0.5, 0.5, 0.1, 0.1] * units,
+              xub=[14.0, 25.0, 8.0, 8.0] * units, feedback=False,
+              percentile=None, cov_updates=1, solver_opts=RTI,
+              init_solver_opts=OFB_MPC_INIT, device=dev)
+    return mhe, mpc
+
+
+def network_loop(ck, dev, card):
+    """Phase 22 (a): simulate_output_feedback of the network on the card,
+    NET_STEPS steps with phase 16 (a)'s noise draws at its widths: K1 at
+    (40, 40) al x mi a MHE step and at (40, 20) in the cold start and al x
+    mi a control step, both on the block path, the traced K2 once a step,
+    exactly; finite states and estimates; every step's MHE window and MPC
+    solve replayed on the CPU in f32 from the card's inputs (phase 16
+    (a)'s bounds: estimate and next state within rtol 1e-2 over the first
+    TRANSIENT_STEPS steps, 1e-3 after); the estimate error per step; ms
+    per MHE and per MPC step by CUDA events.  Returns its record."""
+    from gpmpc_tpu_torch import simulate_output_feedback
+    nx, nu = 4 * NET_UNITS, 2 * NET_UNITS
+    x0, x_bar, x_sp, _, _ = tank_network_setup()
+    t0 = time.perf_counter()
+    mhe, mpc = build_tank_network(dev)
+    t_build = time.perf_counter() - t0
+    paths = {p: ck.riccati_path(*p) for p in ((nx, nx), (nx, nu))}
+    log(f"[network] {NET_UNITS} four-tank units (nx={nx}, nu={nu}) built in "
+        f"{t_build:.2f} s (the ODE traced for K2: ode_id "
+        f"{k2_id(mpc.model)}); K1 paths {paths}; block layouts "
+        f"{[tuple(ck.riccati_block_layout(*p)) for p in paths]}")
+    if set(paths.values()) != {"block"}:
+        raise AssertionError("the network's K1 pairs are not on the block "
+                             "path")
+    # the traced K2 against its plain version (its first launch builds its
+    # unit) at one rollout and 64
+    _, _, _, h, n_sub = traced_odes(dev)["network"]
+    k2_err = None
+    for batch in (None, 64):
+        x, u = traced_inputs("network", batch, (batch or 1) + n_sub, dev)
+        err = ck.check_rk4_substeps(mpc.model.ode, x, u, h, n_sub,
+                                    spec=mpc.model.k2)
+        k2_err = err if k2_err is None else k2_err
+        log(f"[network] traced K2 batch={batch or 1}, n_sub={n_sub} "
+            f"max|err| {err:.3e} against its plain version (rtol 1e-5, "
+            f"atol 1e-6)")
+    build = ck.K2_BUILDS.get(k2_id(mpc.model))
+    if build is not None:
+        log(f"[network] traced K2 unit built at its first launch in "
+            f"{build['seconds']:.2f} s -> {build['path']}")
+    mrec = CallRecorder(mhe, "_step")
+    prec = CallRecorder(mpc, "_solve_step")
+    rng = np.random.default_rng(23)
+    noise_w = 0.01 * rng.standard_normal((NET_STEPS, nx))
+    noise_v = 0.05 * rng.standard_normal((NET_STEPS, nu))
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res = simulate_output_feedback(mpc, mhe, x0, x_bar, NET_STEPS * mpc.dt,
+                                   x_sp, noise_w=noise_w, noise_v=noise_v)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_shape = dict(ck.LAUNCHES), dict(ck.RICCATI_LAUNCHES)
+    k2 = dict(ck.K2_LAUNCHES)
+    m_cfg, cfg, init = mhe.sqp_cfg, mpc.sqp_cfg, mpc.init_sqp_cfg
+    expect = {(nx, nx): NET_STEPS * m_cfg.al_iters * m_cfg.max_iters,
+              (nx, nu): init.al_iters * init.max_iters
+              + NET_STEPS * cfg.al_iters * cfg.max_iters}
+    expect_k2 = {k2_id(mpc.model): NET_STEPS}
+    log(f"[network] (a) output-feedback loop, {NET_STEPS} steps (MHE window "
+        f"{mhe.M} al{m_cfg.al_iters} x mi{m_cfg.max_iters}, MPC Nt={mpc.Nt} "
+        f"RTI after an al{init.al_iters} x mi{init.max_iters} cold start, "
+        f"fused plant, f32): {wall:.3f} s; K1 launches by (nx, nu) "
+        f"{by_shape}, expected {expect}; K2 by functor {k2}, expected "
+        f"{expect_k2}; all launches {launches}")
+    if by_shape != expect or k2 != expect_k2 or launches[
+            "riccati_sweep"] != sum(expect.values()):
+        raise AssertionError("the network's launch counts are off")
+    if not all(np.all(np.isfinite(v)) for v in (res.x_true, res.x_hat,
+                                                  res.u)):
+        raise AssertionError("non-finite network loop")
+    err = np.linalg.norm(res.x_hat - res.x_true[:-1], axis=1)
+    m_ms, p_ms = mrec.ms(), prec.ms()
+    lower = res.x_true[-1].reshape(NET_UNITS, 4)[:, :2]
+    miss = float(np.abs(lower - x_sp.reshape(NET_UNITS, 4)[:, :2]).max())
+    log(f"[network] (a) |x_hat - x| per step {np.round(err, 5).tolist()}; "
+        f"lower tanks' largest distance to their setpoint after "
+        f"{NET_STEPS} steps {miss:.4f}; MHE converged "
+        f"{int(res.mhe_converged.sum())}/{NET_STEPS}, MPC "
+        f"{int(res.mpc_converged.sum())}/{NET_STEPS}; ms per MHE step (CUDA "
+        f"events) mean {np.mean(m_ms):.3f}, median {np.median(m_ms):.3f}; "
+        f"per MPC step mean {np.mean(p_ms):.3f}, median "
+        f"{np.median(p_ms):.3f} on {card}")
+    if not np.all(np.isfinite(err)):
+        raise AssertionError("non-finite estimate error")
+    t0 = time.perf_counter()
+    cpu_mhe, cpu_mpc = build_tank_network(torch.device("cpu"))
+    cpu_mhe.consts, cpu_mpc.consts = to_cpu(mhe.consts), to_cpu(mpc.consts)
+    sigma0 = torch.zeros(nx, nx)
+    worst = [[0.0, 0.0], [0.0, 0.0]]          # [estimate, next state]
+    for k in range(NET_STEPS):
+        state, y, u_prev = mrec.calls[k]
+        _, (x_hat_c, _) = cpu_mhe._step(to_cpu(state), y.cpu(),
+                                        u_prev.cpu())
+        rel_hat = float(((mrec.outs[k][1][0].cpu() - x_hat_c).abs()
+                         / x_hat_c.abs()).max())
+        warm, x_hat, ref, u_prev, _, con_par, _ = prec.calls[k]
+        _, u_c, _, _ = cpu_mpc._solve_step(
+            to_cpu(warm), x_hat.cpu(), ref.cpu(), u_prev.cpu(), sigma0,
+            con_par.cpu(), cpu_mpc.consts)
+        u_c = cpu_mpc._saturate(u_c, u_prev.cpu(), cpu_mpc.consts)
+        x_c = torch.clamp(cpu_mpc.model.integrate(
+            torch.tensor(res.x_true[k]), u_c)
+            + torch.tensor(noise_w[k], dtype=torch.float32), min=0.0)
+        rel = float((torch.tensor(res.x_true[k + 1]) - x_c).abs().div(
+            x_c.abs()).max())
+        phase = int(k >= TRANSIENT_STEPS)
+        worst[phase] = [max(worst[phase][0], rel_hat),
+                        max(worst[phase][1], rel)]
+    log(f"[network] (a) every step replayed on the CPU in f32 (plain "
+        f"versions) from the card's inputs ({time.perf_counter() - t0:.1f} "
+        f"s): max relative difference of the estimate / the next state "
+        f"{worst[0][0]:.3e} / {worst[0][1]:.3e} in the first "
+        f"{TRANSIENT_STEPS} steps (rtol 1e-2), {worst[1][0]:.3e} / "
+        f"{worst[1][1]:.3e} after (rtol 1e-3)")
+    if max(worst[0]) > 1e-2 or max(worst[1]) > 1e-3:
+        raise AssertionError("card and CPU network steps disagree")
+    return dict(launches={f"{a},{b}": n for (a, b), n in by_shape.items()},
+                k2=sum(k2.values()), k2_err=k2_err, wall=wall,
+                est_err=err.tolist(),
+                mhe_ms=float(np.median(m_ms)), mpc_ms=float(np.median(p_ms)),
+                replay=worst)
+
+
+def k1_block_checks(ck, dev):
+    """Phase 22 (b) and ``--k1``: K1's block path against its plain
+    version (``cuda_kernels.riccati_check_tolerances``) at K1_BLOCK_SHAPES
+    x K1_BLOCK_BATCHES x K1_BLOCK_NTS, a batch through the vmap rule, one
+    launch each on the block path and no library of its own; an
+    indefinite and a zero H_uu pivot at each pair (non-finite gains); the
+    layout the built kernel takes against ``riccati_block_layout``.
+    Returns {"nx,nu": max abs error over the pair's checks}."""
+    import ctypes
+    lib = ck.build_library()
+    out = (ctypes.c_int * 4)()
+    for nx in range(1, 130, 3):
+        for nu in (1, 2, 7, 20, 33, 48, nx):
+            lib.gpmpc_riccati_block_layout(nx, nu, out)
+            if (out[0], bool(out[1]), out[2], out[3]) != tuple(
+                    ck.riccati_block_layout(nx, nu)):
+                raise AssertionError(f"K1 block layout at ({nx}, {nu}): the "
+                                     f"kernel's {list(out)} != the mirror's")
+    log("[K1 block] the kernel's layout equals riccati_block_layout at 301 "
+        "pairs")
+    errs = {}
+    for nx, nu in K1_BLOCK_SHAPES:
+        if ck.riccati_path(nx, nu) != "block":
+            raise AssertionError(f"({nx}, {nu}) is not on the block path")
+        t0 = time.perf_counter()
+        line = []
+        for batch in K1_BLOCK_BATCHES:
+            for nt in K1_BLOCK_NTS:
+                args = ck.stage_qp_inputs(nt, nx, nu, nt + nx + nu, batch,
+                                          device=dev)
+                reg = torch.full(() if batch is None else (batch,), 1e-6,
+                                 device=dev)
+                ck.reset_launches()
+                err = ck.check_riccati_sweep(args, reg,
+                                             vmapped=batch is not None)
+                torch.cuda.synchronize()
+                if ck.RICCATI_LAUNCHES != {(nx, nu): 1} or (
+                        nx, nu) in ck.RICCATI_BUILDS:
+                    raise AssertionError(f"K1 ({nx}, {nu}) did not launch "
+                                         f"once on the block path")
+                errs[f"{nx},{nu}"] = max(errs.get(f"{nx},{nu}", 0.0), err)
+                line.append(f"B={batch or 1} Nt={nt} {err:.2e}")
+        for kind in ("indefinite", "zero"):
+            ck.check_riccati_sweep_bad_pivot(kind, device=dev,
+                                             shape=(8, nx, nu))
+        torch.cuda.synchronize()
+        log(f"[K1 block] ({nx}, {nu}) {tuple(ck.riccati_block_layout(nx, nu))}"
+            f": max|err| against the plain version {'; '.join(line)} (B=64 "
+            f"through the vmap rule; tolerances riccati_check_tolerances); "
+            f"an indefinite and a zero pivot -> non-finite gains "
+            f"({time.perf_counter() - t0:.1f} s)")
+    return errs
+
+
+def network_phase(ck, dev, card):
+    """Phase 22: (a) the network's loop, (b) K1's block-path checks."""
+    t0 = time.perf_counter()
+    rec = network_loop(ck, dev, card)
+    rec["errs"] = k1_block_checks(ck, dev)
+    log(f"[network] phase 22: {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+def k1_block_rows(ck, dev, card, launches):
+    """Phase 11's block-path rows: K1 at the network's (40, 20) (Nt = 20,
+    B = 1 and 64) and (40, 40) (the MHE's Nt = 5), and at (96, 48) (Nt =
+    3, past shared memory): each held against its plain version here,
+    event ms over 200 calls, device ms per launch over 200, the plain
+    version's ms over one call after one (it unrolls the nu x nu Cholesky
+    op by op, one launch an op: on an H100 ~0.8-1.8 s a call at these
+    shapes, ~10 s at (96, 48) with Nt = 20), the bound; ``launches`` by
+    "nx,nu" from phase 22 (a) (none at B = 64 or (96, 48))."""
+    rows = []
+    for name, nt, nx, nu, bsz in (
+            ("riccati_sweep[block,40,20,network_mpc]", NET_NT, 40, 20, 1),
+            ("riccati_sweep[block,40,40,network_mhe]", 5, 40, 40, 1),
+            ("riccati_sweep[block,40,20,B64]", NET_NT, 40, 20, 64),
+            ("riccati_sweep[block,96,48,workspace]", 3, 96, 48, 1)):
+        batch = None if bsz == 1 else bsz
+        q = ck.stage_qp_inputs(nt, nx, nu, nt + nx, batch, device=dev)
+        reg = torch.full(() if batch is None else (batch,), 1e-6, device=dev)
+        err = ck.check_riccati_sweep(q, reg)
+        out = ck.riccati_sweep(*q, reg)
+        ms = cuda_time_ms(lambda: ck.riccati_sweep(*q, reg), reps=200)
+        dev_ms, _, note = device_time_ms(lambda: ck.riccati_sweep(*q, reg))
+        plain = cuda_time_ms(lambda: ck.riccati_sweep_reference(*q, reg),
+                             reps=1, warmup=1)
+        bd = bound(nbytes(*q, reg, *out), bsz * riccati_flops(nt, nx, nu))
+        n = launches.get(f"{nx},{nu}", 0) if bsz == 1 and nx == 40 else 0
+        log(f"[time] riccati_sweep block path ({nx}, {nu}) at Nt={nt}, "
+            f"B={bsz}: kernel {ms:.4f} ms, device {fmt_ms(dev_ms)}{note} per "
+            f"launch, plain {plain:.4f} ms, bound {bd[0]:.3e} ms ({bd[1]}); "
+            f"{n} launches on its path; max|err| {err:.3e}; layout "
+            f"{tuple(ck.riccati_block_layout(nx, nu))} on {card}")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "gpmpc_tpu_torch/csrc/riccati_sweep_block.cu",
+                     "replaces": "gpmpc_tpu/ops/pallas_kernels.py:394",
+                     "launches": n, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "device_ms": dev_ms,
+                     "bound_ms": bd[0], "bound_by": bd[1],
+                     "library_ms": None})
+    return rows
+
+
+def network_alone():
+    """Phases 1-2, phase 22 in this process, and phase 11's block-path
+    rows."""
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    card = card_line()
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    log(f"[card] nvidia-smi: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    ck.build_library()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    log_ptxas(ck)
+    rec = network_phase(ck, dev, card)
+    rows = k1_block_rows(ck, dev, card, rec["launches"])
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+class PhaseChild:
+    """A phase in a child process (``chip_smoke.py --phase-child NAME
+    DIR``) that runs beside the main process's phases, its inputs in
+    ``build/phases/NAME_in.npz``, its log in ``NAME.log`` and its result
+    in ``NAME.json`` there.  ``join`` waits (within PHASE_CHILD_TIMEOUT s
+    of the start), prints the child's log and returns its result, or
+    raises; ``stop`` kills it if it still runs."""
+
+    def __init__(self, name, inputs=None):
+        self.name = name
+        self.dir = os.path.join(HERE, "build", "phases")
+        os.makedirs(self.dir, exist_ok=True)
+        self.out = os.path.join(self.dir, f"{name}.json")
+        if os.path.exists(self.out):
+            os.remove(self.out)
+        if inputs is not None:
+            np.savez(os.path.join(self.dir, f"{name}_in.npz"), **inputs)
+        self.log_path = os.path.join(self.dir, f"{name}.log")
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as fh:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--phase-child", name, self.dir], cwd=HERE, stdout=fh,
+                stderr=subprocess.STDOUT)
+
+    def join(self):
+        left = PHASE_CHILD_TIMEOUT - (time.perf_counter() - self.t0)
+        try:
+            rc = self.proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        wall = time.perf_counter() - self.t0
+        with open(self.log_path) as fh:
+            for line in fh.read().splitlines():
+                log(f"[child {self.name}] {line}")
+        log(f"[child {self.name}] exit {rc}, {wall:.1f} s from its start")
+        if rc != 0 or not os.path.exists(self.out):
+            raise AssertionError(f"phase child {self.name} failed (exit "
+                                 f"{rc}); its log is {self.log_path}")
+        with open(self.out) as fh:
+            return json.load(fh)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def gp_record(gp):
+    """A GP's training set, hypers and fit evaluations, for JSON."""
+    from gpmpc_tpu_torch.models.convert import hypers_to_numpy
+    return dict(X=gp.X_raw.cpu().numpy().tolist(),
+                Y=gp.Y_raw.cpu().numpy().tolist(),
+                hyper={k: v.tolist()
+                       for k, v in hypers_to_numpy(gp.hyper).items()},
+                n_evals=int(gp.n_evals))
+
+
+def gp_from_record(rec, dev):
+    """The GP of :func:`gp_record` on ``dev``, f32 (its posterior
+    recomputed from the same training set and hypers)."""
+    from gpmpc_tpu_torch.models.convert import gp_from_numpy
+    gp = gp_from_numpy(np.array(rec["X"]), np.array(rec["Y"]),
+                       **{k: np.array(v) for k, v in rec["hyper"].items()},
+                       device=dev, dtype=torch.float32, gp_method="TA",
+                       optimizer_opts=GP_OPTS)
+    gp.n_evals = rec["n_evals"]
+    return gp
+
+
+def phase_child(name, out_dir):
+    """A phase's child process (:class:`PhaseChild`): ``traced_k2`` runs
+    phase 21 on phase 5's trajectory (``traced_k2_in.npz``), ``network``
+    phase 22; each writes its result to ``NAME.json``."""
+    from gpmpc_tpu_torch.ops import cuda_kernels as ck
+    card = card_line()
+    dev = torch.device("cuda")
+    ck.build_library()
+    if name == "traced_k2":
+        with np.load(os.path.join(out_dir, "traced_k2_in.npz")) as f:
+            xs_np = f["xs"]
+        launches, gp = traced_k2_phase(ck, dev, card, xs_np)
+        res = dict(launches=launches, gp=gp_record(gp))
+    elif name == "network":
+        res = network_phase(ck, dev, card)
+    else:
+        raise ValueError(f"no phase child {name!r}")
+    with open(os.path.join(out_dir, f"{name}.json"), "w") as fh:
+        json.dump(res, fh)
+    return 0
+
+
 def main(argv):
     if "--sparse-reference" in argv:        # phase 17's CPU child process
         sys.path.insert(0, HERE)
@@ -5546,6 +6031,10 @@ def main(argv):
         i = argv.index("--example-child")
         return example_child(argv[i + 1], argv[i + 2] == "quick",
                              argv[i + 3])
+    if "--phase-child" in argv:             # phases 21 and 22's children
+        sys.path.insert(0, HERE)
+        i = argv.index("--phase-child")
+        return phase_child(argv[i + 1], argv[i + 2])
     if "--example-steps" in argv:           # --examples --steps' children
         sys.path.insert(0, HERE)
         i = argv.index("--example-steps")
@@ -5580,6 +6069,8 @@ def main(argv):
         return study_alone()
     if "--traced-k2" in argv:
         return traced_k2_alone()
+    if "--network" in argv:
+        return network_alone()
     if "--mesh" in argv:
         return mesh_alone()
     if "--slice-g" in argv:
@@ -5686,37 +6177,46 @@ def main(argv):
             f"steps {us:9.1f} us/step")
 
     # 21. the main path as the JAX package builds it and the quadrotor's
-    # loop, each plant's ODE traced into K2
-    traced_launches, quad_gp = traced_k2_phase(ck, dev, card, xs_np)
-
-    # 7. the GP path's kernels against their plain versions
-    errs = check_gp_kernels(gc, dev)
-    errs.update(riccati_sweep=k1_err, rk4_substeps=k2_err)
-
-    # 8. training at full width, 9. validation, 10. the trained GP's loop
-    gp, train_launches = train_on_card(
-        ck, dev, "fixture", dict(multistart=1, max_iters=100))
-    gp_example, _ = train_on_card(ck, dev, "example", MESH_FIT)
-    # 19. the data-parallel surfaces over a mesh: child processes that run
-    # beside phases 9-13, checked after phase 13
-    mesh_children = MeshChildren(gp_example)
+    # loop, each plant's ODE traced into K2: a child process on phase 5's
+    # trajectory that runs beside phases 7-14, checked before phase 15
+    p21 = PhaseChild("traced_k2", inputs=dict(xs=xs_np))
     try:
-        val_launches = validate_on_card(ck, dev, gp)
-        trained_loop(dev, gp, xs_np, us_np)
+        # 7. the GP path's kernels against their plain versions
+        errs = check_gp_kernels(gc, dev)
+        errs.update(riccati_sweep=k1_err, rk4_substeps=k2_err)
 
-        # 12. the car's closed loop, 13. the car's validation
-        car_launches = car_loop(ck, dev, card)
-        car_val_launches = car_validation(ck, gc, dev, card)
-        mesh_rows_19 = mesh_phase(ck, gc, dev, card, mesh_children)
+        # 8. training at full width, 9. validation, 10. the trained GP's
+        # loop
+        gp, train_launches = train_on_card(
+            ck, dev, "fixture", dict(multistart=1, max_iters=100))
+        gp_example, _ = train_on_card(ck, dev, "example", MESH_FIT)
+        # 19. the data-parallel surfaces over a mesh: child processes that
+        # run beside phases 9-13, checked after phase 13
+        mesh_children = MeshChildren(gp_example)
+        try:
+            val_launches = validate_on_card(ck, dev, gp)
+            trained_loop(dev, gp, xs_np, us_np)
+
+            # 12. the car's closed loop, 13. the car's validation
+            car_launches = car_loop(ck, dev, card)
+            car_val_launches = car_validation(ck, gc, dev, card)
+            mesh_rows_19 = mesh_phase(ck, gc, dev, card, mesh_children)
+        finally:
+            mesh_children.stop()
+
+        # 14. the batched study
+        study_launches, study_res = study_phase(ck, dev, card)
+        r21 = p21.join()
     finally:
-        mesh_children.stop()
+        p21.stop()
+    traced_launches = r21["launches"]
+    quad_gp = gp_from_record(r21["gp"], dev)
 
-    # 14. the batched study
-    study_launches, study_res = study_phase(ck, dev, card)
-
-    # 20. the walkthroughs at full settings: child processes that run
-    # beside phases 15-17, checked after phase 18
+    # 20. the walkthroughs at full settings and 22. the four-tank network
+    # under output feedback (K1's block path): child processes that run
+    # beside phases 15-18, checked after phase 18
     ex_children = ExampleChildren(EXAMPLES_FULL, quick=False)
+    p22 = PhaseChild("network")
     try:
         # 15. slice F, part 1: UT, GH, cubature5, the Matérn fits and
         # loop, soft and terminal constraints with a reference trajectory
@@ -5741,8 +6241,10 @@ def main(argv):
         slice_g_rows = slice_g_phase(ck, dev, card, g_children,
                                      eager_trace=False)
         examples_rows = examples_phase(gc, dev, card, ex_children)
+        network = p22.join()
     finally:
         ex_children.stop()
+        p22.stop()
 
     # 11. kernel times beside their bounds
     times = kernel_times(ck, gc, four_tank_ode, dev, card)
@@ -5752,7 +6254,13 @@ def main(argv):
     k3_times(gc, dev, card)
     k2_times(ck, four_tank_ode, dev, card)
     k2_chain_cycles(ck, dev, card)
+    # the network's unit, built by phase 22's child, loads from disk
+    ode, nx, nu, _, _ = traced_odes(dev)["network"]
+    traced_specs["network"] = ck.register_ode(ode, nx, nu, dev)
     traced_times = traced_k2_times(ck, dev, card, traced_specs)
+    block_rows = k1_block_rows(ck, dev, card, network["launches"])
+    traced_launches["network"] = network["k2"]
+    TRACED_ERRS["network"] = network["k2_err"]
     path_launches = {"riccati_sweep": launches["riccati_sweep"],
                      "rk4_substeps": launches["rk4_substeps"],
                      "se_ard_gram": train_launches["se_ard_gram"],
@@ -5789,8 +6297,11 @@ def main(argv):
     rows += study_kernel_rows(ck, dev, card, study_launches, study_res,
                               sources)
     rows += traced_k2_rows(traced_specs, traced_launches, traced_times)
+    # the block path's rows at the network's shapes; its B=64 and (96, 48)
+    # rows, which no path of this run launches, are in the log alone
     rows += (slice_f_rows + slice_f2_rows + slice_f3_rows + slice_g_rows
-             + mesh_rows_19 + examples_rows)
+             + mesh_rows_19 + examples_rows
+             + [r for r in block_rows if r["launches"]])
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,16 +59,80 @@ def test_riccati_kernel_zero_pivot_gives_non_finite_gains(dev, shape):
 
 
 def test_riccati_kernel_refuses_an_uninstantiated_shape(dev):
-    """Every admitted (nx, nu) is instantiated (at its first launch if it is
-    not pre-built); a pair past the kernel's lane limits raises ValueError
-    before any build or launch."""
-    for nx, nu, limit in [(31, 2, "nx < 31"), (4, 33, "nu <= 32")]:
+    """Every (nx, nu) launches a kernel: a pair past the warp kernel's lane
+    limits, (31, 2) and (4, 33), launches once on the block path (no
+    library of its own), within the plain version's tolerances; nx < 1
+    raises ValueError before any launch."""
+    for nx, nu in [(31, 2), (4, 33)]:
+        assert ck.riccati_path(nx, nu) == "block"
         args = ck.stage_qp_inputs(8, nx, nu, 0, device=dev)
         before = ck.LAUNCHES["riccati_sweep"]
-        with pytest.raises(ValueError, match=limit):
-            ck.riccati_sweep(*args, torch.tensor(1e-6, device=dev))
-        assert ck.LAUNCHES["riccati_sweep"] == before
+        ck.check_riccati_sweep(args, torch.tensor(1e-6, device=dev))
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["riccati_sweep"] == before + 1
         assert (nx, nu) not in ck.RICCATI_BUILDS
+    with pytest.raises(ValueError, match="nx >= 1"):
+        ck.riccati_entry(0, 2)
+
+
+#: K1's block path: past each lane limit, the four-tank network's MPC (40,
+#: 20) and MHE (40, 40), and a pair whose working set passes shared memory
+K1_BLOCK_SHAPES = [(31, 2), (4, 33), (40, 20), (40, 40), (96, 48)]
+
+
+@pytest.mark.parametrize("nt", [3, 20, 33])
+@pytest.mark.parametrize("batch", [None, 64])
+@pytest.mark.parametrize("nx,nu", K1_BLOCK_SHAPES)
+def test_riccati_block_path_matches_plain_version(dev, nx, nu, batch, nt):
+    """K1's block path at one problem and a batch, horizons of 3, 20 and
+    33 stages: one launch, within the plain version's tolerances
+    (``riccati_check_tolerances``: widened to 3x the plain version's own
+    f32-versus-f64 gap where that is larger, never past 1e-4 x scale)."""
+    assert ck.riccati_path(nx, nu) == "block"
+    args = ck.stage_qp_inputs(nt, nx, nu, nt + nx + nu, batch, device=dev)
+    reg = torch.full(() if batch is None else (batch,), 1e-6, device=dev)
+    ck.reset_launches()
+    ck.check_riccati_sweep(args, reg)
+    torch.cuda.synchronize()
+    assert ck.RICCATI_LAUNCHES == {(nx, nu): 1}
+
+
+@pytest.mark.parametrize("kind", ["indefinite", "zero"])
+@pytest.mark.parametrize("nx,nu", K1_BLOCK_SHAPES)
+def test_riccati_block_path_bad_pivot_gives_non_finite_gains(dev, nx, nu,
+                                                             kind):
+    ck.check_riccati_sweep_bad_pivot(kind, device=dev, shape=(8, nx, nu))
+
+
+@pytest.mark.parametrize("nx,nu", [(40, 20), (40, 40), (96, 48)])
+def test_riccati_block_path_vmap_rule_launches_once(dev, nx, nu):
+    """Under ``torch.func.vmap`` a block-path pair goes through the custom
+    operator's vmap rule: one launch for B = 64, within the plain
+    version's tolerances, bitwise the batched call's; a run repeats
+    bitwise (the decrease sums in a fixed order)."""
+    from torch.func import vmap
+    args = ck.stage_qp_inputs(20, nx, nu, 13, batch=64, device=dev)
+    reg = torch.full((64,), 1e-6, device=dev)
+    ck.reset_launches()
+    ck.check_riccati_sweep(args, reg, vmapped=True)
+    torch.cuda.synchronize()
+    assert ck.RICCATI_LAUNCHES == {(nx, nu): 1}
+    for g, r in zip(vmap(ck.riccati_sweep)(*args, reg),
+                    ck.riccati_sweep(*args, reg)):
+        assert torch.equal(g, r)
+
+
+def test_riccati_block_layout_is_the_library_s(dev):
+    """``riccati_block_layout`` is the layout the built kernel takes, on
+    both sides of every break for nx = nu and at lopsided pairs."""
+    import ctypes
+    lib = ck.build_library()
+    out = (ctypes.c_int * 4)()
+    for nx in range(1, 130, 3):
+        for nu in (1, 2, 7, 20, 33, 48, nx):
+            lib.gpmpc_riccati_block_layout(nx, nu, out)
+            assert (out[0], bool(out[1]), out[2], out[3]) == tuple(
+                ck.riccati_block_layout(nx, nu)), (nx, nu)
 
 
 #: (nx, nu) of K1 beyond the car's: the four-tank MHE's pre-built (4, 4),

@@ -14,10 +14,11 @@ from gpmpc_tpu.ops.pallas_kernels import riccati_sweep_pallas
 from gpmpc_tpu.solvers import riccati as jric
 from gpmpc_tpu_torch.ops import cuda_kernels
 from gpmpc_tpu_torch.ops.cuda_kernels import (
-    CSRC, LAUNCHES, RICCATI_CHUNK, RICCATI_SHAPES, RICCATI_SMEM_OPTIN,
-    check_riccati_sweep_bad_pivot, riccati_entry, riccati_layout,
-    riccati_library_path, riccati_sweep, riccati_sweep_reference,
-    riccati_unit_source)
+    CSRC, LAUNCHES, RICCATI_BLOCK_THREADS, RICCATI_CHUNK, RICCATI_SHAPES,
+    RICCATI_SMEM_OPTIN, check_riccati_sweep_bad_pivot, library_path,
+    riccati_block_layout, riccati_entry, riccati_layout,
+    riccati_library_path, riccati_path, riccati_sweep,
+    riccati_sweep_reference, riccati_unit_source)
 from gpmpc_tpu_torch.solvers import riccati as tric
 
 
@@ -128,12 +129,104 @@ def test_riccati_layout_admits_every_shape_within_the_lane_limits():
                                          (4, 33, "nu <= 32"),
                                          (0, 1, "nx < 31")])
 def test_riccati_limits_raise_before_any_build(nx, nu, limit):
-    """A pair past the kernel's lane limits raises ValueError naming the
-    limit from the one lookup every launch goes through, before any build
-    (this machine has no nvcc: a build would raise RuntimeError)."""
+    """The warp kernel's layout refuses a pair past its lane limits with
+    ValueError naming the limit, and such a pair takes the block path
+    (:func:`riccati_path`); nx < 1 or nu < 1 raises ValueError from the one
+    lookup every launch goes through, before any build (this machine has
+    no nvcc: a build would raise RuntimeError)."""
     with pytest.raises(ValueError, match=re.escape(limit)):
-        riccati_entry(nx, nu)
-    assert not riccati_library_path(max(nx, 1), nu).exists()
+        riccati_layout(nx, nu)
+    if nx >= 1:
+        assert riccati_path(nx, nu) == "block"
+        return
+    for pair in ((nx, nu), (1, 0), (-1, 3)):
+        with pytest.raises(ValueError, match="nx >= 1, nu >= 1"):
+            riccati_entry(*pair)
+    assert not riccati_library_path(1, nu).exists()
+    assert not library_path().exists()
+
+
+@pytest.mark.parametrize("nx,nu,path,work_smem", [
+    (30, 32, "warp", None), (1, 1, "warp", None), (31, 2, "block", True),
+    (4, 33, "block", True), (40, 20, "block", True), (40, 40, "block", True),
+    (96, 48, "block", False)])
+def test_riccati_routing(nx, nu, path, work_smem):
+    """Pairs within the warp kernel's lane limits (nx < 31, nu <= 32) take
+    the warp path as before; every other pair the block path, whose
+    working set leaves shared memory for a per-problem workspace past the
+    227 KB a block may opt in to ((96, 48): one stage buffer beside it)."""
+    assert riccati_path(nx, nu) == path
+    if path == "warp":
+        assert riccati_layout(nx, nu)[1] <= RICCATI_SMEM_OPTIN
+        return
+    lay = riccati_block_layout(nx, nu)
+    assert lay.work_smem == work_smem
+    assert lay.smem_bytes <= RICCATI_SMEM_OPTIN
+    if work_smem:
+        assert lay.buffers == 2 and lay.smem_bytes > 4 * lay.work_floats
+    else:
+        assert lay.buffers == 1 and lay.work_floats > 3 * nx * nx
+        assert lay.smem_bytes + 4 * lay.work_floats > RICCATI_SMEM_OPTIN
+
+
+def test_riccati_block_layout_mirrors_the_kernel_source(tmp_path):
+    """riccati_block_layout is csrc/riccati_sweep_block.cu's block_layout:
+    the source's own function (and its constants), compiled here with the
+    host g++, gives the same layout at pairs on both sides of every break;
+    the source's thread count is RICCATI_BLOCK_THREADS and its opt-in the
+    warp kernel's SMEM_OPTIN."""
+    src = (CSRC / "riccati_sweep_block.cu").read_text()
+    assert re.findall(r"constexpr int THREADS = (\d+);", src) == [
+        str(RICCATI_BLOCK_THREADS)]
+    assert re.findall(r"constexpr int OPTIN_FLOATS = (\d+) / 4;", src) == [
+        str(RICCATI_SMEM_OPTIN)]
+    pieces = [re.search(p, src, re.S).group(0) for p in (
+        r"constexpr int OPTIN_FLOATS.*?;", r"constexpr int pad4.*?\}",
+        r"struct BlockLayout \{.*?\};",
+        r"inline BlockLayout block_layout\(.*?\n\}")]
+    pairs = [(n, n) for n in range(1, 130)] + [
+        (31, 2), (4, 33), (40, 20), (96, 48), (200, 3), (3, 200), (300, 10)]
+    main = "\n".join(
+        f"  {{ BlockLayout L = block_layout({a}, {b}); "
+        f'printf("%d %d %d %d\\n", L.buffers, L.work_smem, L.work, '
+        f"L.smem_bytes); }}"
+        for a, b in pairs)
+    (tmp_path / "lay.cpp").write_text(
+        "#include <cstdio>\n" + "\n".join(pieces)
+        + f"\nint main() {{\n{main}\n}}\n")
+    cxx = shutil.which("g++")
+    subprocess.run([cxx, "-std=c++17", "-o", str(tmp_path / "lay"),
+                    str(tmp_path / "lay.cpp")], check=True)
+    out = subprocess.run([str(tmp_path / "lay")], capture_output=True,
+                         text=True, check=True).stdout.split("\n")
+    for (a, b), line in zip(pairs, out):
+        buffers, work_smem, work, smem = map(int, line.split())
+        assert riccati_block_layout(a, b) == (buffers, bool(work_smem), work,
+                                              smem), (a, b)
+    # the breaks the source states for nx = nu = n
+    assert [riccati_block_layout(n, n)[:2] for n in (56, 57, 66, 67, 75, 76,
+                                                     107, 108)] == [
+        (2, True), (1, True), (1, True), (2, False), (2, False), (1, False),
+        (1, False), (0, False)]
+
+
+def test_riccati_block_path_is_in_the_main_library(tmp_path, monkeypatch):
+    """The block path's source builds into the main library (no build per
+    pair): an edited csrc/riccati_sweep_block.cu gives the main library
+    another name, and leaves the warp kernel's on-demand libraries' names
+    as they are (they hash csrc/riccati_sweep.cu alone)."""
+    main, warp = library_path(), riccati_library_path(3, 3)
+    for src in list(CSRC.glob("*.cu")) + list(CSRC.glob("*.h")):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(cuda_kernels, "CSRC", tmp_path)
+    assert library_path() == main and riccati_library_path(3, 3) == warp
+    with open(tmp_path / "riccati_sweep_block.cu", "a") as fh:
+        fh.write("// edited\n")
+    assert library_path() != main
+    assert library_path().name.startswith("libgpmpc_cuda_")
+    assert riccati_library_path(3, 3) == warp
+    assert "gpmpc_riccati_sweep_block_f32" in (
+        tmp_path / "riccati_sweep_block.cu").read_text()
 
 
 def test_riccati_unit_instantiates_one_shape(tmp_path):
@@ -204,6 +297,95 @@ def test_sweep_reference_matches_pallas_interpret_f32():
                                    atol=atol)
     np.testing.assert_allclose(float(got[4]), float(ref[4]), rtol=1e-4,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("nt,nx,nu", [(3, 33, 2), (2, 8, 33)])
+def test_sweep_reference_past_one_warp_matches_pallas_interpret(nt, nx, nu):
+    """Past the warp kernel's lanes (the block path's pairs): the plain
+    version against the TPU kernel (Pallas interpret, which takes any
+    shape) at the tolerances of tests/test_pallas.py."""
+    qp, dx0 = random_qp(nt, nx, nu, 4)
+    qp32 = [x.astype(np.float32) for x in qp]
+    dx0_32 = dx0.astype(np.float32)
+    ref = riccati_sweep_pallas(*map(jnp.asarray, qp32), jnp.asarray(dx0_32),
+                               1e-6, interpret=True)
+    got = riccati_sweep_reference(*map(torch.as_tensor, qp32),
+                                  torch.as_tensor(dx0_32),
+                                  torch.tensor(1e-6))
+    scale = float(np.abs(np.asarray(ref[0])).max()) + 1.0
+    for i, atol in ((0, 1e-5 * scale), (1, 1e-5 * scale), (2, 2e-5),
+                    (3, 2e-5)):
+        assert got[i].shape == ref[i].shape
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(ref[i]),
+                                   atol=atol)
+    np.testing.assert_allclose(float(got[4]), float(ref[4]), rtol=1e-4,
+                               atol=1e-6)
+
+
+def dense_kkt_solve(qp, dx0s, reg):
+    """The stage QP solved as one dense equality-constrained QP in numpy
+    f64 (reg I added to Q_uu, as the sweep adds it to H_uu), for each
+    start in ``dx0s`` (k, nx): dx (k, Nt+1, nx) and du (k, Nt, nu)."""
+    a, b, c, q_xx, q_uu, q_xu, q_x, q_u, qf_xx, qf_x = qp
+    nt, nx, nu = b.shape
+    nz = nt * (nx + nu)                   # x_1..x_Nt, then u_0..u_Nt-1
+    xi = lambda t: slice((t - 1) * nx, t * nx)          # noqa: E731
+    ui = lambda t: slice(nt * nx + t * nu, nt * nx + (t + 1) * nu)  # noqa
+    h = np.zeros((nz, nz))
+    g = np.zeros((len(dx0s), nz))
+    e_mat = np.zeros((nt * nx, nz))
+    e = np.zeros((len(dx0s), nt * nx))
+    for t in range(nt):
+        h[ui(t), ui(t)] += q_uu[t] + reg * np.eye(nu)
+        g[:, ui(t)] += q_u[t]
+        if t == 0:
+            g[:, ui(0)] += dx0s @ q_xu[0]
+        else:
+            h[xi(t), xi(t)] += q_xx[t]
+            h[xi(t), ui(t)] += q_xu[t]
+            h[ui(t), xi(t)] += q_xu[t].T
+            g[:, xi(t)] += q_x[t]
+            e_mat[xi(t + 1), xi(t)] = -a[t]
+        e_mat[xi(t + 1), xi(t + 1)] = np.eye(nx)
+        e_mat[xi(t + 1), ui(t)] = -b[t]
+        e[:, xi(t + 1)] = c[t] + (dx0s @ a[0].T if t == 0 else 0.0)
+    h[xi(nt), xi(nt)] += qf_xx
+    g[:, xi(nt)] += qf_x
+    kkt = np.block([[h, e_mat.T], [e_mat, np.zeros((nt * nx, nt * nx))]])
+    sol = np.linalg.solve(kkt, np.concatenate([-g, e], axis=1).T).T
+    xs = sol[:, :nt * nx].reshape(-1, nt, nx)
+    dx = np.concatenate([dx0s[:, None], xs], axis=1)
+    return dx, sol[:, nt * nx:nz].reshape(-1, nt, nu)
+
+
+def test_sweep_reference_at_40x40_matches_jax_f64():
+    """The four-tank network's pairs, the block path's on the card: the
+    plain version in f64 at (Nt, nx, nu) = (4, 40, 8) against JAX x64
+    riccati.solve, and at the MHE's (4, 40, 40), which JAX's unrolled
+    Cholesky does not compile on XLA:CPU (its compiler crashes at nu =
+    40; nu = 30 takes ~60 s on one CPU core), against the QP solved densely in numpy f64: dx, du and
+    the first stage's gain (du_0's derivative in dx0, from the dense
+    solves at dx0 and dx0 + e_i) and feedforward, within 1e-8."""
+    qp, dx0 = random_qp(4, 40, 8, 8)
+    ref = jric.solve(jric.StageQP(*map(jnp.asarray, qp)), jnp.asarray(dx0),
+                     1e-6)
+    got = riccati_sweep_reference(*map(torch.as_tensor, qp),
+                                  torch.as_tensor(dx0), torch.tensor(1e-6))
+    for g, name in zip(got, ("dx", "du", "gain_k", "ff_k", "exp_dec")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(getattr(ref, name)),
+                                   rtol=0, atol=1e-8, err_msg=name)
+    qp, dx0 = random_qp(4, 40, 40, 8)
+    dx, du, gains, ffs, _ = riccati_sweep_reference(
+        *map(torch.as_tensor, qp), torch.as_tensor(dx0), torch.tensor(1e-6))
+    starts = np.concatenate([dx0[None], np.zeros((1, 40)), np.eye(40)])
+    d_dx, d_du = dense_kkt_solve(qp, starts, 1e-6)
+    np.testing.assert_allclose(dx.numpy(), d_dx[0], rtol=0, atol=1e-8)
+    np.testing.assert_allclose(du.numpy(), d_du[0], rtol=0, atol=1e-8)
+    np.testing.assert_allclose(ffs[0].numpy(), d_du[1, 0], rtol=0,
+                               atol=1e-8)
+    np.testing.assert_allclose(gains[0].numpy(),
+                               (d_du[2:, 0] - d_du[1, 0]).T, rtol=0,
+                               atol=1e-8)
 
 
 def test_sweep_reference_batched_equals_per_problem():
