@@ -95,7 +95,9 @@ script exits non-zero before its last line):
      the fixture GP's validate (one K3 launch), SMSE within 1.5x of the
      port's f64 validation on the CPU; K2 Car and K3 (k*, mean, and the
      variance formed from k*) against their plain versions on the
-     validation's own inputs;
+     validation's own inputs.  Phases 12-13 are a child process
+     (``--phase-child car``) started after phase 6 that runs beside
+     phases 7-18 and is checked after phase 18;
  14. the batched closed-loop study (bench config 5, bench.py:400-454) at
      full width: the pinned fixture GP, capacity 128, saturate, Nt=8,
      al1 x mi3 x ls4, f32, B=1024 rollouts from (8, 9, 1, 1) + 0.5 U(0, 1)
@@ -126,7 +128,10 @@ script exits non-zero before its last line):
      within 0.1 of the port's f64 CPU fit; (e) a 6-step Matérn-5/2 TA
      loop with the card-fitted GP; (f) a 6-step loop with soft state
      boxes, lam with the terminal constraint (an empty terminal block) and
-     an (M, Nx) ramp reference, every step replayed on the CPU.
+     an (M, Nx) ramp reference, every step replayed on the CPU.  Phase 15
+     is a child process (``--phase-child slice_f``; its TA step from a
+     3-step loop of its own) started after phase 14 that runs beside
+     phases 16-18 and is checked after phase 18.
  16. slice F, part 2a, in f32 on the card: (a) the output-feedback
      golden's configuration (tests/golden_configs.py, run_mhe_golden) on
      the fixture GP: simulate_output_feedback for 6 steps with the
@@ -189,8 +194,8 @@ script exits non-zero before its last line):
      and run beside it.
  19. the data-parallel surfaces over a torch.distributed mesh
      (parallel/distributed.py), in child processes (``--mesh-rank``)
-     started after phase 8 that run beside phases 9-13, checked after
-     phase 13: (a) one NCCL rank on the card (initialize_multihost with a
+     started after phase 8 that run beside phases 9-14, checked after
+     phase 14: (a) one NCCL rank on the card (initialize_multihost with a
      file:// rendezvous, make_study_mesh's ("dp",) of size 1): phase 14
      (b)'s study at B=1024 for MESH_STUDY_STEPS steps through
      BatchedStudy(mesh=) (K1 3 launches a step and K2 1, each at
@@ -211,8 +216,8 @@ script exits non-zero before its last line):
      120, D = 3) and batched_study.py (B = 1024 rollouts, 20 steps, the
      prior GP at P = 4, N = 50, D = 6) at their full settings, each
      ``main(quick=False, device="cuda")`` in a child process
-     (``--example-child``) started before phase 15 that runs beside
-     phases 15-18, checked after phase 18: each exits 0 (its own asserts),
+     (``--example-child``) started after phase 6 that runs beside
+     phases 7-18, checked after phase 18: each exits 0 (its own asserts),
      its self-check readings hold (the pendulum upright within 0.1 rad,
      |u| <= 5; the study finite, its checkpoint read back bitwise), its
      K4 and K5 launches are its fit's evaluations + 1 and + 3 and it
@@ -231,9 +236,9 @@ script exits non-zero before its last line):
      every step replayed on the CPU under phase 16 (c)'s bounds.  Phase
      21 is a child process (``--phase-child traced_k2``) on phase 5's
      trajectory, started after phase 6, that runs beside phases 7-14 and
-     is checked before phase 15; its fitted GP goes to phase 16 (c).
+     is checked after phase 14; its fitted GP goes to phase 16 (c).
  22. K1 at any (nx, nu): a child process (``--phase-child network``)
-     started before phase 15 that runs beside phases 15-18, checked
+     started after phase 6 that runs beside phases 7-18, checked
      after phase 18: (a) NET_UNITS = 10 four-tank units side by side
      (nx = 40, nu = 20; the plant's ODE a lambda of slices and a cat,
      traced into K2, 10 substeps; its unit built at its first launch and
@@ -274,18 +279,26 @@ for the data, one K3 launch per validate; SMSE per dim, the validate wall
 time and K3's device time at that shape);
 ``python3 chip_smoke.py --k5-paths`` measures K5's two paths against
 each other (the crossover ``gp_cuda`` sets);
-``python3 chip_smoke.py --compare {k1,k2,k3,k4} OTHER_SRC`` builds OTHER_SRC
-(another version of that kernel's source with the same C interface, e.g.
-the parent commit's, written out with ``git show``) into its own library,
-checks it against the plain version, and times it in turns with the
-repository's kernel (other, repo, repo, other) at phase 11's shapes (for
-k1 also each pre-built (nx, nu) of both builds, bitwise); for
+``python3 chip_smoke.py --compare {k1,k1block,k2,k3,k4} OTHER_SRC``
+builds OTHER_SRC (another version of that kernel's source with the same
+C interface, e.g. the parent commit's, written out with ``git show``)
+into its own library, checks it against the plain version, and times it
+in turns with the repository's kernel (other, repo, repo, other) at
+phase 11's shapes (for k1 also each pre-built (nx, nu) of both builds,
+bitwise; for k1block, K1's block path, first both builds' time by
+section as ``--k1`` takes it, the other's where its source carries
+GPMPC_RICCATI_STAMPS, then phase 11's block rows and (96, 48) at Nt =
+20, the other build's workspace sized by its own layout); for
 k2 it also writes both builds' SASS (cuobjdump) under the build
 directory, counts the K2 kernels' instructions by opcode and reads the
 repository K2's chain in SM cycles;
 ``python3 chip_smoke.py --k1 [OTHER_SRC]`` runs phase 3's K1 and K2 checks,
-phase 22 (b)'s block-path checks and phase 11's K1 lines and block-path
-rows alone, and with OTHER_SRC is ``--compare k1``;
+phase 22 (b)'s block-path checks with the tile and panel edges
+(K1_EDGE_SHAPES), the block path's time by section (its source built
+with GPMPC_RICCATI_STAMPS into a library of its own: SM cycles of the
+stage copy, products, Cholesky, solves, value update and rollout, beside
+the SM clock) and phase 11's K1 lines and block-path rows alone, and
+with OTHER_SRC is ``--compare k1``;
 ``python3 chip_smoke.py --study`` runs phases 1-2 and 14 and the study's
 kernel rows alone; ``--network`` phases 1-2, phase 22 and its block-path
 rows; ``--traced-k2`` phases 1-2, phase 4's traced K2,
@@ -342,6 +355,8 @@ GP_OPTS = dict(jitter=1e-5, min_noise=1e-4)
 #: one H100 SXM: HBM bytes/s and f32 (non-tensor-core) FLOP/s, published
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+#: streaming multiprocessors of an H100 SXM
+H100_SMS = 132
 #: the car bench (bench config 4): control period, the closed loop's steps
 #: (the second obstacle's far edge, px = 13.5, is passed by step ~25; 40
 #: until the smoke passed 900 s with phase 16), the steps replayed on the
@@ -4418,7 +4433,7 @@ def mesh_alone():
 
 #: phase 20: the port's walkthroughs (gpmpc_tpu_torch/examples) at their
 #: full settings, each in a child process (``--example-child``) started
-#: before phase 15 that runs beside phases 15-17; the fits' shapes (P, N,
+#: after phase 6 that runs beside phases 7-18; the fits' shapes (P, N,
 #: D) for their K4 and K5 rows (pendulum: 2 starts x Ny 2 at N = 120, D =
 #: 3; batched_study: 1 start x Ny 4 at N = 50, D = 6); the seconds a child
 #: may take there, and under ``--examples``
@@ -5093,7 +5108,8 @@ def sass_summary(so, tag):
 
 #: --compare's kernels: key -> the C symbol of its launch
 COMPARE = {"k1": "gpmpc_riccati_sweep_f32", "k2": "gpmpc_rk4_substeps_f32",
-           "k3": "gpmpc_gp_predict_batch_f32", "k4": "gpmpc_se_ard_gram_f32"}
+           "k3": "gpmpc_gp_predict_batch_f32", "k4": "gpmpc_se_ard_gram_f32",
+           "k1block": "gpmpc_riccati_sweep_block_f32"}
 
 
 def compare(kernel, other_src):
@@ -5123,16 +5139,31 @@ def compare(kernel, other_src):
     for line in (build.stdout + build.stderr).splitlines():
         if "registers" in line or "spill" in line:
             log(f"[build other] {line.strip()}")
-    fn = getattr(ctypes.CDLL(str(so)), sym)
+    other = ctypes.CDLL(str(so))
+    fn = getattr(other, sym)
     fn.argtypes, fn.restype = getattr(repo, sym).argtypes, ctypes.c_int
     libs = {"other": SimpleNamespace(**{sym: fn}), "repo": repo}
+    layouts = {"repo": ck.riccati_block_layout}
+    if kernel == "k1block":
+        # the other build's workspace follows its own layout
+        other.gpmpc_riccati_block_layout.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+
+        def other_layout(nx, nu):
+            out = (ctypes.c_int * 4)()
+            other.gpmpc_riccati_block_layout(nx, nu, out)
+            return ck.BlockLayout(out[0], bool(out[1]), out[2], out[3])
+
+        layouts["other"] = other_layout
 
     def through(name, call, *args):
-        keep, ck._lib = ck._lib, libs[name]
+        keep = ck._lib, ck.riccati_block_layout
+        ck._lib = libs[name]
+        ck.riccati_block_layout = layouts.get(name, keep[1])
         try:
             return call(*args)
         finally:
-            ck._lib = keep
+            ck._lib, ck.riccati_block_layout = keep
 
     if kernel == "k1":
         err = through("other", ck.check_riccati_sweep,
@@ -5144,6 +5175,26 @@ def compare(kernel, other_src):
         def times(name):
             k1_times(ck, dev, card, sweep=lambda *a: through(
                 name, ck.riccati_sweep, *a))
+    elif kernel == "k1block":
+        err = max(through("other", ck.check_riccati_sweep,
+                          ck.stage_qp_inputs(nt, nx, nu, nt + nx, device=dev),
+                          torch.tensor(1e-6, device=dev))
+                  for _, nt, nx, nu, _ in K1_BLOCK_ROWS[:2])
+        shape = "the network's (40, 20), Nt=20 and (40, 40), Nt=5"
+        # both breakdowns in one call, where the other source carries the
+        # stamps (a source from before them has none of its own)
+        with open(other_src) as f:
+            stamped = "GPMPC_RICCATI_STAMPS" in f.read()
+        if stamped:
+            k1_stamps(ck, dev, card, src=other_src, tag="other")
+        else:
+            log(f"[k1block other] {other_src} has no GPMPC_RICCATI_STAMPS: "
+                f"no breakdown")
+        k1_stamps(ck, dev, card)
+
+        def times(name):
+            k1_block_rows(ck, dev, card, {}, tag=name, sweep=lambda *a:
+                          through(name, ck.riccati_sweep, *a))
     elif kernel == "k2":
         err = through("other", ck.check_rk4_substeps, four_tank_ode,
                       *ck.rk4_inputs(None, 1, dev), 0.3, 10)
@@ -5206,9 +5257,10 @@ def k1_bitwise(ck, dev, through):
 
 
 def k1_alone(other_src=None):
-    """Phase 3's K1 and K2 checks, phase 22 (b)'s block-path checks and
-    phase 11's K1 lines and block-path rows alone; with ``other_src``,
-    ``compare("k1", other_src)``."""
+    """Phase 3's K1 and K2 checks, phase 22 (b)'s block-path checks with
+    the tile and panel edges, the block path's section breakdown
+    (``k1_stamps``), and phase 11's K1 lines and block-path rows alone;
+    with ``other_src``, ``compare("k1", other_src)``."""
     from gpmpc_tpu_torch.ops import cuda_kernels as ck
     from gpmpc_tpu_torch.systems import four_tank_ode
 
@@ -5221,8 +5273,9 @@ def k1_alone(other_src=None):
     ck.build_library()
     log_ptxas(ck)
     check_kernels(ck, four_tank_ode, dev)
-    errs = k1_block_checks(ck, dev)
+    errs = k1_block_checks(ck, dev, edges=True)
     log(f"[K1 block] max|err| by pair {errs}")
+    k1_stamps(ck, dev, card)
     k1_times(ck, dev, card)
     rows = k1_block_rows(ck, dev, card, {})
     print(card_line(), flush=True)
@@ -5602,8 +5655,20 @@ NET_Q_UNIT = np.array([10.0, 10.0, 0.1, 0.1])
 K1_BLOCK_SHAPES = ((31, 2), (4, 33), (40, 20), (40, 40), (96, 48))
 K1_BLOCK_BATCHES = (None, 64)
 K1_BLOCK_NTS = (3, 20, 33)
-#: seconds a phase's child process may take (on an H100: phase 21 ~70 s
-#: as a child, phase 22 ~4-6 min beside phases 15-18)
+#: ``--k1`` also: the block kernel's tile and panel edges (nu on both sides
+#: of one and two 32-column panels; nx on both sides of the warp kernel's
+#: lane limit, of 32 and of 64) and a pair of each layout no other pair
+#: takes -- one stage buffer beside a shared working set (52, 52), one
+#: beside a working set in the workspace (130, 5), a stage past shared
+#: memory, in the workspace too (200, 3) -- at Nt = 3, B = 1 and 64,
+#: outside phase 22 for the smoke's time (the plain version takes seconds
+#: a call at nu 64)
+K1_EDGE_SHAPES = tuple((nx, nu) for nx in (31, 32, 63, 64, 65)
+                       for nu in (32, 33, 64, 65)) + ((52, 52), (130, 5),
+                                                      (200, 3))
+#: seconds a phase's child process may take from its start to its join (on
+#: an H100: phase 21 ~70 s, phases 12-13 ~3 min, phase 15 ~3 min, phase
+#: 22 ~6 min, each beside the main process's phases)
 PHASE_CHILD_TIMEOUT = 900
 
 
@@ -5789,14 +5854,16 @@ def network_loop(ck, dev, card):
                 replay=worst)
 
 
-def k1_block_checks(ck, dev):
+def k1_block_checks(ck, dev, edges=False):
     """Phase 22 (b) and ``--k1``: K1's block path against its plain
     version (``cuda_kernels.riccati_check_tolerances``) at K1_BLOCK_SHAPES
-    x K1_BLOCK_BATCHES x K1_BLOCK_NTS, a batch through the vmap rule, one
-    launch each on the block path and no library of its own; an
-    indefinite and a zero H_uu pivot at each pair (non-finite gains); the
-    layout the built kernel takes against ``riccati_block_layout``.
-    Returns {"nx,nu": max abs error over the pair's checks}."""
+    x K1_BLOCK_BATCHES x K1_BLOCK_NTS (with ``edges`` also K1_EDGE_SHAPES
+    at Nt = 3), a batch through the vmap rule, one launch each on the
+    block path and no library of its own, a repeated launch bitwise the
+    same; an indefinite and a zero H_uu pivot at each pair (non-finite
+    gains); the layout the built kernel takes against
+    ``riccati_block_layout``.  Returns {"nx,nu": max abs error over the
+    pair's checks}."""
     import ctypes
     lib = ck.build_library()
     out = (ctypes.c_int * 4)()
@@ -5810,13 +5877,16 @@ def k1_block_checks(ck, dev):
     log("[K1 block] the kernel's layout equals riccati_block_layout at 301 "
         "pairs")
     errs = {}
-    for nx, nu in K1_BLOCK_SHAPES:
+    grid = [(pair, K1_BLOCK_NTS) for pair in K1_BLOCK_SHAPES]
+    if edges:
+        grid += [(pair, (3,)) for pair in K1_EDGE_SHAPES]
+    for (nx, nu), nts in grid:
         if ck.riccati_path(nx, nu) != "block":
             raise AssertionError(f"({nx}, {nu}) is not on the block path")
         t0 = time.perf_counter()
         line = []
         for batch in K1_BLOCK_BATCHES:
-            for nt in K1_BLOCK_NTS:
+            for nt in nts:
                 args = ck.stage_qp_inputs(nt, nx, nu, nt + nx + nu, batch,
                                           device=dev)
                 reg = torch.full(() if batch is None else (batch,), 1e-6,
@@ -5829,16 +5899,22 @@ def k1_block_checks(ck, dev):
                         nx, nu) in ck.RICCATI_BUILDS:
                     raise AssertionError(f"K1 ({nx}, {nu}) did not launch "
                                          f"once on the block path")
+                if not all(torch.equal(a, b) for a, b in zip(
+                        ck.riccati_sweep(*args, reg),
+                        ck.riccati_sweep(*args, reg))):
+                    raise AssertionError(f"K1 ({nx}, {nu}) does not repeat "
+                                         f"bitwise")
                 errs[f"{nx},{nu}"] = max(errs.get(f"{nx},{nu}", 0.0), err)
                 line.append(f"B={batch or 1} Nt={nt} {err:.2e}")
         for kind in ("indefinite", "zero"):
-            ck.check_riccati_sweep_bad_pivot(kind, device=dev,
-                                             shape=(8, nx, nu))
+            ck.check_riccati_sweep_bad_pivot(
+                kind, device=dev, shape=(min(nts[-1], 8), nx, nu))
         torch.cuda.synchronize()
         log(f"[K1 block] ({nx}, {nu}) {tuple(ck.riccati_block_layout(nx, nu))}"
             f": max|err| against the plain version {'; '.join(line)} (B=64 "
-            f"through the vmap rule; tolerances riccati_check_tolerances); "
-            f"an indefinite and a zero pivot -> non-finite gains "
+            f"through the vmap rule; tolerances riccati_check_tolerances; "
+            f"repeats bitwise); an indefinite and a zero pivot -> "
+            f"non-finite gains "
             f"({time.perf_counter() - t0:.1f} s)")
     return errs
 
@@ -5852,45 +5928,149 @@ def network_phase(ck, dev, card):
     return rec
 
 
-def k1_block_rows(ck, dev, card, launches):
-    """Phase 11's block-path rows: K1 at the network's (40, 20) (Nt = 20,
-    B = 1 and 64) and (40, 40) (the MHE's Nt = 5), and at (96, 48) (Nt =
-    3, past shared memory): each held against its plain version here,
-    event ms over 200 calls, device ms per launch over 200, the plain
-    version's ms over one call after one (it unrolls the nu x nu Cholesky
-    op by op, one launch an op: on an H100 ~0.8-1.8 s a call at these
-    shapes, ~10 s at (96, 48) with Nt = 20), the bound; ``launches`` by
-    "nx,nu" from phase 22 (a) (none at B = 64 or (96, 48))."""
+BLOCK_SRC = "gpmpc_tpu_torch/csrc/riccati_sweep_block.cu"
+#: phase 11's block-path rows: (name, Nt, nx, nu, B), the network's (40,
+#: 20) (Nt = 20, B = 1 and 64) and (40, 40) (the MHE's Nt = 5), and (96,
+#: 48) past shared memory (Nt = 3: the plain version takes ~10 s a call at
+#: Nt = 20, where only ``--compare k1block`` times it)
+K1_BLOCK_ROWS = (("network_mpc", NET_NT, 40, 20, 1),
+                 ("network_mhe", 5, 40, 40, 1), ("B64", NET_NT, 40, 20, 64),
+                 ("workspace", 3, 96, 48, 1))
+
+
+def k1_block_rows(ck, dev, card, launches, tag="repo", sweep=None):
+    """Phase 11's block-path rows at K1_BLOCK_ROWS: each held against its
+    plain version here, event ms over 200 calls, device ms per launch over
+    200, the plain version's ms over one call after one (it unrolls the nu
+    x nu Cholesky op by op, one launch an op: on an H100 ~0.8-1.8 s a call
+    at these shapes), the bound and the one-SM floor; ``launches`` by
+    "nx,nu" from phase 22 (a) (none at B = 64 or (96, 48)).  With
+    ``sweep`` (another build of the block path, for ``--compare
+    k1block``) it times that, without the check or the plain version, at
+    K1_BLOCK_ROWS and (96, 48) with Nt = 20, and nvidia-smi's clocks over
+    the window."""
     rows = []
-    for name, nt, nx, nu, bsz in (
-            ("riccati_sweep[block,40,20,network_mpc]", NET_NT, 40, 20, 1),
-            ("riccati_sweep[block,40,40,network_mhe]", 5, 40, 40, 1),
-            ("riccati_sweep[block,40,20,B64]", NET_NT, 40, 20, 64),
-            ("riccati_sweep[block,96,48,workspace]", 3, 96, 48, 1)):
-        batch = None if bsz == 1 else bsz
-        q = ck.stage_qp_inputs(nt, nx, nu, nt + nx, batch, device=dev)
-        reg = torch.full(() if batch is None else (batch,), 1e-6, device=dev)
-        err = ck.check_riccati_sweep(q, reg)
-        out = ck.riccati_sweep(*q, reg)
-        ms = cuda_time_ms(lambda: ck.riccati_sweep(*q, reg), reps=200)
-        dev_ms, _, note = device_time_ms(lambda: ck.riccati_sweep(*q, reg))
-        plain = cuda_time_ms(lambda: ck.riccati_sweep_reference(*q, reg),
-                             reps=1, warmup=1)
-        bd = bound(nbytes(*q, reg, *out), bsz * riccati_flops(nt, nx, nu))
-        n = launches.get(f"{nx},{nu}", 0) if bsz == 1 and nx == 40 else 0
-        log(f"[time] riccati_sweep block path ({nx}, {nu}) at Nt={nt}, "
-            f"B={bsz}: kernel {ms:.4f} ms, device {fmt_ms(dev_ms)}{note} per "
-            f"launch, plain {plain:.4f} ms, bound {bd[0]:.3e} ms ({bd[1]}); "
-            f"{n} launches on its path; max|err| {err:.3e}; layout "
-            f"{tuple(ck.riccati_block_layout(nx, nu))} on {card}")
-        rows.append({"name": name, "route": "cuda",
-                     "source": "gpmpc_tpu_torch/csrc/riccati_sweep_block.cu",
-                     "replaces": "gpmpc_tpu/ops/pallas_kernels.py:394",
-                     "launches": n, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain, "device_ms": dev_ms,
-                     "bound_ms": bd[0], "bound_by": bd[1],
-                     "library_ms": None})
+    shapes = K1_BLOCK_ROWS + ((("workspace", NET_NT, 96, 48, 1),)
+                              if sweep else ())
+    call = sweep or ck.riccati_sweep
+    with SmiSampler() as smi:
+        for name, nt, nx, nu, bsz in shapes:
+            batch = None if bsz == 1 else bsz
+            q = ck.stage_qp_inputs(nt, nx, nu, nt + nx, batch, device=dev)
+            reg = torch.full(() if batch is None else (batch,), 1e-6,
+                             device=dev)
+            err = None if sweep else ck.check_riccati_sweep(q, reg)
+            out = call(*q, reg)
+            ms = cuda_time_ms(lambda: call(*q, reg), reps=200)
+            dev_ms, _, note = device_time_ms(lambda: call(*q, reg))
+            plain = None if sweep else cuda_time_ms(
+                lambda: ck.riccati_sweep_reference(*q, reg), reps=1,
+                warmup=1)
+            flops = riccati_flops(nt, nx, nu)
+            bd = bound(nbytes(*q, reg, *out), bsz * flops)
+            # a block a problem runs on one SM: its share of the f32 peak
+            floor = flops / (F32_FLOPS / H100_SMS) * 1e3
+            n = launches.get(f"{nx},{nu}", 0) if bsz == 1 and nx == 40 else 0
+            log(f"[time {tag}] riccati_sweep block path ({nx}, {nu}) at "
+                f"Nt={nt}, B={bsz}: kernel {ms:.4f} ms, device "
+                f"{fmt_ms(dev_ms)}{note} per launch, plain "
+                f"{'not timed' if plain is None else f'{plain:.4f} ms'}, "
+                f"bound {bd[0]:.3e} ms ({bd[1]}), one-SM floor {floor:.4f} "
+                f"ms; {n} launches on its path; max|err| "
+                f"{'not checked' if err is None else f'{err:.3e}'}; layout "
+                f"{tuple(ck.riccati_block_layout(nx, nu))} on {card}")
+            rows.append({"name": f"riccati_sweep[block,{nx},{nu},{name}]",
+                         "route": "cuda", "source": BLOCK_SRC,
+                         "replaces": "gpmpc_tpu/ops/pallas_kernels.py:394",
+                         "launches": n, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain, "device_ms": dev_ms,
+                         "bound_ms": bd[0], "bound_by": bd[1],
+                         "one_sm_floor_ms": floor, "library_ms": None})
+    log(f"[time {tag}] nvidia-smi over the block rows: {smi.summary()}")
     return rows
+
+
+#: ``--k1``'s section breakdown of the block path: (name, Nt, nx, nu) at
+#: B = 1, the network's MPC and MHE
+K1_STAMP_SHAPES = (("network_mpc", NET_NT, 40, 20), ("network_mhe", 5, 40, 40))
+#: the sections the kernel's clock64 stamps split a launch into
+K1_SECTIONS = ("stage copy", "products", "Cholesky", "solves",
+               "value update + decrease", "rollout")
+
+
+def sm_clock_mhz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def k1_stamps(ck, dev, card, src=None, tag="repo", reps=50):
+    """``--k1``'s breakdown of the block path by section: ``src`` (the
+    repository's ``csrc/riccati_sweep_block.cu`` by default) built with
+    ``GPMPC_RICCATI_STAMPS`` into a library of its own, launched ``reps``
+    times at each of K1_STAMP_SHAPES; thread 0 of problem 0 sums the SM
+    cycles of each section (clock64), printed per launch and per stage
+    beside the SM clock nvidia-smi reads right after and the stamped
+    build's event ms.  Returns {name: {section: cycles a launch}}."""
+    import ctypes
+    from types import SimpleNamespace
+    src = src or str(ck.CSRC / "riccati_sweep_block.cu")
+    so = ck.BUILD_DIR / "k1_stamps" / f"libgpmpc_riccati_block_stamps_{tag}.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    build = subprocess.run([ck._nvcc(), *ck.NVCC_FLAGS,
+                            "-DGPMPC_RICCATI_STAMPS", "-shared", "-o",
+                            str(so), src], capture_output=True, text=True)
+    if build.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src} with the stamps:\n"
+                           f"{build.stdout}{build.stderr}")
+    for line in (build.stdout + build.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[K1 stamps {tag}] {line.strip()}")
+    lib = ctypes.CDLL(str(so))
+    repo = ck.build_library()
+    fn = lib.gpmpc_riccati_sweep_block_f32
+    fn.argtypes = repo.gpmpc_riccati_sweep_block_f32.argtypes
+    fn.restype = ctypes.c_int
+    lib.gpmpc_riccati_block_stamps.argtypes = [ctypes.c_void_p]
+    lib.gpmpc_riccati_block_stamps.restype = ctypes.c_int
+    out = (ctypes.c_ulonglong * 8)()
+    stamped = SimpleNamespace(gpmpc_riccati_sweep_block_f32=fn)
+    result = {}
+    keep, ck._lib = ck._lib, stamped
+    try:
+        for name, nt, nx, nu in K1_STAMP_SHAPES:
+            q = ck.stage_qp_inputs(nt, nx, nu, nt + nx, device=dev)
+            reg = torch.tensor(1e-6, device=dev)
+            err = ck.check_riccati_sweep(q, reg)
+            ms = cuda_time_ms(lambda: ck.riccati_sweep(*q, reg), reps=reps)
+            torch.cuda.synchronize()
+            lib.gpmpc_riccati_block_stamps(out)
+            for _ in range(reps):
+                ck.riccati_sweep(*q, reg)
+            torch.cuda.synchronize()
+            mhz = sm_clock_mhz()
+            code = lib.gpmpc_riccati_block_stamps(out)
+            if code != 0 or out[6] != reps:
+                raise RuntimeError(f"K1 stamps: {code}, {out[6]} launches "
+                                   f"stamped of {reps}")
+            cyc = {s: out[i] / reps for i, s in enumerate(K1_SECTIONS)}
+            total = sum(cyc.values())
+            result[name] = dict(cycles=cyc, total=total, sm_mhz=mhz, ms=ms,
+                                nt=nt, err=err)
+            parts = "; ".join(
+                f"{s} {c:.0f} ({100 * c / total:.1f}%, "
+                f"{c / (1 if s == 'rollout' else nt):.0f} a stage)"
+                for s, c in cyc.items())
+            log(f"[K1 stamps {tag}] ({nx}, {nu}) Nt={nt} B=1: SM cycles a "
+                f"launch (thread 0) {total:.0f} = {total / mhz / 1e3:.4f} ms "
+                f"at the SM clock {mhz:.0f} MHz read after; event "
+                f"{ms:.4f} ms a launch (stamped build, {reps} calls); "
+                f"max|err| {err:.3e}; {parts} on {card}")
+    finally:
+        ck._lib = keep
+    return result
 
 
 def network_alone():
@@ -5990,7 +6170,9 @@ def gp_from_record(rec, dev):
 def phase_child(name, out_dir):
     """A phase's child process (:class:`PhaseChild`): ``traced_k2`` runs
     phase 21 on phase 5's trajectory (``traced_k2_in.npz``), ``network``
-    phase 22; each writes its result to ``NAME.json``."""
+    phase 22, ``car`` phases 12-13 and ``slice_f`` phase 15 (its TA step
+    from a 3-step loop of its own, as ``--slice-f`` makes it); each
+    writes its result to ``NAME.json``."""
     from gpmpc_tpu_torch.ops import cuda_kernels as ck
     card = card_line()
     dev = torch.device("cuda")
@@ -6002,6 +6184,13 @@ def phase_child(name, out_dir):
         res = dict(launches=launches, gp=gp_record(gp))
     elif name == "network":
         res = network_phase(ck, dev, card)
+    elif name == "car":
+        from gpmpc_tpu_torch.ops import gp_cuda as gc
+        res = dict(launches=car_loop(ck, dev, card),
+                   val_launches=car_validation(ck, gc, dev, card))
+    elif name == "slice_f":
+        from gpmpc_tpu_torch.ops import gp_cuda as gc
+        res = dict(rows=slice_f_phase(ck, gc, dev, card))
     else:
         raise ValueError(f"no phase child {name!r}")
     with open(os.path.join(out_dir, f"{name}.json"), "w") as fh:
@@ -6176,11 +6365,22 @@ def main(argv):
         log(f"[profile]   {name:60s} {count:6d} launches/{MAIN_PROFILED} "
             f"steps {us:9.1f} us/step")
 
-    # 21. the main path as the JAX package builds it and the quadrotor's
-    # loop, each plant's ODE traced into K2: a child process on phase 5's
-    # trajectory that runs beside phases 7-14, checked before phase 15
-    p21 = PhaseChild("traced_k2", inputs=dict(xs=xs_np))
+    # Phases 12-13, 15 and 20-22 run in child processes beside the main
+    # process's phases (each is one host thread; the card is idle most of
+    # any step), started after phase 6's timings and joined after phase
+    # 18: 22. the four-tank network under output feedback (K1's block
+    # path, the longest) at once; 21. the main path as the JAX package
+    # builds it and the quadrotor's loop (each plant's ODE traced into K2,
+    # on phase 5's trajectory), 12-13. the car's closed loop and its
+    # validation, and 20. the walkthroughs at full settings beside phases
+    # 7-14; 15. slice F part 1 beside phases 16-18
+    children = [PhaseChild("network"), PhaseChild("traced_k2",
+                                                  inputs=dict(xs=xs_np)),
+                PhaseChild("car")]
+    p22, p21, p_car = children
     try:
+        ex_children = ExampleChildren(EXAMPLES_FULL, quick=False)
+        children.append(ex_children)
         # 7. the GP path's kernels against their plain versions
         errs = check_gp_kernels(gc, dev)
         errs.update(riccati_sweep=k1_err, rk4_substeps=k2_err)
@@ -6191,36 +6391,20 @@ def main(argv):
             ck, dev, "fixture", dict(multistart=1, max_iters=100))
         gp_example, _ = train_on_card(ck, dev, "example", MESH_FIT)
         # 19. the data-parallel surfaces over a mesh: child processes that
-        # run beside phases 9-13, checked after phase 13
+        # run beside phases 9-14, checked after phase 14
         mesh_children = MeshChildren(gp_example)
-        try:
-            val_launches = validate_on_card(ck, dev, gp)
-            trained_loop(dev, gp, xs_np, us_np)
-
-            # 12. the car's closed loop, 13. the car's validation
-            car_launches = car_loop(ck, dev, card)
-            car_val_launches = car_validation(ck, gc, dev, card)
-            mesh_rows_19 = mesh_phase(ck, gc, dev, card, mesh_children)
-        finally:
-            mesh_children.stop()
+        children.append(mesh_children)
+        val_launches = validate_on_card(ck, dev, gp)
+        trained_loop(dev, gp, xs_np, us_np)
 
         # 14. the batched study
         study_launches, study_res = study_phase(ck, dev, card)
+        mesh_rows_19 = mesh_phase(ck, gc, dev, card, mesh_children)
         r21 = p21.join()
-    finally:
-        p21.stop()
-    traced_launches = r21["launches"]
-    quad_gp = gp_from_record(r21["gp"], dev)
-
-    # 20. the walkthroughs at full settings and 22. the four-tank network
-    # under output feedback (K1's block path): child processes that run
-    # beside phases 15-18, checked after phase 18
-    ex_children = ExampleChildren(EXAMPLES_FULL, quick=False)
-    p22 = PhaseChild("network")
-    try:
-        # 15. slice F, part 1: UT, GH, cubature5, the Matérn fits and
-        # loop, soft and terminal constraints with a reference trajectory
-        slice_f_rows = slice_f_phase(ck, gc, dev, card, ta_step=rti_step)
+        traced_launches = r21["launches"]
+        quad_gp = gp_from_record(r21["gp"], dev)
+        p15 = PhaseChild("slice_f")
+        children.append(p15)
 
         # 16. slice F, part 2a: the tank's output-feedback loop, K1 built
         # on demand, the quadrotor's hybrid mismatch
@@ -6230,21 +6414,21 @@ def main(argv):
         # under solve_mc (K3 vmapped), the adaptive plant and the DAE, the
         # sparse GP; phase 18's export and deploy children run beside it
         g_children = SliceGChildren()
-        try:
-            slice_f3_rows = slice_f3_phase(ck, gc, dev, card, step_ms)
-        except BaseException:
-            g_children.stop()
-            raise
+        children.append(g_children)
+        slice_f3_rows = slice_f3_phase(ck, gc, dev, card, step_ms)
 
         # 18. slice G: the deployable RTI solve step (export, serve,
         # deploy; the eager step's trace is phase 6's)
         slice_g_rows = slice_g_phase(ck, dev, card, g_children,
                                      eager_trace=False)
+        slice_f_rows = p15.join()["rows"]
+        car = p_car.join()
+        car_launches, car_val_launches = car["launches"], car["val_launches"]
         examples_rows = examples_phase(gc, dev, card, ex_children)
         network = p22.join()
     finally:
-        ex_children.stop()
-        p22.stop()
+        for child in children:
+            child.stop()
 
     # 11. kernel times beside their bounds
     times = kernel_times(ck, gc, four_tank_ode, dev, card)

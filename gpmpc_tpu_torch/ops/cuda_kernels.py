@@ -290,28 +290,41 @@ class BlockLayout(typing.NamedTuple):
     buffers: int        # stage buffers in shared memory: 2, 1 or 0
     work_smem: bool     # the working set in shared memory, else workspace
     work_floats: int    # floats of the working set (a problem's workspace)
-    smem_bytes: int     # dynamic shared memory of the launch
+    smem_bytes: int     # dynamic shared memory of the launch, gains aside
+
+
+#: columns of a Cholesky panel on K1's block path: ``PANEL`` of
+#: ``csrc/riccati_sweep_block.cu``
+RICCATI_BLOCK_PANEL = 32
 
 
 def riccati_block_layout(nx: int, nu: int) -> BlockLayout:
     """The block path's layout at (nx, nu), mirroring the kernel: every
-    array padded to 4 floats; a stage (A, B, c, Q_xx, Q_uu, Q_xu, q_x, q_u)
-    and the working set (V, v_x, A'V, B'V, Vc, H_xx, H_xu, H_uu, its
-    factor and roots, the solutions [nu][nx + 1], h_x, h_u, the forward
-    state twice and the input).  Two stage buffers beside the working set
-    where they fit RICCATI_SMEM_OPTIN, else one; past that the working set
-    goes to a workspace in device memory (``work_floats`` a problem) and
-    the stages keep two buffers, one, or none (read from device memory)
-    as they fit.  For nx = nu = n the working set leaves shared memory
-    from n = 67."""
+    array 16-byte aligned, the row strides of Z, V, S odd multiples of 4
+    floats (``ld4``).  A stage buffer holds Z = [A B c] (nx rows of
+    ld4(nx + nu + 1)) and QH, the cost terms laid out as H (nx + nu rows of
+    Z's stride); the working set V (nx rows of ld4(nx)), v_x, M (as Z), H
+    and h (nx + nu rows of Z's stride), H_uu's factor (pad4(nu) rows of the
+    odd nu | 1), S (nu rows of ld4(nx + 1)), the current panel's factor
+    (min(nu, 32) rows of min(nu, 32) | 1), the forward state twice and du.
+    Two stage buffers beside the working set where they fit
+    RICCATI_SMEM_OPTIN, else one; past that the working set goes to a
+    workspace in device memory (``work_floats`` a problem) and the stages
+    keep two buffers or one, or (past one) a buffer in the workspace.  The
+    launch adds all Nt stages' gains to ``smem_bytes`` where they fit.  For
+    nx = nu = n the working set leaves shared memory from n = 61."""
     def pad4(n):
         return (n + 3) & ~3
 
-    xx, xu, uu = nx * nx, nx * nu, nu * nu
-    stage = (2 * pad4(xx) + 2 * pad4(xu) + pad4(uu) + 2 * pad4(nx)
-             + pad4(nu))
-    work = (3 * pad4(xx) + 2 * pad4(xu) + 2 * pad4(uu) + 3 * pad4(nx)
-            + 3 * pad4(nu) + pad4(nu * (nx + 1)) + pad4(2 * nx))
+    def ld4(n):     # an odd multiple of 4 floats
+        return pad4(n) if pad4(n) & 4 else pad4(n) + 4
+
+    n = nx + nu
+    ldn, ldv, lds, ldw = ld4(n + 1), ld4(nx), ld4(nx + 1), nu | 1
+    pw = min(nu, RICCATI_BLOCK_PANEL)
+    stage = nx * ldn + n * ldn
+    work = (nx * ldv + ldv + nx * ldn + n * ldn + pad4(pad4(nu) * ldw)
+            + nu * lds + pad4(pw * (pw | 1)) + 2 * ldv + pad4(nu))
     optin = RICCATI_SMEM_OPTIN // 4
     if work + 2 * stage <= optin:
         buffers, work_smem = 2, True
@@ -320,6 +333,8 @@ def riccati_block_layout(nx: int, nu: int) -> BlockLayout:
     else:
         work_smem = False
         buffers = 2 if 2 * stage <= optin else (1 if stage <= optin else 0)
+        if buffers == 0:
+            work += stage
     smem = 4 * (buffers * stage + (work if work_smem else 0))
     return BlockLayout(buffers, work_smem, work, smem or 16)
 

@@ -122,6 +122,57 @@ def test_riccati_block_path_vmap_rule_launches_once(dev, nx, nu):
         assert torch.equal(g, r)
 
 
+#: K1's block path at its tile and panel edges: nu on both sides of one
+#: and two 32-column Cholesky panels, nx on both sides of the warp kernel's
+#: lane limit and of 32 and 64 (4-row tiles, a float4's padding)
+K1_EDGE_NU = [32, 33, 64, 65]
+K1_EDGE_NX = [31, 32, 63, 64, 65]
+#: and one pair of each layout no edge pair takes: one stage buffer beside
+#: a working set in shared memory (52, 52); one beside a working set in
+#: the workspace (130, 5); a stage past shared memory, so in the workspace
+#: too (200, 3)
+K1_LAYOUT_PAIRS = [(52, 52), (130, 5), (200, 3)]
+
+
+@pytest.mark.parametrize("batch", [None, 64])
+@pytest.mark.parametrize("nx,nu", [(nx, nu) for nx in K1_EDGE_NX
+                                   for nu in K1_EDGE_NU] + K1_LAYOUT_PAIRS)
+def test_riccati_block_path_at_tile_and_panel_edges(dev, nx, nu, batch):
+    """At Nt = 3, one problem and a batch of 64 through the vmap rule (one
+    launch): within the plain version's tolerances, and a repeated launch
+    bitwise the same; at one problem also an indefinite and a zero H_uu
+    pivot give non-finite gains."""
+    assert ck.riccati_path(nx, nu) == "block"
+    args = ck.stage_qp_inputs(3, nx, nu, 3 + nx + nu, batch, device=dev)
+    reg = torch.full(() if batch is None else (batch,), 1e-6, device=dev)
+    ck.reset_launches()
+    ck.check_riccati_sweep(args, reg, vmapped=batch is not None)
+    torch.cuda.synchronize()
+    assert ck.RICCATI_LAUNCHES == {(nx, nu): 1}
+    for g, r in zip(ck.riccati_sweep(*args, reg),
+                    ck.riccati_sweep(*args, reg)):
+        assert torch.equal(g, r)
+    if batch is None:
+        for kind in ("indefinite", "zero"):
+            ck.check_riccati_sweep_bad_pivot(kind, device=dev,
+                                             shape=(3, nx, nu))
+
+
+@pytest.mark.parametrize("nx,nu", [(40, 20), (40, 40), (65, 33), (96, 48)])
+def test_riccati_block_path_takes_an_asymmetric_cost_as_the_plain_version(
+        dev, nx, nu):
+    """Q_xx and Q_uu with a strictly upper triangular part added: the
+    plain version factors H_uu's lower triangle as given and takes V and
+    the decrease from the whole of Q; the block path agrees within its
+    tolerances."""
+    args = ck.stage_qp_inputs(3, nx, nu, 7 + nx + nu, device=dev)
+    gen = torch.Generator().manual_seed(nx * 100 + nu)
+    for i, n in ((3, nx), (4, nu)):
+        upper = torch.triu(0.1 * torch.randn((3, n, n), generator=gen), 1)
+        args[i] = (args[i] + upper.to(dev)).contiguous()
+    ck.check_riccati_sweep(args, torch.tensor(1e-6, device=dev))
+
+
 def test_riccati_block_layout_is_the_library_s(dev):
     """``riccati_block_layout`` is the layout the built kernel takes, on
     both sides of every break for nx = nu and at lopsided pairs."""

@@ -169,21 +169,39 @@ def test_riccati_routing(nx, nu, path, work_smem):
         assert lay.smem_bytes + 4 * lay.work_floats > RICCATI_SMEM_OPTIN
 
 
+def _block_source_host_part():
+    """csrc/riccati_sweep_block.cu's constants, tile schedule and
+    block_layout: the part of the source that the host compiler takes, from
+    its GPMPC_HD macro to the first device-only definition."""
+    src = (CSRC / "riccati_sweep_block.cu").read_text()
+    start = src.index("#if defined(__CUDACC__)")
+    end = src.index("constexpr unsigned FULL")
+    return ("#include <cmath>\n#include <cstdio>\n#include <vector>\n"
+            + src[start:end] + "}  // namespace\n")
+
+
+def _compile_and_run(tmp_path, name, code):
+    (tmp_path / f"{name}.cpp").write_text(code)
+    cxx = shutil.which("g++")
+    subprocess.run([cxx, "-std=c++17", "-O2", "-o", str(tmp_path / name),
+                    str(tmp_path / f"{name}.cpp")], check=True)
+    return subprocess.run([str(tmp_path / name)], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def test_riccati_block_layout_mirrors_the_kernel_source(tmp_path):
     """riccati_block_layout is csrc/riccati_sweep_block.cu's block_layout:
     the source's own function (and its constants), compiled here with the
     host g++, gives the same layout at pairs on both sides of every break;
-    the source's thread count is RICCATI_BLOCK_THREADS and its opt-in the
-    warp kernel's SMEM_OPTIN."""
+    the source's thread count is RICCATI_BLOCK_THREADS, its panel width
+    RICCATI_BLOCK_PANEL and its opt-in the warp kernel's SMEM_OPTIN."""
     src = (CSRC / "riccati_sweep_block.cu").read_text()
     assert re.findall(r"constexpr int THREADS = (\d+);", src) == [
         str(RICCATI_BLOCK_THREADS)]
+    assert re.findall(r"constexpr int PANEL = (\d+);", src) == [
+        str(cuda_kernels.RICCATI_BLOCK_PANEL)]
     assert re.findall(r"constexpr int OPTIN_FLOATS = (\d+) / 4;", src) == [
         str(RICCATI_SMEM_OPTIN)]
-    pieces = [re.search(p, src, re.S).group(0) for p in (
-        r"constexpr int OPTIN_FLOATS.*?;", r"constexpr int pad4.*?\}",
-        r"struct BlockLayout \{.*?\};",
-        r"inline BlockLayout block_layout\(.*?\n\}")]
     pairs = [(n, n) for n in range(1, 130)] + [
         (31, 2), (4, 33), (40, 20), (96, 48), (200, 3), (3, 200), (300, 10)]
     main = "\n".join(
@@ -191,23 +209,114 @@ def test_riccati_block_layout_mirrors_the_kernel_source(tmp_path):
         f'printf("%d %d %d %d\\n", L.buffers, L.work_smem, L.work, '
         f"L.smem_bytes); }}"
         for a, b in pairs)
-    (tmp_path / "lay.cpp").write_text(
-        "#include <cstdio>\n" + "\n".join(pieces)
-        + f"\nint main() {{\n{main}\n}}\n")
-    cxx = shutil.which("g++")
-    subprocess.run([cxx, "-std=c++17", "-o", str(tmp_path / "lay"),
-                    str(tmp_path / "lay.cpp")], check=True)
-    out = subprocess.run([str(tmp_path / "lay")], capture_output=True,
-                         text=True, check=True).stdout.split("\n")
+    out = _compile_and_run(tmp_path, "lay", _block_source_host_part()
+                           + f"int main() {{\n{main}\n}}\n").split("\n")
     for (a, b), line in zip(pairs, out):
         buffers, work_smem, work, smem = map(int, line.split())
         assert riccati_block_layout(a, b) == (buffers, bool(work_smem), work,
                                               smem), (a, b)
     # the breaks the source states for nx = nu = n
-    assert [riccati_block_layout(n, n)[:2] for n in (56, 57, 66, 67, 75, 76,
-                                                     107, 108)] == [
+    assert [riccati_block_layout(n, n)[:2] for n in (50, 51, 60, 61, 69, 70,
+                                                     97, 98)] == [
         (2, True), (1, True), (1, True), (2, False), (2, False), (1, False),
         (1, False), (0, False)]
+
+
+#: the C++ check of the block kernel's tile schedule, over every (nx, nu)
+#: in 1..N: each product's entries owned by exactly one tile, each tile's
+#: reads and writes inside its padded arrays, H_uu's panels a partition
+#: and their trailing and back updates each entry once
+_SCHEDULE_CHECK = r"""
+static int bad = 0;
+static void fail(const char* what, int nx, int nu, int t) {
+  if (bad++ < 20) printf("FAIL %s at (%d, %d) tile %d\n", what, nx, nu, t);
+}
+// every entry (i, j) of a rows x cols output written by exactly one tile of
+// the pass; reads of P's columns below pld and Q's below qld
+static void pass(int nx, int nu, bool tri, int rows, int cols, int col,
+                 int pld, int qld, std::vector<int>& own, const char* what) {
+  own.assign(rows * cols, 0);
+  const int nt = tri ? tri_count(rows, col) : rect_count(rows, cols);
+  for (int t = 0; t < nt; ++t) {
+    const Tile T = tri ? tri_tile(t, rows, col) : rect_tile(t, cols);
+    if (T.i0 + 3 >= pld || T.j0 + T.tn - 1 >= qld) fail(what, nx, nu, t);
+    for (int e = 0; e < 4; ++e)
+      for (int f = 0; f < T.tn; ++f) {
+        const int i = T.i0 + e, j = T.j0 + f;
+        if (tile_keeps(T, i, j, rows, cols, tri)) {
+          if (i < 0 || j < 0 || i >= rows || j >= cols) fail(what, nx, nu, t);
+          else ++own[i * cols + j];
+        }
+      }
+  }
+  for (int i = 0; i < rows; ++i)
+    for (int j = 0; j < cols; ++j) {
+      const bool want = !tri || j <= i || (col >= 0 && j == col);
+      if (own[i * cols + j] != (want ? 1 : 0)) fail(what, nx, nu, -1);
+    }
+}
+int main() {
+  std::vector<int> own;
+  int pairs = 0;
+  for (int nx = 1; nx <= N; ++nx)
+    for (int nu = 1; nu <= N; ++nu) {
+      ++pairs;
+      const BlockLayout L = block_layout(nx, nu);
+      const int n = nx + nu;
+      // M = V [A B c]: V rows of ldv, Z and M rows of ldn
+      pass(nx, nu, false, nx, n + 1, -1, L.ldv, L.ldn, own, "M");
+      // H and h: Z rows (P) and M rows (Q) of ldn
+      pass(nx, nu, true, n, n + 1, n, L.ldn, L.ldn, own, "H");
+      // V and v_x: H rows (P, ldn) and S rows (Q, lds)
+      pass(nx, nu, true, nx, nx + 1, nx, L.ldn, L.lds, own, "V");
+      // H_uu's panels: a partition of its columns
+      int c = 0;
+      for (int p = 0; p < panel_count(nu); ++p) {
+        const int pw = panel_width(p, nu), c0 = PANEL * p, c1 = c0 + pw;
+        if (c0 != c || pw < 1 || pw > PANEL) fail("panel", nx, nu, p);
+        c = c1;
+        if (p == panel_count(nu) - 1) continue;
+        const int rows = nu - c1;
+        // the trailing update: W rows c1 .. of ldw (pad4(nu) rows), S rows
+        pass(nx, nu, true, rows, rows, -1, L.ldw - c0, L.ldw - c0, own,
+             "trailing W");
+        if (c1 + 4 * cdiv4(rows) > pad4(nu)) fail("W rows", nx, nu, p);
+        pass(nx, nu, false, rows, nx + 1, -1, L.ldw - c0, L.lds, own,
+             "trailing S");
+        // the back update: L21' S_below, the panel's rows of S
+        pass(nx, nu, false, pw, nx + 1, -1, L.ldw - c0, L.lds, own,
+             "back S");
+      }
+      if (c != nu) fail("panels", nx, nu, -1);
+      // the layout: aligned arrays, none past shared memory
+      const int offs[] = {L.z, L.qh, L.stage, L.v, L.vx, L.m, L.h, L.w,
+                          L.s, L.pv, L.xf, L.uf, L.zs, L.work, L.ldn,
+                          L.ldv, L.lds};
+      for (int o : offs)
+        if (o % 4) fail("alignment", nx, nu, o);
+      if (L.ldw % 2 == 0 || L.ldp % 2 == 0 || L.ldn < n + 1 ||
+          L.ldv < nx || L.lds < nx + 1 || L.smem_bytes > 4 * OPTIN_FLOATS)
+        fail("layout", nx, nu, -1);
+    }
+  printf("%d pairs, %d failures\n", pairs, bad);
+}
+"""
+
+
+def test_riccati_block_tile_schedule_owns_every_entry_once(tmp_path):
+    """The block kernel's tile and panel index functions, compiled out of
+    csrc/riccati_sweep_block.cu with the host g++ (they are __host__
+    __device__), at every (nx, nu) in 1..130: each entry of M, of H's
+    lower triangle and h, of V's lower triangle and v_x, and of each
+    panel's trailing and back updates is written by exactly one tile; no
+    tile reads a column past its array's padded leading dimension (nor W
+    past its padded rows); the panels partition H_uu's columns; every
+    array offset is 16-byte aligned and W's and the factor's leading
+    dimensions are odd."""
+    out = _compile_and_run(
+        tmp_path, "sched", _block_source_host_part()
+        + "constexpr int N = 130;\n" + _SCHEDULE_CHECK)
+    assert out.strip().splitlines()[-1] == "16900 pairs, 0 failures", out
 
 
 def test_riccati_block_path_is_in_the_main_library(tmp_path, monkeypatch):
